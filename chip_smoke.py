@@ -1,0 +1,320 @@
+#!/usr/bin/env python3
+"""Chip smoke test: drive the PyTorch port's main path once on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one NVIDIA GPU (H100,
+sm_90a). It needs no network and nothing but the checkout: the CUDA kernel
+and the native host library are built from the repository's sources at
+first use. Phases, each printing one line; any failure raises and the
+script exits non-zero:
+
+  1. the card (nvidia-smi name and power limit); no CUDA -> failure;
+  2. build: a 4.6 Mbp benchmark genome (15% duplications and tandem
+     repeats), ONE suffix array, a k=16 aligner index and a k=21 query
+     index on the host (before CUDA starts: the host build may fork), then
+     the SW kernel (nvcc, sm_90a);
+  3. kernel vs plain: the CUDA SW kernel against the plain PyTorch
+     sw_pass on the card, at the aligner's shapes (16384 pairs, 100-base
+     reads padded to 112 rows, 128-base windows, ragged lengths, related
+     lanes), pad 16 and pad 8 + second_inclusive, full and score-only,
+     and terminate: every field must be equal; CUDA-event times of both;
+  4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
+     SAM on the card; the first 1,000 reads' SAM must be byte-identical to
+     the port's CPU path, and both SW kernel modes must have launched;
+  5. query: 1,000,000 21-base queries (7/8 from the genome, 1/8 random)
+     on the k=21 index on the card; every in-genome query must self-check
+     and the first 100,000 positions must equal the CPU path's.
+
+The line before the last is a JSON object describing each kernel; the last
+is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 20260816
+GENOME_N = 4_600_000
+N_READS = 20_000
+READ_LEN = 100
+N_SAM_CHECK = 1_000
+N_QUERIES = 1_000_000
+QUERY_LEN = 21
+N_QUERY_CHECK = 100_000
+SW_BATCH, SW_W, SW_R = 16_384, 100, 128
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def build_indexes(genome_n: int):
+    """Host phase: one suffix array, two index builds (k=16, k=21)."""
+    import numpy as np
+
+    from sapling_tpu_torch.config import IndexConfig
+    from sapling_tpu_torch.index.sapling import SaplingIndex
+    from sapling_tpu_torch.index.suffix_array import build_suffix_data
+    from sapling_tpu_torch.io.fasta import Genome
+    from sapling_tpu_torch.sim.genomes import benchmark_genome
+
+    seq = benchmark_genome(genome_n, seed=SEED)
+    genome = Genome(seq=seq, chr_ends=[(genome_n, "bench")])
+    suffix = build_suffix_data(seq, np.int32)
+    idx16 = SaplingIndex.build(genome, IndexConfig(k=16), suffix=suffix)
+    idx21 = SaplingIndex.build(genome, IndexConfig(k=21, buckets=22),
+                               suffix=suffix, keep_aligner_arrays=False)
+    return seq, idx16, idx21
+
+
+def _time_ms(fn, dev, reps: int = 10, warm: int = 2) -> float:
+    import torch
+
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(stop) / reps
+
+
+def sw_batch(dev, b: int):
+    """A seeded batch of b SW pairs at aligner shapes on `dev`: (query,
+    qlen, ref, rlen) with ragged lengths and every third lane related."""
+    import numpy as np
+    import torch
+
+    w, r = SW_W, SW_R
+    rng = np.random.default_rng(SEED)
+    q = rng.integers(0, 5, (b, w)).astype(np.int8)
+    ref = rng.integers(0, 5, (b, r)).astype(np.int8)
+    for i in range(0, b, 3):            # related lanes score high
+        off = int(rng.integers(0, r - w + 1))
+        ref[i, off:off + w] = q[i]
+    qlen = rng.integers(w - 30, w + 1, b).astype(np.int32)
+    rlen = rng.integers(r - 40, r + 1, b).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (q, qlen, ref, rlen))
+
+
+def kernel_vs_plain(dev) -> dict:
+    """Phase 3: the kernel wrapper against the plain sw_pass on `dev`."""
+    import torch
+
+    from sapling_tpu_torch.ops.sw import sw_pass
+    from sapling_tpu_torch.ops.sw_cuda import sw_pass_cuda
+
+    q, qlen, ref, rlen = sw_batch(dev, SW_BATCH)
+    no_term = torch.full((SW_BATCH,), -1, dtype=torch.int32, device=dev)
+    term = sw_pass(q, qlen, ref, rlen, no_term)["score"].contiguous()
+    cases = [("pad16", no_term, dict(pad_to=16)),
+             ("pad8", no_term, dict(pad_to=8, second_inclusive=True)),
+             ("terminate", term, dict(pad_to=16))]
+    err = {"full": 0, "score_only": 0}
+    for name, tm, kw in cases:
+        for so in (False, True):
+            if so and tm is term:
+                continue               # score-only takes no terminate
+            a = sw_pass(q, qlen, ref, rlen, tm, score_only=so, **kw)
+            k = sw_pass_cuda(q, qlen, ref, rlen, tm, score_only=so, **kw)
+            mode = "score_only" if so else "full"
+            for f in a:
+                d = int((a[f].long() - k[f].long()).abs().max())
+                err[mode] = max(err[mode], d)
+                if d:
+                    raise AssertionError(
+                        f"kernel != plain: {name} {mode} field {f}: "
+                        f"{int((a[f] != k[f]).sum())} lanes differ")
+    out = {m: {"max_abs_err": err[m]} for m in err}
+    for mode, so in (("full", False), ("score_only", True)):
+        out[mode]["ms"] = _time_ms(lambda: sw_pass_cuda(
+            q, qlen, ref, rlen, no_term, score_only=so), dev)
+        out[mode]["plain_ms"] = _time_ms(lambda: sw_pass(
+            q, qlen, ref, rlen, no_term, score_only=so), dev,
+            reps=3, warm=1)
+    return out
+
+
+def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
+    """Phase 4: FASTQ -> SAM on `dev`; the first N_SAM_CHECK reads
+    byte-checked against the CPU path. Returns counts, rates and launch
+    counts."""
+    n_reads, n_check = N_READS, N_SAM_CHECK
+    from sapling_tpu_torch.align.aligner import SeedExtendAligner
+    from sapling_tpu_torch.config import AlignerConfig
+    from sapling_tpu_torch.io.fastq import read_fastq
+    from sapling_tpu_torch.ops import sw_cuda
+    from sapling_tpu_torch.sim.genomes import simulate_reads, write_fastq
+
+    reads, true_pos, _rc = simulate_reads(seq, n_reads, READ_LEN,
+                                          sub_rate=0.01, seed=SEED + 1)
+    fq = os.path.join(workdir, "reads.fq")
+    fq_head = os.path.join(workdir, "reads_head.fq")
+    write_fastq(fq, reads)
+    write_fastq(fq_head, reads[:n_check])
+    aligner = SeedExtendAligner(idx16, AlignerConfig(), device=dev)
+    # one warm block: first-use setup (device arrays, kernel load)
+    aligner.align_block(list(read_fastq(fq_head)))
+
+    sam = os.path.join(workdir, "dev.sam")
+    for k in sw_cuda.LAUNCHES:
+        sw_cuda.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    aligner.align_fastq(fq, sam, cl="chip_smoke")
+    dt = time.perf_counter() - t0
+    launches = dict(sw_cuda.LAUNCHES)
+
+    cpu_sam = os.path.join(workdir, "cpu.sam")
+    SeedExtendAligner(idx16, AlignerConfig(), device="cpu").align_fastq(
+        fq_head, cpu_sam, cl="chip_smoke")
+    with open(sam, "rb") as f:
+        dev_lines = f.read().split(b"\n")
+    with open(cpu_sam, "rb") as f:
+        cpu_lines = f.read().split(b"\n")
+    n_head = sum(1 for ln in dev_lines if ln.startswith(b"@"))
+    want = cpu_lines[:n_head + n_check]
+    if dev_lines[:n_head + n_check] != want:
+        bad = next(i for i, (a, b) in enumerate(zip(dev_lines, want))
+                   if a != b)
+        raise AssertionError(f"SAM differs from the CPU path at line {bad}")
+
+    aligned = near = 0
+    recs = [ln.split(b"\t") for ln in dev_lines[n_head:] if ln]
+    if len(recs) != n_reads:
+        raise AssertionError(f"{len(recs)} SAM records for {n_reads} reads")
+    for i, rec in enumerate(recs):
+        if int(rec[1]) != 4:
+            aligned += 1
+            near += abs(int(rec[3]) - 1 - int(true_pos[i])) <= 10
+    return dict(reads_per_s=n_reads / dt, seconds=dt, aligned=aligned,
+                near=near, launches=launches, sam_checked=n_check,
+                phases=dict(aligner.phase_seconds))
+
+
+def query_codes(seq):
+    """Seeded query codes [N_QUERIES, QUERY_LEN]: the first n_in taken
+    from the genome, the last N_QUERIES // 8 random. Returns (codes,
+    n_in)."""
+    import numpy as np
+
+    from sapling_tpu_torch.ops import pack as packops
+
+    n_q, length = N_QUERIES, QUERY_LEN
+    rng = np.random.default_rng(SEED + 2)
+    n_in = n_q - n_q // 8
+    starts = rng.integers(0, len(seq) - length + 1, n_in)
+    q = np.concatenate([
+        seq[starts[:, None] + np.arange(length)],
+        np.frombuffer(b"ACGT", np.uint8)[
+            rng.integers(0, 4, (n_q - n_in, length))]])
+    return packops.encode_bases(q), n_in
+
+
+def query_phase(dev, seq, idx21) -> dict:
+    """Phase 5: 21-base plquery on `dev`, self-checked, positions held
+    against the CPU path on the first N_QUERY_CHECK queries."""
+    import numpy as np
+
+    length, n_check = QUERY_LEN, N_QUERY_CHECK
+    codes, n_in = query_codes(seq)
+    didx = idx21.to(dev)
+    x, q3 = didx.query_inputs(codes)
+    pos = didx.query_device(x, q3, length).cpu().numpy()
+    ok = didx.verify_hits(codes, pos)
+    if not ok[:n_in].all():
+        raise AssertionError(
+            f"{int((~ok[:n_in]).sum())} in-genome queries failed self-check")
+    want = idx21.to("cpu").query_positions(codes[:n_check])
+    if not np.array_equal(pos[:n_check], want):
+        raise AssertionError(
+            f"{int((pos[:n_check] != want).sum())} positions differ from "
+            "the CPU path")
+    out = dict(self_check=int(ok[:n_in].sum()), in_genome=n_in,
+               random_found=int(ok[n_in:].sum()))
+    ms = _time_ms(lambda: didx.query_device(x, q3, length), dev,
+                  reps=5, warm=1)
+    out.update(ms=ms, qps=N_QUERIES / (ms / 1e3))
+    return out
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    import torch  # noqa: F401  (fails here on a machine without PyTorch)
+
+    from sapling_tpu_torch.ops import sw_cuda
+
+    # 1. the card
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: no GPU")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(f"card: {smi}")
+
+    # 2. build (host indexes first: nothing has touched CUDA yet)
+    t0 = time.perf_counter()
+    seq, idx16, idx21 = build_indexes(GENOME_N)
+    log(f"build: {GENOME_N} bp genome, k=16 and k=21 indexes on the host "
+        f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sw_cuda.build_kernel()
+    log(f"build: SW kernel (nvcc sm_90a) in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+
+    # 3. kernel vs plain on the card
+    kp = kernel_vs_plain(dev)
+    log("kernel vs plain: all fields equal (pad16, pad8+second_inclusive, "
+        f"terminate; full and score-only) at B={SW_BATCH} W={SW_W} R={SW_R};"
+        f" full {kp['full']['ms']:.3f} ms vs plain "
+        f"{kp['full']['plain_ms']:.3f} ms, score-only "
+        f"{kp['score_only']['ms']:.3f} ms vs plain "
+        f"{kp['score_only']['plain_ms']:.3f} ms")
+
+    # 4. aligner, 5. query
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        al = aligner_phase(dev, seq, idx16, workdir=td)
+    if min(al["launches"].values()) == 0:
+        raise AssertionError(f"SW kernel not launched: {al['launches']}")
+    log(f"aligner: {N_READS} reads in {al['seconds']:.3f} s = "
+        f"{al['reads_per_s']:.1f} reads/s; aligned {al['aligned']}, within "
+        f"10 bp of truth {al['near']}; first {al['sam_checked']} reads' SAM "
+        f"byte-identical to the CPU path; launches {al['launches']}; "
+        f"phases {json.dumps({k: round(v, 3) for k, v in al['phases'].items()})}")
+    if al["aligned"] < 0.9 * N_READS or al["near"] < 0.8 * al["aligned"]:
+        raise AssertionError(f"too few good alignments: {al}")
+    qr = query_phase(dev, seq, idx21)
+    log(f"query: {N_QUERIES} 21-base queries in {qr['ms']:.3f} ms = "
+        f"{qr['qps']:.1f} q/s; self-check {qr['self_check']}/"
+        f"{qr['in_genome']} in-genome; first {N_QUERY_CHECK} positions "
+        "identical to the CPU path")
+
+    src = os.path.relpath(sw_cuda.SOURCE, ROOT)
+    kernels = [
+        {"name": "sw_pass_full", "route": "cuda", "source": src,
+         "replaces": "sapling_tpu/ops/sw_pallas.py:36",
+         "launches": al["launches"]["full"], **kp["full"]},
+        {"name": "sw_pass_score_only", "route": "cuda", "source": src,
+         "replaces": "sapling_tpu/ops/sw_pallas.py:81",
+         "launches": al["launches"]["score_only"], **kp["score_only"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,320 @@
+"""SaplingIndex: the user-facing learned suffix-array index.
+
+Equivalent surface to the reference's `struct Sapling`
+(reference: src/sapling_api.h:17-679): the constructor-side state (genome,
+rev, inv, PWL table, error bounds, chrEnds) lives as typed numpy arrays on
+the host, in the same `.stpu.npz` artifact format as `sapling_tpu`, so an
+artifact built by either package loads in the other. `to(device)` gives
+the index on the device the queries run on; the arrays the query reads
+there are made from the host arrays on first use (`device_arrays`).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..config import IndexConfig
+from ..io import artifacts
+from ..io.fasta import Genome, read_fasta
+from ..ops import pack as packops
+from ..ops.query import plquery_batch
+from .pwl import PwlTable, build_pwl
+from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
+
+# the dataclass fields an index is made of (from_arrays copies these)
+_ARRAY_FIELDS = ("n", "k", "buckets", "packed", "rev", "inv", "table",
+                 "chr_ends", "codes", "prefix64", "prefix3", "lcpk_fwd",
+                 "lcpk_bwd", "rev_hi", "inv_hi")
+
+
+def _pos_dtype(n: int, cfg: str = "auto"):
+    """Rank/position STORAGE dtype on the host (the artifact's dtype)."""
+    if cfg in ("int32", "int64", "uint32"):
+        return np.dtype(cfg).type
+    if n < np.iinfo(np.int32).max:
+        return np.int32
+    if n < np.iinfo(np.uint32).max - 1:
+        return np.uint32
+    return np.int64
+
+
+def _build_dtype(pdt):
+    """The native SA-IS builder emits int32/int64 only."""
+    return np.int64 if np.dtype(pdt) == np.uint32 else pdt
+
+
+@dataclass
+class SaplingIndex:
+    n: int
+    k: int
+    buckets: int
+    packed: np.ndarray            # uint32 2-bit genome, padded
+    rev: np.ndarray               # rank -> pos
+    inv: np.ndarray               # pos -> rank (aligner seeds need it)
+    table: PwlTable
+    chr_ends: list[tuple[int, str]] = field(default_factory=list)
+    codes: np.ndarray | None = None       # uint8 0..3 (host; optional)
+    prefix64: np.ndarray | None = None    # uint64 per-rank 32-base prefixes
+    prefix3: np.ndarray | None = None     # uint64 per-rank 21-base 3-bit
+    lcpk_fwd: np.ndarray | None = None    # forward run of lcp>=k (aligner)
+    lcpk_bwd: np.ndarray | None = None    # backward run of lcp>=k
+    # split-limb ranks of >= 2^32-base artifacts: loaded and saved so the
+    # format round-trips, refused by the query and the aligner
+    rev_hi: np.ndarray | None = None
+    inv_hi: np.ndarray | None = None
+    device: torch.device = field(default=torch.device("cpu"))
+    _device: dict = field(default_factory=dict, repr=False)
+
+    # --- construction -------------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        genome: Genome | np.ndarray,
+        cfg: IndexConfig | None = None,
+        suffix: SuffixData | None = None,
+        keep_aligner_arrays: bool = True,
+    ) -> "SaplingIndex":
+        cfg = cfg or IndexConfig()
+        if isinstance(genome, Genome):
+            seq, chr_ends = genome.seq, genome.chr_ends
+        else:
+            seq, chr_ends = np.asarray(genome, dtype=np.uint8), []
+        n = int(seq.shape[0])
+        buckets = cfg.resolved_buckets(n)
+        pdt = _pos_dtype(n, cfg.pos_dtype)
+        if suffix is None:
+            suffix = build_suffix_data(seq, _build_dtype(pdt))
+        codes = packops.encode_bases(seq)
+        table = build_pwl(codes, suffix.inv, suffix.lcp, cfg.k, buckets,
+                          cfg.most_threshold)
+        packed = packops.pack_codes(codes, pad_words=16)
+        rev = np.empty(n, dtype=pdt)
+        rev[suffix.inv] = np.arange(n, dtype=pdt)
+        want_prefix = cfg.prefix_lookup and n <= cfg.prefix_max_n
+        prefix64 = packops.rank_prefix64(codes, rev) if want_prefix else None
+        prefix3 = packops.rank_prefix3(codes, rev) if want_prefix else None
+        idx = cls(
+            n=n, k=cfg.k, buckets=buckets, packed=packed, rev=rev,
+            inv=suffix.inv.astype(pdt), table=table, chr_ends=list(chr_ends),
+            codes=codes, prefix64=prefix64, prefix3=prefix3,
+        )
+        if keep_aligner_arrays:
+            fwd, bwd = lcp_ge_k_runs(suffix.lcp, cfg.k)
+            idx.lcpk_fwd = np.minimum(fwd, 255).astype(np.uint8)
+            idx.lcpk_bwd = np.minimum(bwd, 255).astype(np.uint8)
+        return idx
+
+    @classmethod
+    def from_arrays(cls, src, device="cpu") -> "SaplingIndex":
+        """An index made of another index object's host arrays: any object
+        with SaplingIndex's fields, such as a `sapling_tpu` SaplingIndex.
+        The numpy arrays are shared, not copied."""
+        return cls(**{f: getattr(src, f) for f in _ARRAY_FIELDS},
+                   device=torch.device(device))
+
+    @classmethod
+    def from_fasta(cls, path: str, cfg: IndexConfig | None = None,
+                   cache: bool = True) -> "SaplingIndex":
+        """Build from a FASTA path with the reference's artifact-caching
+        pattern: <path>.sa and <path>_k<k>_b<buckets>.stpu.npz are
+        transparently reloaded if present, else built and written
+        (reference: src/sapling_api.h:552-675)."""
+        cfg = cfg or IndexConfig()
+        genome = read_fasta(path)
+        npz = f"{path}_k{cfg.k}_b{cfg.buckets}.stpu.npz"
+        if cache and os.path.exists(npz):
+            return cls.load(npz)
+        sa_path = path + ".sa"
+        pdt = _pos_dtype(genome.n, cfg.pos_dtype)
+        bdt = _build_dtype(pdt)
+        if os.path.exists(sa_path):
+            inv64, lcp64 = artifacts.read_sa(sa_path)
+            inv = inv64.astype(bdt)
+            sa = np.empty(genome.n, dtype=bdt)
+            sa[inv] = np.arange(genome.n, dtype=bdt)
+            suffix = SuffixData(sa=sa, inv=inv, lcp=lcp64.astype(bdt))
+        else:
+            suffix = build_suffix_data(genome.seq, bdt)
+            if cache:
+                artifacts.write_sa(sa_path, suffix.inv, suffix.lcp)
+        idx = cls.build(genome, cfg, suffix=suffix)
+        if cache:
+            idx.save(npz)
+        return idx
+
+    # --- persistence ---------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        ends = np.array([e for e, _ in self.chr_ends], dtype=np.int64)
+        names = np.array([nm for _, nm in self.chr_ends])
+        artifacts.save_npz(
+            path,
+            format_version=np.int64(4 if self.rev_hi is not None else 3),
+            n=np.int64(self.n), k=np.int64(self.k),
+            buckets=np.int64(self.buckets),
+            packed=self.packed, rev=self.rev, inv=self.inv,
+            xlist=self.table.xlist, ylist=self.table.ylist,
+            stats=np.array([self.table.max_over, self.table.max_under,
+                            self.table.mean_error, self.table.most_over,
+                            self.table.most_under], dtype=np.int64),
+            chr_end_pos=ends, chr_end_name=names,
+            codes=self.codes if self.codes is not None else np.zeros(0, np.uint8),
+            prefix64=(self.prefix64 if self.prefix64 is not None
+                      else np.zeros(0, np.uint64)),
+            prefix3=(self.prefix3 if self.prefix3 is not None
+                     else np.zeros(0, np.uint64)),
+            lcpk_fwd=self.lcpk_fwd if self.lcpk_fwd is not None else np.zeros(0, np.uint8),
+            lcpk_bwd=self.lcpk_bwd if self.lcpk_bwd is not None else np.zeros(0, np.uint8),
+            bounds=(self.table.bounds if self.table.bounds is not None
+                    else np.zeros(0, np.uint32)),
+            rev_hi=(self.rev_hi if self.rev_hi is not None
+                    else np.zeros(0, np.uint8)),
+            inv_hi=(self.inv_hi if self.inv_hi is not None
+                    else np.zeros(0, np.uint8)),
+        )
+
+    # 1: pre-prefix3 artifacts; 2: +prefix3; 3: +per-bucket bounds;
+    # 4: +split-limb rev_hi/inv_hi (>= 2^32-base genomes)
+    SUPPORTED_FORMATS = (1, 2, 3, 4)
+
+    @classmethod
+    def load(cls, path: str, device="cpu") -> "SaplingIndex":
+        """Load an artifact written by either package."""
+        z = artifacts.load_npz(path)
+        ver = int(z.get("format_version", 1))
+        if ver not in cls.SUPPORTED_FORMATS:
+            raise IOError(
+                f"{path}: unsupported index artifact format v{ver} "
+                f"(supported: {cls.SUPPORTED_FORMATS})")
+        st = z["stats"]
+        table = PwlTable(
+            buckets=int(z["buckets"]), xlist=z["xlist"], ylist=z["ylist"],
+            max_over=int(st[0]), max_under=int(st[1]), mean_error=int(st[2]),
+            most_over=int(st[3]), most_under=int(st[4]),
+            bounds=(z["bounds"] if "bounds" in z and z["bounds"].size
+                    else None),
+        )
+        chr_ends = [(int(e), str(nm)) for e, nm in
+                    zip(z["chr_end_pos"], z["chr_end_name"])]
+
+        def opt(name):
+            return z[name] if name in z and z[name].size else None
+
+        return cls(
+            n=int(z["n"]), k=int(z["k"]), buckets=int(z["buckets"]),
+            packed=z["packed"], rev=z["rev"], inv=z["inv"], table=table,
+            chr_ends=chr_ends, codes=opt("codes"), prefix64=opt("prefix64"),
+            prefix3=opt("prefix3"), lcpk_fwd=opt("lcpk_fwd"),
+            lcpk_bwd=opt("lcpk_bwd"), rev_hi=opt("rev_hi"),
+            inv_hi=opt("inv_hi"), device=torch.device(device),
+        )
+
+    # --- device state --------------------------------------------------------
+
+    def to(self, device) -> "SaplingIndex":
+        """This index on `device` (the Tensor.to idiom): self when it is
+        there already, else a new index that shares the host arrays and
+        makes its own device arrays on first use. self is never moved."""
+        if torch.device(device) == self.device:
+            return self
+        return type(self).from_arrays(self, device)
+
+    def device_arrays(self) -> dict:
+        """The arrays the query and the aligner read on `self.device`,
+        made on first use: rev and the PWL checkpoints as int64, prefix3
+        as an int64 view (its values are < 2^63, so signed compares are
+        exact), and the packed genome words widened to int64 (values
+        < 2^32; the CPU has no uint32 arithmetic in torch)."""
+        if not self._device:
+            if self.rev_hi is not None:
+                raise NotImplementedError(
+                    "split-limb (>= 2^32-base) indexes are not supported "
+                    "by the PyTorch query yet")
+
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device)
+
+            self._device = {
+                "rev": put(self.rev.astype(np.int64)),
+                "xlist": put(self.table.xlist.astype(np.int64)),
+                "ylist": put(self.table.ylist.astype(np.int64)),
+                "prefix3": (put(self.prefix3.view(np.int64))
+                            if self.prefix3 is not None else None),
+                "packed": put(self.packed.astype(np.int64)),
+            }
+        return self._device
+
+    # --- queries -------------------------------------------------------------
+
+    def kmerize_batch(self, codes2d: np.ndarray) -> np.ndarray:
+        return packops.batch_kmers_adjusted(codes2d, self.k)
+
+    def query_inputs(self, codes2d: np.ndarray):
+        """Host-side packing of a [B, L] code batch into the query's
+        device inputs: (x, q3) int64 tensors on `self.device`."""
+        dev = self.device_arrays()
+        length = int(codes2d.shape[1])
+        q3 = None
+        if (dev["prefix3"] is not None
+                and length <= min(self.k, packops.P3_BASES)):
+            q3 = torch.from_numpy(
+                packops.pack_queries3(codes2d).view(np.int64)).to(self.device)
+        x = torch.from_numpy(self.kmerize_batch(codes2d)).to(self.device)
+        return x, q3
+
+    def query_device(self, x: torch.Tensor, q3: torch.Tensor | None,
+                     length: int) -> torch.Tensor:
+        """plQuery over prepared device inputs (query_inputs) -> int64 [B]
+        positions on `self.device`, -1 = not found."""
+        dev = self.device_arrays()
+        t = self.table
+        return plquery_batch(
+            dev["rev"], dev["xlist"], dev["ylist"], dev["prefix3"], q3, x,
+            n=self.n, length=length, k=self.k, buckets=self.buckets,
+            most_over=t.most_over, most_under=t.most_under,
+            max_over=t.max_over, max_under=t.max_under)
+
+    def query_positions(self, codes2d: np.ndarray) -> np.ndarray:
+        """plQuery over a [B, L] batch of base codes -> [B] positions (-1 =
+        not found). Equivalent of reference plQuery (src/sapling_api.h:159)."""
+        x, q3 = self.query_inputs(codes2d)
+        out = self.query_device(x, q3, int(codes2d.shape[1]))
+        return out.cpu().numpy()
+
+    def count_hits(self, sa_ranks: np.ndarray, max_hits: int = 32):
+        """Number of additional suffix-array neighbors sharing the first k
+        bases with each rank: (left, right) counts, each capped at
+        max_hits. Equivalent of reference countHitsLeft/countHitsRight
+        (src/sapling_api.h:254-303), vectorized over the lcp>=k
+        run-length arrays. The reference's off-by-one left walk can step
+        to rev[-1] (UB); left is clamped to the ranks that exist."""
+        n, k = self.n, self.k
+        sa_ranks = np.asarray(sa_ranks)
+        m = self.lcpk_fwd.shape[0]                # == n-1 lcp entries
+        sp = np.clip(sa_ranks, 0, m - 1)
+        fwd = np.where(sa_ranks < m, self.lcpk_fwd[sp].astype(np.int64), 0)
+        bwd = np.where(sa_ranks < m, self.lcpk_bwd[sp].astype(np.int64), 0)
+        # the right walk also stops at rank > n-k (":258"), a RANK cap
+        right = np.minimum(np.minimum(fwd, n - k - sa_ranks + 1), max_hits)
+        right = np.maximum(right, 0)
+        left = np.minimum(np.minimum(bwd, max_hits), sa_ranks)
+        return left, right
+
+    def verify_hits(self, codes2d: np.ndarray, positions: np.ndarray) -> np.ndarray:
+        """Self-check: does the genome substring at each position equal the
+        query? (reference: src/sapling_example.cpp:143-154)."""
+        if self.codes is None:
+            raise ValueError("index was built without host codes")
+        length = codes2d.shape[1]
+        ok = (positions >= 0) & (positions + length <= self.n)
+        good = np.zeros(codes2d.shape[0], dtype=bool)
+        pos_ok = positions[ok]
+        window = self.codes[pos_ok[:, None] + np.arange(length)]
+        good[ok] = (window == codes2d[ok]).all(axis=1)
+        return good
