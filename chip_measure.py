@@ -19,10 +19,17 @@ and queries (same seeds) and measures:
            torch.profiler (device time by kernel);
   query:   query_device on 1,000,000 21-base queries, five CUDA-event
            timings; one profiled call (device kernels and their time);
-           query_positions as a user calls it (host clock).
+           query_positions as a user calls it (host clock);
+  sweep:   chip_smoke.py's length sweep (11 ... 101) on the k=21 index as
+           built and without prefix arrays, three CUDA-event timings each,
+           and one profiled call per index at lengths 21 and 101;
+  baselines: the plain and the llcp/rlcp-pruned binary search on the
+           21-base queries, three timings and one profiled call each.
 
-Prints one line per measurement and writes all of them, with the card's
-name and power limit, as JSON to out.json (default
+Profiled calls also give the device's busy share within their own
+window. Prints one line per measurement and writes all of them, with the
+card's name, power limit and UUID and the host's name, as JSON to
+out.json (default
 chiprun_out/measure.json). Exits non-zero without a GPU.
 """
 
@@ -30,7 +37,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -159,30 +165,43 @@ def aligner_times(dev, seq, idx16, workdir: str) -> dict:
     return out
 
 
-def query_times(dev, seq, idx21) -> dict:
+def profiled(fn, dev) -> dict:
+    """One call of fn under torch.profiler: host wall ms, the number of
+    device events (kernels, copies, memsets), their summed ms, and `busy`,
+    that sum over the wall time of the same profiled call (the profiler
+    slows the host side, so this is a floor of the unprofiled share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    length = cs.QUERY_LEN
-    codes, _n_in = cs.query_codes(seq)
-    didx = idx21.to(dev)
-    x, q3 = didx.query_inputs(codes)
-    ms = [cs._time_ms(lambda: didx.query_device(x, q3, length), dev,
-                      reps=5, warm=1) for _ in range(5)]
-    log(f"query_device {cs.N_QUERIES} queries: " + ", ".join(
-        f"{t:.3f} ms = {cs.N_QUERIES / t / 1e3:.1f}M q/s" for t in ms))
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        didx.query_device(x, q3, length)
+        fn()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     ev = device_events(prof)
-    launches = sum(c for c, _ms in ev.values())
-    busy = sum(ms for _c, ms in ev.values())
+    busy_ms = sum(ms for _c, ms in ev.values())
+    return dict(wall_ms=wall * 1e3,
+                device_events=sum(c for c, _ms in ev.values()),
+                device_ms=busy_ms, busy=busy_ms / (wall * 1e3), events=ev)
+
+
+def query_times(dev, seq, idx21) -> dict:
+    length = cs.QUERY_LEN
+    codes, _n_in = cs.query_codes(seq)
+    didx = idx21.to(dev)
+    inputs = didx.query_inputs(codes)
+    ms = [cs._time_ms(lambda: didx.query_device(*inputs, length), dev,
+                      reps=5, warm=1) for _ in range(5)]
+    log(f"query_device {cs.N_QUERIES} queries: " + ", ".join(
+        f"{t:.3f} ms = {cs.N_QUERIES / t / 1e3:.1f}M q/s" for t in ms))
+
+    prof = profiled(lambda: didx.query_device(*inputs, length), dev)
+    wall, launches, busy = (prof["wall_ms"] / 1e3, prof["device_events"],
+                            prof["device_ms"])
     log(f"query_device profiled: {wall * 1e3:.3f} ms wall, {launches} "
-        f"device events, {busy:.3f} ms device time summed")
+        f"device events, {busy:.3f} ms device time summed "
+        f"({100 * prof['busy']:.1f}% busy)")
 
     host = []
     for _ in range(2):
@@ -191,9 +210,61 @@ def query_times(dev, seq, idx21) -> dict:
         host.append(time.perf_counter() - t0)
     log(f"query_positions {cs.N_QUERIES} queries (host packing + copies): "
         + ", ".join(f"{s:.3f} s = {cs.N_QUERIES / s:.1f} q/s" for s in host))
-    return dict(query_device_ms=ms, profile=dict(
-        wall_ms=wall * 1e3, device_events=launches, device_ms=busy,
-        events=ev), query_positions_s=host)
+    return dict(query_device_ms=ms, profile=prof, query_positions_s=host)
+
+
+def sweep_times(dev, seq, idx21) -> list[dict]:
+    """The length sweep on both indexes; profiled at lengths 21 and 101."""
+    from sapling_tpu_torch.ops import query
+
+    rows = []
+    for length in cs.SWEEP:
+        codes, _n_in = cs.query_codes(seq, length)
+        row = dict(length=length)
+        for name, idx in (("built", idx21),
+                          ("no_prefix", cs.without_prefix(idx21))):
+            didx = idx.to(dev)
+            inputs = didx.query_inputs(codes)
+            query.ROUNDS.update(C=0, D=0)
+            didx.query_device(*inputs, length)
+            r = dict(form=cs._probe_form(idx, length),
+                     rounds=dict(query.ROUNDS),
+                     ms=[cs._time_ms(lambda: didx.query_device(
+                         *inputs, length), dev, reps=3, warm=1)
+                         for _ in range(3)])
+            r["qps"] = [cs.N_QUERIES / (t / 1e3) for t in r["ms"]]
+            if length in (21, 101):
+                r["profile"] = profiled(
+                    lambda: didx.query_device(*inputs, length), dev)
+            row[name] = r
+            log(f"sweep L={length} {name} ({r['form']}): " + ", ".join(
+                f"{t:.3f} ms" for t in r["ms"])
+                + f" = {max(r['qps']) / 1e6:.2f}M q/s best; rounds "
+                f"{r['rounds']}" + (
+                    f"; profiled {r['profile']['device_events']} device "
+                    f"events, {r['profile']['device_ms']:.3f} ms device "
+                    f"time, {r['profile']['wall_ms']:.3f} ms wall "
+                    f"({100 * r['profile']['busy']:.1f}% busy)"
+                    if "profile" in r else ""))
+            del inputs, didx
+        rows.append(row)
+    return rows
+
+
+def baseline_times(dev, seq, idx21, tables) -> dict:
+    codes, _n_in = cs.query_codes(seq)
+    out = {}
+    for name, fn in cs.baseline_runs(idx21.to(dev), codes, tables).items():
+        ms = [cs._time_ms(fn, dev, reps=3, warm=1) for _ in range(3)]
+        prof = profiled(fn, dev)
+        out[name] = dict(ms=ms, qps=[cs.N_QUERIES / (t / 1e3) for t in ms],
+                         profile=prof)
+        log(f"{name} {cs.N_QUERIES} queries: " + ", ".join(
+            f"{t:.3f} ms" for t in ms) + f"; profiled "
+            f"{prof['device_events']} device events, "
+            f"{prof['device_ms']:.3f} ms device time, "
+            f"{prof['wall_ms']:.3f} ms wall ({100 * prof['busy']:.1f}% busy)")
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -206,20 +277,21 @@ def main(argv: list[str]) -> int:
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
     out_path = argv[0] if argv else os.path.join(
         cs.ROOT, "chiprun_out", "measure.json")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    info = cs.card()
+    log(f"card: {info['name_power']}, {info['uuid']} on host "
+        f"{info['host']}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}")
 
-    seq, idx16, idx21 = cs.build_indexes(cs.GENOME_N)   # before CUDA starts
+    seq, idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)  # before CUDA
     sw_cuda.build_kernel()
     dev = torch.device("cuda", 0)
-    res = dict(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+    res = dict(card=info, torch=torch.__version__, cuda=torch.version.cuda,
                sw=sw_times(dev))
     with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
         res["aligner"] = aligner_times(dev, seq, idx16, td)
     res["query"] = query_times(dev, seq, idx21)
+    res["sweep"] = sweep_times(dev, seq, idx21)
+    res["baselines"] = baseline_times(dev, seq, idx21, tables)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(res, f, indent=1)

@@ -6,10 +6,11 @@
 Run from the root of a checkout, on a machine with one NVIDIA GPU (H100,
 sm_90a). It needs no network and nothing but the checkout: the CUDA kernel
 and the native host library are built from the repository's sources at
-first use. Phases, each printing one line; any failure raises and the
-script exits non-zero:
+first use. Phases, each printing a line (the sweep one per length); any
+failure raises and the script exits non-zero:
 
-  1. the card (nvidia-smi name and power limit); no CUDA -> failure;
+  1. the card (nvidia-smi name and power limit, then its UUID and the
+     host's name); no CUDA -> failure;
   2. build: a 4.6 Mbp benchmark genome (15% duplications and tandem
      repeats), ONE suffix array, a k=16 aligner index and a k=21 query
      index on the host (before CUDA starts: the host build may fork), then
@@ -22,9 +23,25 @@ script exits non-zero:
   4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
      SAM on the card; the first 1,000 reads' SAM must be byte-identical to
      the port's CPU path, and both SW kernel modes must have launched;
+  4b. aligner without prefix arrays: the first 1,000 reads again, on a copy
+     of the k=16 index without prefix64/prefix3, so every seed takes the
+     general path over the packed genome; the SAM must be byte-identical to
+     phase 4's;
   5. query: 1,000,000 21-base queries (7/8 from the genome, 1/8 random)
      on the k=21 index on the card; every in-genome query must self-check
-     and the first 100,000 positions must equal the CPU path's.
+     and the first 100,000 positions must equal the CPU path's;
+  6. length sweep: the reference's lengths 11, 21, 31, 41, 51 and 101,
+     1,000,000 queries each, on the k=21 index as built (fast3 up to 21,
+     then prefix64 probes up to 32, then the packed genome) and on a copy
+     without prefix64/prefix3 (packed-genome probes throughout); at
+     lengths >= k every in-genome query must self-check (below k the
+     reference's algorithm does not promise it), the two indexes must
+     agree on every lane and the first 100,000 positions must equal the
+     CPU path's;
+     CUDA-event times, phase D bisection rounds and phase C stride steps;
+  7. baselines: the plain and the llcp/rlcp-pruned binary search on phase
+     5's queries; in-genome queries must self-check and the first 100,000
+     positions must equal the CPU path's.
 
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -32,6 +49,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -48,6 +66,7 @@ N_SAM_CHECK = 1_000
 N_QUERIES = 1_000_000
 QUERY_LEN = 21
 N_QUERY_CHECK = 100_000
+SWEEP = (11, 21, 31, 41, 51, 101)   # tools/sapling_example.py at k=21
 SW_BATCH, SW_W, SW_R = 16_384, 100, 128
 
 
@@ -56,12 +75,15 @@ def log(msg: str) -> None:
 
 
 def build_indexes(genome_n: int):
-    """Host phase: one suffix array, two index builds (k=16, k=21)."""
+    """Host phase: one suffix array, two index builds (k=16, k=21) and the
+    llcp/rlcp tables of the pruned binary search. Returns (seq, idx16,
+    idx21, (llcp, rlcp))."""
     import numpy as np
 
     from sapling_tpu_torch.config import IndexConfig
     from sapling_tpu_torch.index.sapling import SaplingIndex
-    from sapling_tpu_torch.index.suffix_array import build_suffix_data
+    from sapling_tpu_torch.index.suffix_array import (build_llcp_rlcp,
+                                                      build_suffix_data)
     from sapling_tpu_torch.io.fasta import Genome
     from sapling_tpu_torch.sim.genomes import benchmark_genome
 
@@ -71,23 +93,37 @@ def build_indexes(genome_n: int):
     idx16 = SaplingIndex.build(genome, IndexConfig(k=16), suffix=suffix)
     idx21 = SaplingIndex.build(genome, IndexConfig(k=21, buckets=22),
                                suffix=suffix, keep_aligner_arrays=False)
-    return seq, idx16, idx21
+    tables = build_llcp_rlcp(np.asarray(suffix.lcp, np.int64), genome_n)
+    return seq, idx16, idx21, tables
+
+
+def without_prefix(idx):
+    """A copy of `idx` without prefix64/prefix3 and with no device arrays
+    yet (as an index above IndexConfig.prefix_max_n is built): every probe
+    reads the packed genome."""
+    return dataclasses.replace(idx, prefix64=None, prefix3=None, _device={})
 
 
 def _time_ms(fn, dev, reps: int = 10, warm: int = 2) -> float:
-    import torch
+    """CUDA-event milliseconds per call of fn (utils.timing.timed)."""
+    from sapling_tpu_torch.utils.timing import timed
 
-    for _ in range(warm):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize(dev)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize(dev)
-    return start.elapsed_time(stop) / reps
+    return timed(fn, dev, reps=reps, warm=warm)[1] * 1e3
+
+
+def card() -> dict:
+    """The card as nvidia-smi reports it (name and power limit, its UUID)
+    and the host's name, so that two calls' numbers can be told apart by
+    the machine they ran on."""
+    import socket
+
+    def smi(fields):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip()
+
+    return dict(name_power=smi("name,power.limit"), uuid=smi("uuid"),
+                host=socket.gethostname())
 
 
 def sw_batch(dev, b: int):
@@ -189,6 +225,21 @@ def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
                    if a != b)
         raise AssertionError(f"SAM differs from the CPU path at line {bad}")
 
+    # 4b: the same head without prefix arrays (the general seed path)
+    bare = SeedExtendAligner(without_prefix(idx16), AlignerConfig(),
+                             device=dev)
+    bare_sam = os.path.join(workdir, "bare.sam")
+    t0 = time.perf_counter()
+    bare.align_fastq(fq_head, bare_sam, cl="chip_smoke")
+    bare_s = time.perf_counter() - t0
+    with open(bare_sam, "rb") as f:
+        bare_lines = f.read().split(b"\n")
+    if bare_lines[:n_head + n_check] != dev_lines[:n_head + n_check]:
+        bad = next(i for i, (a, b) in enumerate(zip(bare_lines, dev_lines))
+                   if a != b)
+        raise AssertionError("SAM without prefix arrays differs from "
+                             f"phase 4's at line {bad}")
+
     aligned = near = 0
     recs = [ln.split(b"\t") for ln in dev_lines[n_head:] if ln]
     if len(recs) != n_reads:
@@ -199,18 +250,17 @@ def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
             near += abs(int(rec[3]) - 1 - int(true_pos[i])) <= 10
     return dict(reads_per_s=n_reads / dt, seconds=dt, aligned=aligned,
                 near=near, launches=launches, sam_checked=n_check,
-                phases=dict(aligner.phase_seconds))
+                phases=dict(aligner.phase_seconds), bare_seconds=bare_s)
 
 
-def query_codes(seq):
-    """Seeded query codes [N_QUERIES, QUERY_LEN]: the first n_in taken
-    from the genome, the last N_QUERIES // 8 random. Returns (codes,
-    n_in)."""
+def query_codes(seq, length: int = QUERY_LEN):
+    """Seeded query codes [N_QUERIES, length]: the first n_in taken from
+    the genome, the last N_QUERIES // 8 random. Returns (codes, n_in)."""
     import numpy as np
 
     from sapling_tpu_torch.ops import pack as packops
 
-    n_q, length = N_QUERIES, QUERY_LEN
+    n_q = N_QUERIES
     rng = np.random.default_rng(SEED + 2)
     n_in = n_q - n_q // 8
     starts = rng.integers(0, len(seq) - length + 1, n_in)
@@ -229,8 +279,8 @@ def query_phase(dev, seq, idx21) -> dict:
     length, n_check = QUERY_LEN, N_QUERY_CHECK
     codes, n_in = query_codes(seq)
     didx = idx21.to(dev)
-    x, q3 = didx.query_inputs(codes)
-    pos = didx.query_device(x, q3, length).cpu().numpy()
+    inputs = didx.query_inputs(codes)
+    pos = didx.query_device(*inputs, length).cpu().numpy()
     ok = didx.verify_hits(codes, pos)
     if not ok[:n_in].all():
         raise AssertionError(
@@ -242,9 +292,103 @@ def query_phase(dev, seq, idx21) -> dict:
             "the CPU path")
     out = dict(self_check=int(ok[:n_in].sum()), in_genome=n_in,
                random_found=int(ok[n_in:].sum()))
-    ms = _time_ms(lambda: didx.query_device(x, q3, length), dev,
+    ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
                   reps=5, warm=1)
     out.update(ms=ms, qps=N_QUERIES / (ms / 1e3))
+    return out
+
+
+def _check(name, pos, ok, n_in, want, every: bool = True):
+    """Fail unless the first len(want) positions equal the CPU path's and,
+    with `every`, every in-genome query self-checked."""
+    import numpy as np
+
+    if every and not ok[:n_in].all():
+        raise AssertionError(f"{name}: {int((~ok[:n_in]).sum())} in-genome "
+                             "queries failed self-check")
+    if not np.array_equal(pos[:len(want)], want):
+        raise AssertionError(f"{name}: {int((pos[:len(want)] != want).sum())}"
+                             " positions differ from the CPU path")
+
+
+def _probe_form(idx, length: int) -> str:
+    if idx.prefix3 is not None and length <= min(idx.k, 21):
+        return "fast3"
+    if idx.prefix64 is not None and length <= 32:
+        return "prefix64"
+    return "packed"
+
+
+def sweep_phase(dev, seq, idx21) -> list[dict]:
+    """Phase 6: the length sweep on the k=21 index as built and without
+    its prefix arrays; per length and index: probe form, CUDA-event ms,
+    q/s, and the host loop rounds of one call (ops.query.ROUNDS)."""
+    import numpy as np
+
+    from sapling_tpu_torch.ops import query
+
+    indexes = (("built", idx21), ("no_prefix", without_prefix(idx21)))
+    rows = []
+    for length in SWEEP:
+        codes, n_in = query_codes(seq, length)
+        row = {"length": length}
+        got = []
+        for name, idx in indexes:
+            didx = idx.to(dev)
+            inputs = didx.query_inputs(codes)
+            query.ROUNDS.update(C=0, D=0)
+            pos = didx.query_device(*inputs, length).cpu().numpy()
+            rounds = dict(query.ROUNDS)
+            ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
+                          reps=3, warm=1)
+            row[name] = dict(form=_probe_form(idx, length), ms=ms,
+                             qps=N_QUERIES / (ms / 1e3),
+                             stride_steps=rounds["C"],
+                             bisect_rounds=rounds["D"])
+            got.append(pos)
+        want = idx21.query_positions(codes[:N_QUERY_CHECK])
+        ok = idx21.verify_hits(codes, got[0])
+        # below k the reference's windows, measured for k-mers, need not
+        # hold a short query's suffix range: it may answer an unverified
+        # rank (sapling_tpu answers the same, tests/test_torch_query.py)
+        _check(f"L={length}", got[0], ok, n_in, want,
+               every=length >= idx21.k)
+        if not np.array_equal(got[0], got[1]):
+            raise AssertionError(
+                f"L={length}: {int((got[0] != got[1]).sum())} lanes differ "
+                "between the index with and without prefix arrays")
+        row["self_check"] = int(ok[:n_in].sum())
+        row["in_genome"] = n_in
+        rows.append(row)
+    return rows
+
+
+def baseline_runs(didx, codes, tables) -> dict:
+    """{name: device call} of the two binary searches over `codes` on
+    `didx` (an index on the card): the plain and the llcp/rlcp-pruned."""
+    import torch
+
+    length = int(codes.shape[1])
+    qw = didx.query_words(codes)
+    lr = [torch.from_numpy(a).to(didx.device) for a in tables]
+    return {"binsearch": lambda: didx.binsearch_device(qw, length),
+            "fancy": lambda: didx.binsearch_device(qw, length, *lr)}
+
+
+def baseline_phase(dev, seq, idx21, tables) -> dict:
+    """Phase 7: the plain and the llcp/rlcp-pruned binary search on phase
+    5's queries, self-checked and held against the CPU path."""
+    codes, n_in = query_codes(seq)
+    didx = idx21.to(dev)
+    on_cpu = {"binsearch": lambda c: idx21.query_positions_binsearch(c),
+              "fancy": lambda c: idx21.query_positions_fancy(c, *tables)}
+    out = {}
+    for name, run in baseline_runs(didx, codes, tables).items():
+        pos = run().cpu().numpy()
+        _check(name, pos, didx.verify_hits(codes, pos), n_in,
+               on_cpu[name](codes[:N_QUERY_CHECK]))
+        ms = _time_ms(run, dev, reps=3, warm=1)
+        out[name] = dict(ms=ms, qps=N_QUERIES / (ms / 1e3))
     return out
 
 
@@ -257,16 +401,15 @@ def main() -> int:
     # 1. the card
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    log(f"card: {smi}")
+    info = card()
+    log(info["name_power"])
+    log(f"card: {info['uuid']} on host {info['host']}")
 
     # 2. build (host indexes first: nothing has touched CUDA yet)
     t0 = time.perf_counter()
-    seq, idx16, idx21 = build_indexes(GENOME_N)
-    log(f"build: {GENOME_N} bp genome, k=16 and k=21 indexes on the host "
+    seq, idx16, idx21, tables = build_indexes(GENOME_N)
+    log(f"build: {GENOME_N} bp genome, k=16 and k=21 indexes and the "
+        "llcp/rlcp tables on the host "
         f"in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sw_cuda.build_kernel()
@@ -282,7 +425,7 @@ def main() -> int:
         f"{kp['score_only']['ms']:.3f} ms vs plain "
         f"{kp['score_only']['plain_ms']:.3f} ms")
 
-    # 4. aligner, 5. query
+    # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         al = aligner_phase(dev, seq, idx16, workdir=td)
     if min(al["launches"].values()) == 0:
@@ -294,11 +437,29 @@ def main() -> int:
         f"phases {json.dumps({k: round(v, 3) for k, v in al['phases'].items()})}")
     if al["aligned"] < 0.9 * N_READS or al["near"] < 0.8 * al["aligned"]:
         raise AssertionError(f"too few good alignments: {al}")
+    log(f"aligner without prefix arrays: first {N_SAM_CHECK} reads in "
+        f"{al['bare_seconds']:.3f} s; SAM byte-identical to phase 4's")
     qr = query_phase(dev, seq, idx21)
     log(f"query: {N_QUERIES} 21-base queries in {qr['ms']:.3f} ms = "
         f"{qr['qps']:.1f} q/s; self-check {qr['self_check']}/"
         f"{qr['in_genome']} in-genome; first {N_QUERY_CHECK} positions "
         "identical to the CPU path")
+    for row in sweep_phase(dev, seq, idx21):
+        log(f"sweep L={row['length']}: " + "; ".join(
+            f"{name} ({r['form']}) {r['ms']:.3f} ms = {r['qps']:.1f} q/s, "
+            f"{r['bisect_rounds']} bisection rounds, {r['stride_steps']} "
+            "stride steps" for name, r in row.items()
+            if isinstance(r, dict))
+            + f"; self-check {row['self_check']}/{row['in_genome']} "
+            "in-genome, both indexes agree on every lane, first "
+            f"{N_QUERY_CHECK} identical to the CPU path")
+    bl = baseline_phase(dev, seq, idx21, tables)
+    log(f"baselines: {N_QUERIES} 21-base queries: binary search "
+        f"{bl['binsearch']['ms']:.3f} ms = {bl['binsearch']['qps']:.1f} q/s, "
+        f"llcp/rlcp-pruned {bl['fancy']['ms']:.3f} ms = "
+        f"{bl['fancy']['qps']:.1f} q/s, plquery (phase 5) "
+        f"{qr['qps']:.1f} q/s; in-genome self-checked, first "
+        f"{N_QUERY_CHECK} identical to the CPU path")
 
     src = os.path.relpath(sw_cuda.SOURCE, ROOT)
     kernels = [

@@ -17,11 +17,11 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..config import IndexConfig
+from ..config import IndexConfig, QueryConfig
 from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
-from ..ops.query import plquery_batch
+from ..ops.query import binsearch_batch, fancy_binsearch_batch, plquery_batch
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -62,8 +62,9 @@ class SaplingIndex:
     prefix3: np.ndarray | None = None     # uint64 per-rank 21-base 3-bit
     lcpk_fwd: np.ndarray | None = None    # forward run of lcp>=k (aligner)
     lcpk_bwd: np.ndarray | None = None    # backward run of lcp>=k
-    # split-limb ranks of >= 2^32-base artifacts: loaded and saved so the
-    # format round-trips, refused by the query and the aligner
+    # split-limb ranks of >= 2^32-base artifacts: rev/inv hold the low 32
+    # bits, these the uint8 bits 32.. (the query reassembles rev; the
+    # aligner refuses them)
     rev_hi: np.ndarray | None = None
     inv_hi: np.ndarray | None = None
     device: torch.device = field(default=torch.device("cpu"))
@@ -214,6 +215,14 @@ class SaplingIndex:
             inv_hi=opt("inv_hi"), device=torch.device(device),
         )
 
+    def write_reference_artifacts(self, sap_path: str) -> None:
+        """Write the PWL table as the reference's .sap file (from_fasta
+        writes the .sa itself)."""
+        t = self.table
+        artifacts.write_sap(sap_path, self.buckets, t.xlist, t.ylist,
+                            t.max_over, t.max_under, t.mean_error,
+                            t.most_over, t.most_under)
+
     # --- device state --------------------------------------------------------
 
     def to(self, device) -> "SaplingIndex":
@@ -226,27 +235,41 @@ class SaplingIndex:
 
     def device_arrays(self) -> dict:
         """The arrays the query and the aligner read on `self.device`,
-        made on first use: rev and the PWL checkpoints as int64, prefix3
-        as an int64 view (its values are < 2^63, so signed compares are
-        exact), and the packed genome words widened to int64 (values
-        < 2^32; the CPU has no uint32 arithmetic in torch)."""
+        made on first use:
+
+          * rev: int32 for int32 and uint32 storage (a view of the host
+            array: 4 bytes a rank, read back as uint32 by
+            ops.query.gather64), int64 for int64 storage, and the split
+            limbs of a >= 2^32-base artifact reassembled into int64;
+          * packed: the genome words widened to int64 (values < 2^32);
+          * xlist / ylist: the PWL checkpoints as int64;
+          * prefix64 / prefix3: int64 views of their uint64 words, or None;
+          * bounds: the per-bucket window bounds as an int32 view, or None.
+        """
         if not self._device:
-            if self.rev_hi is not None:
-                raise NotImplementedError(
-                    "split-limb (>= 2^32-base) indexes are not supported "
-                    "by the PyTorch query yet")
 
             def put(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(
                     self.device)
 
+            def view(a, dt):
+                return None if a is None else put(a.view(dt))
+
+            if self.rev_hi is not None:
+                rev = (self.rev.astype(np.int64)
+                       | (self.rev_hi.astype(np.int64) << 32))
+            elif self.rev.dtype == np.int64:
+                rev = self.rev
+            else:
+                rev = self.rev.view(np.int32)
             self._device = {
-                "rev": put(self.rev.astype(np.int64)),
+                "rev": put(rev),
+                "packed": put(self.packed.astype(np.int64)),
                 "xlist": put(self.table.xlist.astype(np.int64)),
                 "ylist": put(self.table.ylist.astype(np.int64)),
-                "prefix3": (put(self.prefix3.view(np.int64))
-                            if self.prefix3 is not None else None),
-                "packed": put(self.packed.astype(np.int64)),
+                "prefix64": view(self.prefix64, np.int64),
+                "prefix3": view(self.prefix3, np.int64),
+                "bounds": view(self.table.bounds, np.int32),
             }
         return self._device
 
@@ -255,37 +278,88 @@ class SaplingIndex:
     def kmerize_batch(self, codes2d: np.ndarray) -> np.ndarray:
         return packops.batch_kmers_adjusted(codes2d, self.k)
 
+    def query_words(self, codes2d: np.ndarray) -> torch.Tensor:
+        """[B, L] codes -> int64 [ceil(L/16), B] packed query words on
+        self.device (word-major, ops.pack.pack_queries)."""
+        return torch.from_numpy(
+            packops.pack_queries(codes2d).astype(np.int64)).to(self.device)
+
     def query_inputs(self, codes2d: np.ndarray):
-        """Host-side packing of a [B, L] code batch into the query's
-        device inputs: (x, q3) int64 tensors on `self.device`."""
+        """Host-side packing of a [B, L] code batch into the query's device
+        inputs on `self.device`: (x, q3, q_words). x holds the int64
+        adjusted k-mers [B]. The fast3 path answers when the index has
+        prefix3 and L <= min(k, 21): q3 is then the int64 3-bit packed
+        queries [B] and q_words None; otherwise q3 is None and q_words the
+        int64 packed words [ceil(L/16), B]."""
         dev = self.device_arrays()
         length = int(codes2d.shape[1])
-        q3 = None
+        q3 = q_words = None
         if (dev["prefix3"] is not None
                 and length <= min(self.k, packops.P3_BASES)):
             q3 = torch.from_numpy(
                 packops.pack_queries3(codes2d).view(np.int64)).to(self.device)
+        else:
+            q_words = self.query_words(codes2d)
         x = torch.from_numpy(self.kmerize_batch(codes2d)).to(self.device)
-        return x, q3
+        return x, q3, q_words
 
     def query_device(self, x: torch.Tensor, q3: torch.Tensor | None,
-                     length: int) -> torch.Tensor:
+                     q_words: torch.Tensor | None, length: int,
+                     qcfg: QueryConfig | None = None) -> torch.Tensor:
         """plQuery over prepared device inputs (query_inputs) -> int64 [B]
-        positions on `self.device`, -1 = not found."""
+        positions on `self.device`, -1 = not found. Of `qcfg`, the query
+        reads max_stride_steps and adaptive_bounds; the compaction flags
+        change only the batch a lane runs in on the TPU, never a result,
+        and are ignored here."""
+        qcfg = qcfg or QueryConfig()
         dev = self.device_arrays()
         t = self.table
         return plquery_batch(
-            dev["rev"], dev["xlist"], dev["ylist"], dev["prefix3"], q3, x,
+            dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
+            x, dev["prefix64"], dev["prefix3"], q3, dev["bounds"],
             n=self.n, length=length, k=self.k, buckets=self.buckets,
             most_over=t.most_over, most_under=t.most_under,
-            max_over=t.max_over, max_under=t.max_under)
+            max_over=t.max_over, max_under=t.max_under,
+            max_stride_steps=qcfg.max_stride_steps,
+            adaptive_bounds=qcfg.adaptive_bounds)
 
-    def query_positions(self, codes2d: np.ndarray) -> np.ndarray:
+    def query_positions(self, codes2d: np.ndarray,
+                        qcfg: QueryConfig | None = None) -> np.ndarray:
         """plQuery over a [B, L] batch of base codes -> [B] positions (-1 =
         not found). Equivalent of reference plQuery (src/sapling_api.h:159)."""
-        x, q3 = self.query_inputs(codes2d)
-        out = self.query_device(x, q3, int(codes2d.shape[1]))
+        x, q3, q_words = self.query_inputs(codes2d)
+        out = self.query_device(x, q3, q_words, int(codes2d.shape[1]), qcfg)
         return out.cpu().numpy()
+
+    def binsearch_device(self, q_words: torch.Tensor, length: int,
+                         llcp: torch.Tensor | None = None,
+                         rlcp: torch.Tensor | None = None) -> torch.Tensor:
+        """The binary-search baselines over prepared device query words
+        (query_words) -> int64 [B] positions on `self.device`, -1 = not
+        found: the classic search (ops.query.binsearch_batch), or with the
+        int32 [n] llcp/rlcp tables on `self.device` the pruned one
+        (ops.query.fancy_binsearch_batch)."""
+        dev = self.device_arrays()
+        if llcp is None:
+            return binsearch_batch(dev["packed"], dev["rev"], q_words,
+                                   n=self.n, length=length)
+        return fancy_binsearch_batch(dev["packed"], dev["rev"], llcp, rlcp,
+                                     q_words, n=self.n, length=length)
+
+    def query_positions_binsearch(self, codes2d: np.ndarray) -> np.ndarray:
+        """Classic binary-search baseline over the same device arrays."""
+        return self.binsearch_device(self.query_words(codes2d),
+                                     int(codes2d.shape[1])).cpu().numpy()
+
+    def query_positions_fancy(self, codes2d: np.ndarray, llcp: np.ndarray,
+                              rlcp: np.ndarray) -> np.ndarray:
+        """llcp/rlcp-pruned binary search with the int32 [n] tables of
+        index.suffix_array.build_llcp_rlcp."""
+        llcp_d, rlcp_d = (torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device) for a in (llcp, rlcp))
+        return self.binsearch_device(self.query_words(codes2d),
+                                     int(codes2d.shape[1]), llcp_d,
+                                     rlcp_d).cpu().numpy()
 
     def count_hits(self, sa_ranks: np.ndarray, max_hits: int = 32):
         """Number of additional suffix-array neighbors sharing the first k

@@ -69,3 +69,22 @@ def _predict_from_parts(x, xlo, d, ylo, m, n, xp):
     pred = xp.where(nn >= 0, pred_pos, pred_neg)
     pred = xp.where(d == 0, ylo, pred)
     return xp.clip(pred, 0, n - 1)
+
+
+def predict_pwl_f64(x, xlist, ylist, kbits: int, buckets: int, n: int):
+    """NumPy float64 oracle with the reference's exact C++ double semantics
+    (src/sapling_api.h:98-109), including no upper clamp. Host-side only;
+    the errFn dump of tools.sapling_example writes its predictions."""
+    shift = kbits - buckets
+    bucket = x >> shift
+    xlo = xlist[bucket]
+    xhi = xlist[bucket + 1]
+    ylo = ylist[bucket]
+    yhi = ylist[bucket + 1]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ratio = (x - xlo).astype(np.float64) / (xhi - xlo).astype(np.float64)
+    val = 0.5 + ylo + (yhi - ylo) * ratio
+    pred = val.astype(np.int64)  # C-style truncation toward zero
+    pred = np.where(pred < 0, 0, pred)
+    pred = np.where(xlo == xhi, ylo, pred)
+    return pred

@@ -79,12 +79,10 @@ def corpus_mixed(d):
             dict(block=64, workers=2))
 
 
-@pytest.mark.parametrize("make", [corpus_fixed, corpus_indel, corpus_repeat,
-                                  corpus_mixed],
-                         ids=["fixed", "indel", "repeat_heavy",
-                              "mixed_length"])
-def test_sam_bytes_match_jax(make, tmp_path):
-    d = str(tmp_path)
+def _sam_lines_both(make, d, **cfg):
+    """(port SAM lines, JAX SAM lines, number of reads) for one corpus,
+    each package aligning from the same FASTA and cached artifacts, its
+    index built with IndexConfig(k=16, **cfg)."""
     chroms, reads, run_kw = make(d)
     ref_fa = os.path.join(d, "ref.fa")
     write_fasta(ref_fa, [(nm, bytes(s)) for nm, s in chroms])
@@ -92,24 +90,43 @@ def test_sam_bytes_match_jax(make, tmp_path):
     write_fastq(fq, reads)
     jax_sam = os.path.join(d, "jax.sam")
     our_sam = os.path.join(d, "torch.sam")
-    jidx = JaxIndex.from_fasta(ref_fa, JaxIndexConfig(k=16))
+    jidx = JaxIndex.from_fasta(ref_fa, JaxIndexConfig(k=16, **cfg))
     JaxAligner(jidx, JaxAlignerConfig()).align_fastq(
         fq, jax_sam, cl=f"align {fq} {ref_fa} {jax_sam}", **run_kw)
-    idx = SaplingIndex.from_fasta(ref_fa, IndexConfig(k=16))
+    idx = SaplingIndex.from_fasta(ref_fa, IndexConfig(k=16, **cfg))
     SeedExtendAligner(idx, AlignerConfig(), device="cpu").align_fastq(
         fq, our_sam, cl=f"align {fq} {ref_fa} {our_sam}", **run_kw)
     with open(jax_sam) as f:
         want = f.read().splitlines()
     with open(our_sam) as f:
         got = f.read().splitlines()
+    return got, want, len(reads)
+
+
+def _assert_same_sam(got, want, n_reads):
     assert len(got) == len(want)
     diffs = [(i, a, b) for i, (a, b) in enumerate(zip(got, want))
              if a != b and not a.startswith("@PG")]
     assert not diffs, f"{len(diffs)} differing lines; first: {diffs[0]}"
     assert sum(ln.startswith("@PG") for ln in got) == 1
     records = [ln.split("\t") for ln in got if not ln.startswith("@")]
-    assert len(records) == len(reads)
-    assert sum(r[1] != "4" for r in records) >= 0.9 * len(reads)
+    assert len(records) == n_reads
+    assert sum(r[1] != "4" for r in records) >= 0.9 * n_reads
+
+
+@pytest.mark.parametrize("make", [corpus_fixed, corpus_indel, corpus_repeat,
+                                  corpus_mixed],
+                         ids=["fixed", "indel", "repeat_heavy",
+                              "mixed_length"])
+def test_sam_bytes_match_jax(make, tmp_path):
+    _assert_same_sam(*_sam_lines_both(make, str(tmp_path)))
+
+
+def test_sam_bytes_match_jax_without_prefix(tmp_path):
+    """An index without prefix64/prefix3 (as every index above 1.5 Gbp):
+    the seeds take the general path over the packed genome."""
+    _assert_same_sam(*_sam_lines_both(corpus_repeat, str(tmp_path),
+                                      prefix_lookup=False))
 
 
 def test_cli_writes_the_same_sam_as_the_api(tmp_path):

@@ -6,6 +6,9 @@ port's own build gives the arrays the JAX package's build gives; and the
 cached `from_fasta` artifacts written by either package load in the other.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -86,6 +89,51 @@ def test_from_fasta_cache_is_shared(genome, tmp_path):
     assert_same_index(SaplingIndex.from_fasta(fa, IndexConfig(k=16)), jidx)
     assert_same_index(JaxIndex.load(str(tmp_path / "ref.fa_k16_b-1.stpu.npz")),
                       jidx)
+
+
+def test_split_limb_artifact_answers_as_jax(tmp_path):
+    """A format-v4 artifact (split-limb rev, no prefix arrays) from
+    tools/build_big_index.build_split, as tests/test_bigsplit.py makes
+    it: the port reassembles rev into int64 and answers the general path
+    and the binary search exactly as JAX's SplitRanks layout does."""
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    from build_big_index import build_split
+
+    n, k, nb = 400_000, 21, 10
+    out = str(tmp_path / "big.stpu.npz")
+    build_split(n, k, nb, workers=2, out=out)
+    jidx = JaxIndex.load(out)
+    tidx = SaplingIndex.load(out)
+    assert tidx.rev_hi is not None and tidx.prefix3 is None
+    rev = tidx.device_arrays()["rev"]
+    assert rev.dtype == torch.int64
+    np.testing.assert_array_equal(rev.numpy(), jidx.rev.astype(np.int64))
+    rng = np.random.default_rng(0)
+    for length in (16, 21, 31):
+        starts = rng.integers(0, n - length, 1500)
+        codes = tidx.codes[starts[:, None] + np.arange(length)]
+        codes[:100] = rng.integers(0, 4, (100, length))
+        got = tidx.query_positions(codes)
+        np.testing.assert_array_equal(got, np.asarray(
+            jidx.query_positions(codes)), err_msg=f"L={length}")
+        assert tidx.verify_hits(codes[100:], got[100:]).all()
+    np.testing.assert_array_equal(
+        tidx.query_positions_binsearch(codes),
+        np.asarray(jidx.query_positions_binsearch(codes)))
+
+
+def test_cuda_index_without_a_gpu_raises(genome):
+    """No fallback: an index put on "cuda" where there is no GPU raises
+    instead of answering on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    seq, ends = genome
+    idx = SaplingIndex.build(Genome(seq=seq, chr_ends=ends),
+                             IndexConfig(k=16), keep_aligner_arrays=False)
+    codes = idx.codes[np.arange(8)[:, None] + np.arange(16)]
+    with pytest.raises((AssertionError, RuntimeError)):
+        idx.to("cuda").query_positions(codes)
 
 
 def test_to_leaves_the_index_where_it_was(genome):

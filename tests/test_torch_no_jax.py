@@ -19,6 +19,8 @@ names = [m.name for m in pkgutil.walk_packages(
     sapling_tpu_torch.__path__, "sapling_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"sapling_tpu_torch.tools.sapling_example",
+        "sapling_tpu_torch.tools.binarysearch"} <= set(names), names
 import chip_smoke, chip_measure
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "sapling_tpu.")))

@@ -2,8 +2,9 @@
 
 Positions must be bit-identical, -1s included, and so must the member of
 a duplicate run that comes back. The genome/k/length grid is
-tests/test_query.py's; lengths above k need the general cascade, which the
-port does not have yet, and must be refused.
+tests/test_query.py's, on indexes with and without the per-rank prefix
+arrays (fast3, prefix64 and packed-genome probes), plus the reference's
+length sweep. tests/test_torch_query_variants.py holds the options.
 """
 
 import numpy as np
@@ -29,9 +30,9 @@ def _queries(seq, num, length, seed):
     return packops.encode_bases(np.concatenate([q, rand]))
 
 
-def _pair(seq, k, buckets):
+def _pair(seq, k, buckets, **cfg):
     jidx = JaxIndex.build(Genome(seq=seq, chr_ends=[(len(seq), "sim")]),
-                          IndexConfig(k=k, buckets=buckets))
+                          IndexConfig(k=k, buckets=buckets, **cfg))
     return jidx, SaplingIndex.from_arrays(jidx, device="cpu")
 
 
@@ -54,25 +55,36 @@ def test_plquery_position_parity(gen, k, buckets, length):
     seq = gen()
     jidx, tidx = _pair(seq, k, buckets)
     codes = _queries(seq, 400, length, seed=99)
-    if length > k:
-        with pytest.raises(NotImplementedError):
-            tidx.query_positions(codes)
-        return
     want = np.asarray(jidx.query_positions(codes))
     got = tidx.query_positions(codes)
     np.testing.assert_array_equal(got, want)
     assert tidx.verify_hits(codes, got)[:400].all()
 
 
-def test_count_and_verify_hits_match_jax():
-    seq = benchmark_genome(20_000, seed=19)
-    jidx, tidx = _pair(seq, 16, 10)
-    rng = np.random.default_rng(3)
-    ranks = rng.integers(0, len(seq), 3000)
-    for a, b in zip(tidx.count_hits(ranks, 32), jidx.count_hits(ranks, 32)):
-        np.testing.assert_array_equal(a, b)
-    codes = _queries(seq, 500, 16, seed=4)
-    pos = rng.integers(-1, len(seq), len(codes))
-    pos[:500] = tidx.query_positions(codes[:500])
-    np.testing.assert_array_equal(tidx.verify_hits(codes, pos),
-                                  jidx.verify_hits(codes, pos))
+@pytest.mark.parametrize("gen,k,buckets,length", GRID)
+def test_plquery_parity_without_prefix(gen, k, buckets, length):
+    """The same grid on indexes built without prefix64/prefix3 on both
+    sides: every probe reads the packed genome."""
+    seq = gen()
+    jidx, tidx = _pair(seq, k, buckets, prefix_lookup=False)
+    assert tidx.prefix64 is None and tidx.prefix3 is None
+    codes = _queries(seq, 400, length, seed=99)
+    want = np.asarray(jidx.query_positions(codes))
+    got = tidx.query_positions(codes)
+    np.testing.assert_array_equal(got, want)
+    assert tidx.verify_hits(codes, got)[:400].all()
+
+
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_length_sweep_parity(prefix):
+    """The reference's experiment sweep k-10 ... k+80
+    (tools/sapling_example.py, tests/test_query.py) on one index."""
+    seq = repeat_genome(4000, 37, seed=40)
+    k = 12
+    jidx, tidx = _pair(seq, k, 8, prefix_lookup=prefix)
+    for length in (k - 10, k, k + 10, k + 20, k + 30, k + 80):
+        codes = _queries(seq, 96, length, seed=41 + length)
+        want = np.asarray(jidx.query_positions(codes))
+        got = tidx.query_positions(codes)
+        np.testing.assert_array_equal(got, want, err_msg=f"L={length}")
+        assert tidx.verify_hits(codes, got)[:96].all()
