@@ -9,17 +9,19 @@ and the native host library are built from the repository's sources at
 first use. Phases, each printing a line (the sweep one per length); any
 failure raises and the script exits non-zero:
 
-  1. the card (nvidia-smi name and power limit, then its UUID and the
-     host's name); no CUDA -> failure;
+  1. the card (nvidia-smi name and power limit, its maximum SM clock,
+     then its UUID and the host's name); no CUDA -> failure;
   2. build: a 4.6 Mbp benchmark genome (15% duplications and tandem
      repeats), ONE suffix array, a k=16 aligner index and a k=21 query
      index on the host (before CUDA starts: the host build may fork), then
-     the SW kernel (nvcc, sm_90a);
-  3. kernel vs plain: the CUDA SW kernel against the plain PyTorch
+     the SW kernels (nvcc, sm_90a);
+  3. kernel vs plain: the CUDA SW kernels against the plain PyTorch
      sw_pass on the card, at the aligner's shapes (16384 pairs, 100-base
      reads padded to 112 rows, 128-base windows, ragged lengths, related
      lanes), pad 16 and pad 8 + second_inclusive, full and score-only,
-     and terminate: every field must be equal; CUDA-event times of both;
+     and terminate: every field must be equal; the score-only kernel
+     also at one aligner block's candidate sweep (163,840 pairs); CUDA-
+     event times of both, beside each one's bound (sw_bound_ms);
   4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
      SAM on the card; the first 1,000 reads' SAM must be byte-identical to
      the port's CPU path, and both SW kernel modes must have launched;
@@ -68,6 +70,19 @@ QUERY_LEN = 21
 N_QUERY_CHECK = 100_000
 SWEEP = (11, 21, 31, 41, 51, 101)   # tools/sapling_example.py at k=21
 SW_BATCH, SW_W, SW_R = 16_384, 100, 128
+SW_SWEEP = 163_840                  # candidates of one 16,384-read block
+# the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
+# and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
+# pipes together); HBM bytes/s
+INT32_LANES_PER_SM = 64
+ISSUE_LANES_PER_SM = 128
+HBM_BYTES_PER_S = 3.35e12
+# int32 instructions a DP cell needs: the substitution as one byte-permute
+# lookup, max(diag + sub, E, 0) and the max with F for H, H - gapO, an
+# add-max each for E and F, half a 3-way max for the running max; all but
+# the subtract (an IMAD on the FMA pipe) take the int32 ALU
+SW_OPS_PER_CELL = 6.5
+SW_ALU_OPS_PER_CELL = 5.5
 
 
 def log(msg: str) -> None:
@@ -75,9 +90,9 @@ def log(msg: str) -> None:
 
 
 def build_indexes(genome_n: int):
-    """Host phase: one suffix array, two index builds (k=16, k=21) and the
-    llcp/rlcp tables of the pruned binary search. Returns (seq, idx16,
-    idx21, (llcp, rlcp))."""
+    """Host phase: one suffix array, two index builds (k=16, k=21) on the
+    CPU and the llcp/rlcp tables of the pruned binary search. Returns
+    (seq, idx16, idx21, (llcp, rlcp))."""
     import numpy as np
 
     from sapling_tpu_torch.config import IndexConfig
@@ -90,9 +105,13 @@ def build_indexes(genome_n: int):
     seq = benchmark_genome(genome_n, seed=SEED)
     genome = Genome(seq=seq, chr_ends=[(genome_n, "bench")])
     suffix = build_suffix_data(seq, np.int32)
-    idx16 = SaplingIndex.build(genome, IndexConfig(k=16), suffix=suffix)
+    # on the CPU: the phases below take each to the card with .to(dev)
+    # and keep these as the CPU path they are held against
+    idx16 = SaplingIndex.build(genome, IndexConfig(k=16), suffix=suffix,
+                               device="cpu")
     idx21 = SaplingIndex.build(genome, IndexConfig(k=21, buckets=22),
-                               suffix=suffix, keep_aligner_arrays=False)
+                               suffix=suffix, keep_aligner_arrays=False,
+                               device="cpu")
     tables = build_llcp_rlcp(np.asarray(suffix.lcp, np.int64), genome_n)
     return seq, idx16, idx21, tables
 
@@ -122,8 +141,32 @@ def card() -> dict:
             ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
             capture_output=True, text=True, check=True).stdout.strip()
 
-    return dict(name_power=smi("name,power.limit"), uuid=smi("uuid"),
+    return dict(name_power=smi("name,power.limit"),
+                sm_clock_max=smi("clocks.max.sm"), uuid=smi("uuid"),
                 host=socket.gethostname())
+
+
+def sw_bound_ms(qlen, rlen, w: int, r: int, out_words: int,
+                sm_clock_mhz: float) -> dict:
+    """The least time a SW pass over these pairs can take on this card:
+    the larger of its instructions and its bytes. Instructions: for each
+    real cell (qlen * rlen clipped to the shapes) SW_ALU_OPS_PER_CELL on
+    the SMs' INT32_LANES_PER_SM, or SW_OPS_PER_CELL at their
+    ISSUE_LANES_PER_SM, whichever takes longer, at the SM clock. Bytes:
+    codes, lengths and terminate read once, out_words int32 a pair written
+    once, over HBM_BYTES_PER_S. Returns {"bound_ms", "bound_by", "cells"}."""
+    import torch
+
+    b = int(qlen.shape[0])
+    cells = int((qlen.long().clamp(0, w) * rlen.long().clamp(0, r)).sum())
+    sms = torch.cuda.get_device_properties(qlen.device).multi_processor_count
+    lane_clocks = max(SW_ALU_OPS_PER_CELL / INT32_LANES_PER_SM,
+                      SW_OPS_PER_CELL / ISSUE_LANES_PER_SM)
+    ops_ms = cells * lane_clocks / (sms * sm_clock_mhz * 1e6) * 1e3
+    bytes_ms = b * (w + r + 12 + 4 * out_words) / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                cells=cells)
 
 
 def sw_batch(dev, b: int):
@@ -144,8 +187,10 @@ def sw_batch(dev, b: int):
     return tuple(torch.from_numpy(a).to(dev) for a in (q, qlen, ref, rlen))
 
 
-def kernel_vs_plain(dev) -> dict:
-    """Phase 3: the kernel wrapper against the plain sw_pass on `dev`."""
+def kernel_vs_plain(dev, sm_clock_mhz: float) -> dict:
+    """Phase 3: the kernel wrapper against the plain sw_pass on `dev`, and
+    each mode's time beside its bound; the score-only kernel also at
+    SW_SWEEP pairs."""
     import torch
 
     from sapling_tpu_torch.ops.sw import sw_pass
@@ -179,6 +224,29 @@ def kernel_vs_plain(dev) -> dict:
         out[mode]["plain_ms"] = _time_ms(lambda: sw_pass(
             q, qlen, ref, rlen, no_term, score_only=so), dev,
             reps=3, warm=1)
+        bound = sw_bound_ms(qlen, rlen, SW_W, SW_R, 1 if so else 5,
+                            sm_clock_mhz)
+        out[mode].update(bound_ms=bound["bound_ms"],
+                         bound_by=bound["bound_by"], library_ms=None,
+                         pct_of_bound=100 * bound["bound_ms"]
+                         / out[mode]["ms"])
+    del q, qlen, ref, rlen, no_term, term
+
+    # the score-only sweep at one aligner block's candidates
+    q, qlen, ref, rlen = sw_batch(dev, SW_SWEEP)
+    no_term = torch.full((SW_SWEEP,), -1, dtype=torch.int32, device=dev)
+    a = sw_pass(q, qlen, ref, rlen, no_term, score_only=True)["score"]
+    k = sw_pass_cuda(q, qlen, ref, rlen, no_term, score_only=True)["score"]
+    d = int((a.long() - k.long()).abs().max())
+    if d:
+        raise AssertionError(f"kernel != plain: score-only at B={SW_SWEEP}:"
+                             f" {int((a != k).sum())} lanes differ")
+    ms = _time_ms(lambda: sw_pass_cuda(q, qlen, ref, rlen, no_term,
+                                       score_only=True), dev)
+    bound = sw_bound_ms(qlen, rlen, SW_W, SW_R, 1, sm_clock_mhz)
+    out["score_only"][f"b{SW_SWEEP}"] = dict(
+        max_abs_err=d, ms=ms, bound_ms=bound["bound_ms"],
+        pct_of_bound=100 * bound["bound_ms"] / ms)
     return out
 
 
@@ -403,7 +471,9 @@ def main() -> int:
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
     info = card()
     log(info["name_power"])
-    log(f"card: {info['uuid']} on host {info['host']}")
+    log(f"card: max SM clock {info['sm_clock_max']} (the bound's clock); "
+        f"{info['uuid']} on host {info['host']}")
+    sm_clock_mhz = float(info["sm_clock_max"].split()[0])
 
     # 2. build (host indexes first: nothing has touched CUDA yet)
     t0 = time.perf_counter()
@@ -413,17 +483,21 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     sw_cuda.build_kernel()
-    log(f"build: SW kernel (nvcc sm_90a) in {time.perf_counter() - t0:.1f} s")
+    log(f"build: SW kernels (nvcc sm_90a) in "
+        f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda", 0)
 
     # 3. kernel vs plain on the card
-    kp = kernel_vs_plain(dev)
+    kp = kernel_vs_plain(dev, sm_clock_mhz)
+    sweep = kp["score_only"][f"b{SW_SWEEP}"]
     log("kernel vs plain: all fields equal (pad16, pad8+second_inclusive, "
-        f"terminate; full and score-only) at B={SW_BATCH} W={SW_W} R={SW_R};"
-        f" full {kp['full']['ms']:.3f} ms vs plain "
-        f"{kp['full']['plain_ms']:.3f} ms, score-only "
-        f"{kp['score_only']['ms']:.3f} ms vs plain "
-        f"{kp['score_only']['plain_ms']:.3f} ms")
+        f"terminate; full and score-only) at B={SW_BATCH} W={SW_W} R={SW_R},"
+        f" score-only also at B={SW_SWEEP}; " + ", ".join(
+            f"{m} {kp[m]['ms']:.4f} ms vs plain {kp[m]['plain_ms']:.3f} ms, "
+            f"bound {kp[m]['bound_ms']:.4f} ms ({kp[m]['pct_of_bound']:.1f}%"
+            " of it)" for m in ("full", "score_only"))
+        + f"; score-only at B={SW_SWEEP} {sweep['ms']:.4f} ms, bound "
+        f"{sweep['bound_ms']:.4f} ms ({sweep['pct_of_bound']:.1f}%)")
 
     # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:

@@ -1,25 +1,68 @@
-// Batched affine-gap local Smith-Waterman pass for Hopper (sm_90a).
+// Batched affine-gap local Smith-Waterman passes for Hopper (sm_90a).
 //
-// Replaces sapling_tpu/ops/sw_pallas.py::_kernel (both its full mode and
-// its score_only mode) and computes exactly what it computes: the
-// sapling_tpu_torch.ops.sw.sw_pass semantics, bit for bit (SSE pad rows
-// up to pad_to, terminate, score2/ref_end2 with second_inclusive).
+// Replace sapling_tpu/ops/sw_pallas.py::_kernel and compute exactly what it
+// computes, the sapling_tpu_torch.ops.sw.sw_pass semantics, bit for bit:
 //
-// What bounds it: int32 ALU and warp-shuffle work per DP cell. Each pair
-// reads W + R bytes of codes and writes 20 bytes, against W*R cells of
-// ~20 integer operations, so device memory traffic is negligible.
+//   sw_pass_kernel<ROWS>   its full mode (:36): score, ref_end, read_end,
+//                          score2/ref_end2 (second_inclusive), SSE pad rows
+//                          up to pad_to, terminate;
+//   sw_score_kernel<G, S>  its score_only mode (:81): the max of H over the
+//                          real cells only.
 //
-// Why one warp per (query, ref-window) pair: the column sweep carries H and
-// E down the query rows, and the only in-column dependency is the vertical
-// gap F. With the decayed-running-max factorization (ops/sw.py docstring)
-// F is a prefix max over the rows, which a warp computes with five
-// __shfl_up_sync steps and no shared memory or barriers. Each lane owns
-// ROWS consecutive query rows in registers (ROWS = ceil(W/32), W <= 1024),
-// takes its diagonal input H[j-1] from the lane above with one shuffle, and
-// the column maxima are warp reductions. A pair never synchronises with any
-// other, so thousands of independent warps keep all SMs busy. The only
-// per-pair memory is the row of column maxima score2 needs after the sweep,
-// kept in shared memory (R ints per warp).
+// What bounds both: int32 instructions per DP cell. A pair reads W + R bytes
+// of codes and writes 4 or 20 bytes against qlen*rlen cells, so device
+// memory traffic is negligible. The recurrence needs 6.5 int32 instructions
+// a cell: the substitution (one byte-permute lookup at best), an add-max
+// with ReLU and a max for H, H - gapO, one add-max each for E and F, and
+// half a 3-way max for the running max. All but the subtract, which can
+// issue as an IMAD on the FMA pipe, take the int32 ALU (64 lanes an SM a
+// clock; an SM issues 128), so the least time of a pass is
+//   sum(qlen * rlen) * 5.5 / (132 SMs * 64 int32 lanes * SM clock),
+// about 49 us for 16,384 pairs of ~85 x ~108 cells at 1.98 GHz.
+//
+// Full mode, one warp per (query, ref-window) pair: the column sweep carries
+// H and E down the query rows, and the only in-column dependency is the
+// vertical gap F. With the decayed-running-max factorization (ops/sw.py
+// docstring) F is a prefix max over the rows, which a warp computes with five
+// __shfl_up_sync steps and no shared memory or barriers. Each lane owns ROWS
+// consecutive query rows in registers (ROWS = ceil(W/32), W <= 1024), takes
+// its diagonal input H[j-1] from the lane above with one shuffle, and the
+// column maxima are warp reductions. The only per-pair memory is the row of
+// column maxima score2 needs after the sweep, kept in shared memory (R ints
+// per warp). Every column costs ~8 shuffles and work on all 32*ROWS rows.
+//
+// Score-only mode, a row-strip wavefront: its one output, max H over the
+// real cells, is fixed by the recurrence, so any order of evaluation gives
+// it bit for bit. A group of G lanes (a power of two <= 32) scores one pair;
+// lane g owns the S rows [g*S, g*S + S) in registers (H, E, the query code
+// and the running max of each row, G*S >= the padded rows) and computes
+// column s - g at step s. At the end of a step it hands lane g + 1 its
+// bottom row's H, the F into lane g + 1's first row, and the ref base of
+// its column: three __shfl_up_sync of width G. Lane g + 1 keeps that H as
+// the diagonal input of its next column. Only lane 0 reads the ref (a byte
+// a step, loaded a step ahead), so there is no shared memory and no limit on
+// R. A lane outside [0, rlen) in its column skips the update; the step count
+// is the warp's largest rlen + G - 1, rounded up to even. Only real cells
+// count: pad rows lie below every real row, and F and the diagonal flow
+// downwards, so they never reach one; pad_to does not change the result
+// (rows past W count as code 0 up to the padded width when qlen > W, as in
+// sw_pass).
+//
+// F is the plain recurrence F[j] = max(F[j-1] - gapE, H[j-1] - gapO), with
+// F into row 0 at kNeg, the diagonal into row 0 at 0, and H = 0, E = kNeg
+// in column -1. It equals sw_pass's decayed running max, which uses H_nof =
+// max(diag + sub, E, 0) in place of H: H[j-1] = max(H_nof[j-1], F[j-1]),
+// and when H[j-1] came from F, H[j-1] - gapO = F[j-1] - gapO <=
+// F[j-1] - gapE because gapO >= gapE (the wrapper enforces it), so the F
+// term never wins there. Each cell is then the substitution's compare and
+// select, max(diag + sub, E, 0) (an add and a 3-way max with ReLU, which
+// sm_90 fuses into one VIADDMNMX.RELU), a max with F for H, one subtract
+// (H - gapO, shared by E and F), two __viaddmax_s32 (E, F) and half a
+// __vimax3_s32 (the running max takes two columns at once): 7.5 int32
+// instructions, all 32-bit (16-bit lanes would need saturating kNeg
+// arithmetic to stay exact). A column first computes the F-free part of
+// every row from the last column's H, then runs the F chain down the
+// strip, so no cell spends a move on keeping the diagonal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,9 +90,9 @@ __device__ __forceinline__ int floor_div(int a, int b) {  // b > 0
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// One warp scores one pair. out is [5, B] (full) or [1, B] (score_only):
-// score, ref_end, read_end, score2, ref_end2.
-template <int ROWS, bool SCORE_ONLY>
+// One warp scores one pair. out is [5, B]: score, ref_end, read_end,
+// score2, ref_end2.
+template <int ROWS>
 __global__ void sw_pass_kernel(const int8_t* __restrict__ query,
                                const int8_t* __restrict__ ref,
                                const int32_t* __restrict__ qlen,
@@ -90,8 +133,8 @@ __global__ void sw_pass_kernel(const int8_t* __restrict__ query,
     e[t] = kNeg;
     best_col[t] = 0;
   }
-  int best = 0, best_ref = -1, lane_best = 0;
-  const int tm = SCORE_ONLY ? 0 : term[pair];
+  int best = 0, best_ref = -1;
+  const int tm = term[pair];
   int32_t* colmax = smem + warp * R;
   const int ncol = min(R, rl);  // columns with i < rlen
 
@@ -138,34 +181,22 @@ __global__ void sw_pass_kernel(const int8_t* __restrict__ query,
       const int hv = live[t] ? max(hn[t], f) : 0;
       e[t] = live[t] ? max(e[t] - gap_extend, hv - gap_open) : kNeg;
       h[t] = hv;
-      if (SCORE_ONLY) {
-        if (valid[t]) lane_best = max(lane_best, hv);
-      } else {
-        if (valid[t]) cm_real = max(cm_real, hv);
-        if (live[t]) cm_pad = max(cm_pad, hv);
-      }
+      if (valid[t]) cm_real = max(cm_real, hv);
+      if (live[t]) cm_pad = max(cm_pad, hv);
     }
-    if (!SCORE_ONLY) {
-      cm_real = warp_max(cm_real);
-      cm_pad = warp_max(cm_pad);
-      if (cm_real > best) {  // earliest column attaining the max
-        best = cm_real;
-        best_ref = i;
+    cm_real = warp_max(cm_real);
+    cm_pad = warp_max(cm_pad);
+    if (cm_real > best) {  // earliest column attaining the max
+      best = cm_real;
+      best_ref = i;
 #pragma unroll
-        for (int t = 0; t < ROWS; ++t) best_col[t] = h[t];
-      }
-      if (lane == 0) colmax[i] = cm_pad;
-      if (cm_pad == tm) {  // terminate after this column (lane stays frozen)
-        ++i;
-        break;
-      }
+      for (int t = 0; t < ROWS; ++t) best_col[t] = h[t];
     }
-  }
-
-  if (SCORE_ONLY) {
-    const int s = warp_max(lane_best);
-    if (lane == 0) out[pair] = s;
-    return;
+    if (lane == 0) colmax[i] = cm_pad;
+    if (cm_pad == tm) {  // terminate after this column (lane stays frozen)
+      ++i;
+      break;
+    }
   }
 
   // read_end: smallest real row attaining the max in the best column
@@ -204,35 +235,178 @@ __global__ void sw_pass_kernel(const int8_t* __restrict__ query,
 }
 
 template <int ROWS>
-int launch_rows(bool score_only, const int8_t* q, const int8_t* r,
-                const int32_t* ql, const int32_t* rl, const int32_t* tm,
-                int32_t* out, int B, int W, int R, int wpad, int match,
-                int mismatch, int gap_open, int gap_extend, int mask_len,
-                int pad_to, int second_inclusive, cudaStream_t stream) {
+int launch_rows(const int8_t* q, const int8_t* r, const int32_t* ql,
+                const int32_t* rl, const int32_t* tm, int32_t* out, int B,
+                int W, int R, int wpad, int match, int mismatch, int gap_open,
+                int gap_extend, int mask_len, int pad_to,
+                int second_inclusive, cudaStream_t stream) {
   // 4 warps (pairs) per block unless the column-max rows need less
   int warps = 4;
-  size_t smem = 0;
-  if (!score_only) {
-    while (warps > 1 && (size_t)warps * R * 4 > 48 * 1024) warps >>= 1;
-    smem = (size_t)warps * R * 4;
-  }
+  while (warps > 1 && (size_t)warps * R * 4 > 48 * 1024) warps >>= 1;
+  const size_t smem = (size_t)warps * R * 4;
   const int blocks = (B + warps - 1) / warps;
-  if (score_only) {
-    sw_pass_kernel<ROWS, true><<<blocks, warps * 32, 0, stream>>>(
-        q, r, ql, rl, tm, out, B, W, R, wpad, match, mismatch, gap_open,
-        gap_extend, mask_len, pad_to, second_inclusive);
-  } else {
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          sw_pass_kernel<ROWS, false>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-    }
-    sw_pass_kernel<ROWS, false><<<blocks, warps * 32, smem, stream>>>(
-        q, r, ql, rl, tm, out, B, W, R, wpad, match, mismatch, gap_open,
-        gap_extend, mask_len, pad_to, second_inclusive);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sw_pass_kernel<ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  sw_pass_kernel<ROWS><<<blocks, warps * 32, smem, stream>>>(
+      q, r, ql, rl, tm, out, B, W, R, wpad, match, mismatch, gap_open,
+      gap_extend, mask_len, pad_to, second_inclusive);
   return (int)cudaGetLastError();
+}
+
+// ---- score-only: the row-strip wavefront ---------------------------------
+
+constexpr int kScoreThreads = 128;
+constexpr int kNoRef = 1000;     // a ref code >= 4 (N): matches no row
+constexpr int kNoQuery = 2000;   // the code of a row past qlen
+
+// G lanes score one pair; out is [1, B].
+template <int G, int S>
+__global__ void __launch_bounds__(kScoreThreads)
+    sw_score_kernel(const int8_t* __restrict__ query,
+                    const int8_t* __restrict__ ref,
+                    const int32_t* __restrict__ qlen,
+                    const int32_t* __restrict__ rlen,
+                    int32_t* __restrict__ out, int B, int W, int R, int wpad,
+                    int match, int mismatch, int gap_open, int gap_extend) {
+  const int g = threadIdx.x & (G - 1);
+  const int pair = (blockIdx.x * kScoreThreads + threadIdx.x) / G;
+  const bool real = pair < B;  // the last warp's spare groups still shuffle
+  const int nrows = real ? min(max(qlen[pair], 0), wpad) : 0;
+  const int ncol = real ? min(max(rlen[pair], 0), R) : 0;
+  const int row0 = g * S;
+  const int8_t* q = query + (size_t)pair * W;
+  const int8_t* rf = ref + (size_t)pair * R;
+  const int nge = -gap_extend;
+
+  // per row: query code, H and E of the last column, running max of H
+  int qv[S], h[S], e[S], mx[S];
+#pragma unroll
+  for (int t = 0; t < S; ++t) {
+    const int j = row0 + t;
+    qv[t] = j < nrows ? (j < W ? (int)q[j] : 0) : kNoQuery;
+    h[t] = 0;
+    e[t] = kNeg;
+    mx[t] = 0;
+  }
+
+  const int nstep = __reduce_max_sync(kFull, ncol > 0 ? ncol + G - 1 : 0);
+  // from lane g - 1 at the end of the last step, for this step's column:
+  // H of the row above, F into row0, the ref base; and H of the row above
+  // in the previous column (this column's diagonal)
+  int h_in = 0, f_in = kNeg, rb_in = kNoRef, diag_top = 0;
+  int rb_next = kNoRef;
+  if (g == 0 && ncol > 0) rb_next = rf[0] < 4 ? (int)rf[0] : kNoRef;
+  // steps in pairs: the second of a pair folds both columns' H into the
+  // running max (an odd count adds a step past every lane's last column)
+  for (int s0 = 0; s0 < nstep; s0 += 2) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = s0 + k;
+      const int c = s - g;
+      int rb = rb_in, f = f_in, diag = diag_top;
+      if (g == 0) {  // row 0: diagonal 0, F kNeg; the ref from memory
+        rb = rb_next;
+        f = kNeg;
+        diag = 0;
+        if (s + 1 < ncol) {
+          const int v = rf[s + 1];
+          rb_next = v < 4 ? v : kNoRef;
+        }
+      }
+      diag_top = h_in;
+      if (c >= 0 && c < ncol) {
+        // first the part of each row's H that F does not reach, from the
+        // last column's H before any row is overwritten (no register
+        // moves), then the F chain down the strip
+        int hn[S];
+#pragma unroll
+        for (int t = 0; t < S; ++t) {
+          const int sub = qv[t] == rb ? match : -mismatch;
+          hn[t] = __vimax_s32_relu(diag + sub, e[t]);
+          diag = h[t];
+        }
+#pragma unroll
+        for (int t = 0; t < S; ++t) {
+          const int hv = max(hn[t], f);
+          const int te = hv - gap_open;
+          f = __viaddmax_s32(f, nge, te);
+          e[t] = __viaddmax_s32(e[t], nge, te);
+          if (k == 1) mx[t] = __vimax3_s32(mx[t], h[t], hv);
+          h[t] = hv;
+        }
+      } else if (k == 1) {  // the first step's column, if it had one
+#pragma unroll
+        for (int t = 0; t < S; ++t) mx[t] = max(mx[t], h[t]);
+      }
+      if (G > 1) {
+        h_in = __shfl_up_sync(kFull, h[S - 1], 1, G);
+        f_in = __shfl_up_sync(kFull, f, 1, G);
+        rb_in = __shfl_up_sync(kFull, rb, 1, G);
+      }
+    }
+  }
+
+  int best = 0;
+#pragma unroll
+  for (int t = 0; t < S; ++t)
+    if (row0 + t < nrows) best = max(best, mx[t]);
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    best = max(best, __shfl_xor_sync(kFull, best, off));
+  if (g == 0 && real) out[pair] = best;
+}
+
+struct ScoreArgs {
+  const int8_t* q;
+  const int8_t* r;
+  const int32_t* ql;
+  const int32_t* rl;
+  int32_t* out;
+  int B, W, R, wpad, match, mismatch, gap_open, gap_extend;
+  cudaStream_t stream;
+};
+
+template <int G, int S>
+int launch_score(const ScoreArgs& a) {
+  const long long threads = (long long)a.B * G;
+  const int blocks = (int)((threads + kScoreThreads - 1) / kScoreThreads);
+  sw_score_kernel<G, S><<<blocks, kScoreThreads, 0, a.stream>>>(
+      a.q, a.r, a.ql, a.rl, a.out, a.B, a.W, a.R, a.wpad, a.match,
+      a.mismatch, a.gap_open, a.gap_extend);
+  return (int)cudaGetLastError();
+}
+
+// the instantiation with S == s among S = S0, S0 + 2, ..., SMAX
+template <int G, int S, int SMAX>
+int launch_score_s(int s, const ScoreArgs& a) {
+  if constexpr (S > SMAX) {
+    return -1;
+  } else {
+    if (s == S) return launch_score<G, S>(a);
+    return launch_score_s<G, S + 2, SMAX>(s, a);
+  }
+}
+
+// G: the smallest power of two (at most 32) with G * 16 >= wpad rows; S:
+// the rows a lane then needs, rounded up to even (G = 1: 2..16; G = 2..16:
+// 10..16; G = 32: 10..32, W <= 1024).
+int launch_score_only(const ScoreArgs& a) {
+  int g = 1;
+  while (g < 32 && g * 16 < a.wpad) g *= 2;
+  int s = max((a.wpad + g - 1) / g, 1);
+  s += s & 1;
+  switch (g) {
+    case 1: return launch_score_s<1, 2, 16>(s, a);
+    case 2: return launch_score_s<2, 10, 16>(s, a);
+    case 4: return launch_score_s<4, 10, 16>(s, a);
+    case 8: return launch_score_s<8, 10, 16>(s, a);
+    case 16: return launch_score_s<16, 10, 16>(s, a);
+    default: return launch_score_s<32, 10, 32>(s, a);
+  }
 }
 
 }  // namespace
@@ -247,19 +421,23 @@ extern "C" int sw_pass_launch(const void* q, const void* r, const void* ql,
                               void* stream) {
   if (B <= 0) return 0;
   const int wpad = (W + pad_to - 1) / pad_to * pad_to;
-  const int rows = (wpad + 31) / 32;
   auto* q8 = static_cast<const int8_t*>(q);
   auto* r8 = static_cast<const int8_t*>(r);
   auto* ql32 = static_cast<const int32_t*>(ql);
   auto* rl32 = static_cast<const int32_t*>(rl);
-  auto* tm32 = static_cast<const int32_t*>(tm);
   auto* o32 = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const bool so = score_only != 0;
+  if (score_only) {
+    if (wpad > 1024) return -1;
+    return launch_score_only({q8, r8, ql32, rl32, o32, B, W, R, wpad, match,
+                              mismatch, gap_open, gap_extend, st});
+  }
+  const int rows = (wpad + 31) / 32;
+  auto* tm32 = static_cast<const int32_t*>(tm);
 #define SW_LAUNCH(N)                                                         \
-  return launch_rows<N>(so, q8, r8, ql32, rl32, tm32, o32, B, W, R, wpad,    \
-                        match, mismatch, gap_open, gap_extend, mask_len,     \
-                        pad_to, second_inclusive, st)
+  return launch_rows<N>(q8, r8, ql32, rl32, tm32, o32, B, W, R, wpad, match, \
+                        mismatch, gap_open, gap_extend, mask_len, pad_to,    \
+                        second_inclusive, st)
   if (rows <= 1) SW_LAUNCH(1);
   if (rows <= 2) SW_LAUNCH(2);
   if (rows <= 4) SW_LAUNCH(4);

@@ -4,9 +4,11 @@ Equivalent surface to the reference's `struct Sapling`
 (reference: src/sapling_api.h:17-679): the constructor-side state (genome,
 rev, inv, PWL table, error bounds, chrEnds) lives as typed numpy arrays on
 the host, in the same `.stpu.npz` artifact format as `sapling_tpu`, so an
-artifact built by either package loads in the other. `to(device)` gives
-the index on the device the queries run on; the arrays the query reads
-there are made from the host arrays on first use (`device_arrays`).
+artifact built by either package loads in the other. An index's `device`
+is where its queries run: the card ("cuda") unless the caller asks for
+"cpu". `to(device)` gives the index on another device; the arrays the
+query reads there are made from the host arrays on first use
+(`device_arrays`), and without a card that raises.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ class SaplingIndex:
     # aligner refuses them)
     rev_hi: np.ndarray | None = None
     inv_hi: np.ndarray | None = None
-    device: torch.device = field(default=torch.device("cpu"))
+    device: torch.device = field(default=torch.device("cuda"))
     _device: dict = field(default_factory=dict, repr=False)
 
     # --- construction -------------------------------------------------------
@@ -79,6 +81,7 @@ class SaplingIndex:
         cfg: IndexConfig | None = None,
         suffix: SuffixData | None = None,
         keep_aligner_arrays: bool = True,
+        device="cuda",
     ) -> "SaplingIndex":
         cfg = cfg or IndexConfig()
         if isinstance(genome, Genome):
@@ -103,6 +106,7 @@ class SaplingIndex:
             n=n, k=cfg.k, buckets=buckets, packed=packed, rev=rev,
             inv=suffix.inv.astype(pdt), table=table, chr_ends=list(chr_ends),
             codes=codes, prefix64=prefix64, prefix3=prefix3,
+            device=torch.device(device),
         )
         if keep_aligner_arrays:
             fwd, bwd = lcp_ge_k_runs(suffix.lcp, cfg.k)
@@ -111,7 +115,7 @@ class SaplingIndex:
         return idx
 
     @classmethod
-    def from_arrays(cls, src, device="cpu") -> "SaplingIndex":
+    def from_arrays(cls, src, device="cuda") -> "SaplingIndex":
         """An index made of another index object's host arrays: any object
         with SaplingIndex's fields, such as a `sapling_tpu` SaplingIndex.
         The numpy arrays are shared, not copied."""
@@ -120,7 +124,7 @@ class SaplingIndex:
 
     @classmethod
     def from_fasta(cls, path: str, cfg: IndexConfig | None = None,
-                   cache: bool = True) -> "SaplingIndex":
+                   cache: bool = True, device="cuda") -> "SaplingIndex":
         """Build from a FASTA path with the reference's artifact-caching
         pattern: <path>.sa and <path>_k<k>_b<buckets>.stpu.npz are
         transparently reloaded if present, else built and written
@@ -129,7 +133,7 @@ class SaplingIndex:
         genome = read_fasta(path)
         npz = f"{path}_k{cfg.k}_b{cfg.buckets}.stpu.npz"
         if cache and os.path.exists(npz):
-            return cls.load(npz)
+            return cls.load(npz, device)
         sa_path = path + ".sa"
         pdt = _pos_dtype(genome.n, cfg.pos_dtype)
         bdt = _build_dtype(pdt)
@@ -143,7 +147,7 @@ class SaplingIndex:
             suffix = build_suffix_data(genome.seq, bdt)
             if cache:
                 artifacts.write_sa(sa_path, suffix.inv, suffix.lcp)
-        idx = cls.build(genome, cfg, suffix=suffix)
+        idx = cls.build(genome, cfg, suffix=suffix, device=device)
         if cache:
             idx.save(npz)
         return idx
@@ -184,7 +188,7 @@ class SaplingIndex:
     SUPPORTED_FORMATS = (1, 2, 3, 4)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "SaplingIndex":
+    def load(cls, path: str, device="cuda") -> "SaplingIndex":
         """Load an artifact written by either package."""
         z = artifacts.load_npz(path)
         ver = int(z.get("format_version", 1))

@@ -1,18 +1,20 @@
-"""Wrapper of the hand-written CUDA Smith-Waterman kernel (csrc/sw.cu).
+"""Wrapper of the hand-written CUDA Smith-Waterman kernels (csrc/sw.cu).
 
-The kernel replaces `sapling_tpu/ops/sw_pallas.py::_kernel` (full and
-score_only modes) and returns exactly what the plain PyTorch `ops.sw.sw_pass`
-returns. `sw_pass_cuda` is the one entry point every SW pass of the port
-goes through:
+The kernels replace `sapling_tpu/ops/sw_pallas.py::_kernel`: the full mode
+runs `sw_pass_kernel` (one warp a pair), the score_only mode
+`sw_score_kernel` (a row-strip wavefront of G lanes a pair, real cells
+only). Both return exactly what the plain PyTorch `ops.sw.sw_pass` returns.
+`sw_pass_cuda` is the one entry point every SW pass of the port goes
+through:
 
   * a tensor on the CPU takes the plain version (there is no CUDA there);
-  * a tensor on the card launches the kernel, or raises — there is no
+  * a tensor on the card launches a kernel, or raises — there is no
     fallback to the plain version.
 
-The kernel is compiled with nvcc at first use into `sapling_tpu_torch/_build`
-(gitignored), keyed by a hash of the source and flags, and bound with
-ctypes: pointers from `data_ptr()`, the stream from PyTorch's current
-stream. `LAUNCHES` counts kernel launches per mode.
+The kernels are compiled with nvcc at first use into
+`sapling_tpu_torch/_build` (gitignored), keyed by a hash of the source and
+flags, and bound with ctypes: pointers from `data_ptr()`, the stream from
+PyTorch's current stream. `LAUNCHES` counts kernel launches per mode.
 """
 
 from __future__ import annotations
@@ -30,8 +32,9 @@ SOURCE = os.path.join(_PKG, "csrc", "sw.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_ROWS = 1024                   # query rows (after pad_to) one warp holds
+MAX_ROWS = 1024                   # query rows (after pad_to) of a pair
 MAX_SMEM = 232448                 # bytes of shared memory one block may use
+                                  # (full mode: R column maxima a warp)
 
 # kernel launches per mode, counted where the kernel is launched
 LAUNCHES = {"full": 0, "score_only": 0}
@@ -47,18 +50,19 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_kernel() -> str:
-    """Compile csrc/sw.cu (or reuse the build of the same source and
-    flags); returns the shared library's path. nvcc's -Xptxas -v report
-    (registers, spills, shared memory) is kept beside it as a .log."""
-    with open(SOURCE, "rb") as f:
+def build_kernel(source: str = SOURCE) -> str:
+    """Compile csrc/sw.cu, or another version of it at `source` (or reuse
+    the build of the same source and flags); returns the shared library's
+    path. nvcc's -Xptxas -v report (registers, spills, shared memory) is
+    kept beside it as a .log."""
+    with open(source, "rb") as f:
         src = f.read()
     tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"libsw-{tag}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = out + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
@@ -69,15 +73,20 @@ def build_kernel() -> str:
     return out
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """The library at `path` with its C entry point `sw_pass_launch` typed."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.sw_pass_launch.argtypes = [vp] * 6 + [ci] * 11 + [vp]
+    lib.sw_pass_launch.restype = ci
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build_kernel())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.sw_pass_launch.argtypes = [vp] * 6 + [ci] * 11 + [vp]
-            lib.sw_pass_launch.restype = ci
-            _LIB = lib
+            _LIB = bind(build_kernel())
     return _LIB
 
 
@@ -99,6 +108,8 @@ def sw_pass_cuda(query, qlen, ref, rlen, terminate, *, match: int = 2,
     On the card: query int8 [B, W] and ref int8 [B, R] base codes, qlen /
     rlen / terminate int32 [B], all contiguous on one device;
     ceil(W / pad_to) * pad_to <= 1024 and, in full mode, R <= 58112.
+    pad_to does not change the score-only result (pad rows lie below every
+    real row); it changes only which strip shape the kernel is built for.
     """
     if query.device.type == "cpu":
         from .sw import sw_pass

@@ -5,7 +5,7 @@ reference: src/align.cpp:28-67, plus the device):
 
     python -m sapling_tpu_torch.tools.align <query.fastq> <ref.fasta> \
         <out.sam> [num_seeds=7] [sapling_k=16] [flanking_sequence=2] \
-        [max_hits=32] [device=cpu|cuda]
+        [max_hits=32] [device=cuda|cpu]
 
 The index is cached beside the FASTA as <ref>_k<k>_b-1.stpu.npz and
 <ref>.sa, the same artifacts `tools/align.py` of the JAX package reads and
@@ -33,8 +33,10 @@ def main(argv):
         flanking=int(kv.get("flanking_sequence", 2)),
         max_hits=int(kv.get("max_hits", 32)),
     )
-    idx = SaplingIndex.from_fasta(ref_fn, IndexConfig(k=cfg.sapling_k))
-    aligner = SeedExtendAligner(idx, cfg, device=kv.get("device", "cpu"))
+    device = kv.get("device", "cuda")
+    idx = SaplingIndex.from_fasta(ref_fn, IndexConfig(k=cfg.sapling_k),
+                                  device=device)
+    aligner = SeedExtendAligner(idx, cfg, device=device)
     aligner.align_fastq(query_fn, out_fn, cl=" ".join(argv))
     print(f"wrote {out_fn}")
     return 0

@@ -3,7 +3,7 @@ baseline Sapling is measured against (reference: src/binarysearch.cpp:
 167-273).
 
     python -m sapling_tpu_torch.tools.binarysearch <genome.fa> [nq=5000000]
-        [qLen=21] [batch=1000000] [fancy=0] [device=cpu|cuda]
+        [qLen=21] [batch=1000000] [fancy=0] [device=cuda|cpu]
 
 Same arguments as tools/binarysearch.py, plus the device. Runs nq random
 genome substrings through the batched binary search in batches, timed
@@ -35,12 +35,12 @@ def main(argv):
     qlen = int(kv.get("qLen", 21))
     batch = int(kv.get("batch", 1_000_000))
     fancy = bool(int(kv.get("fancy", 0)))
-    idx = SaplingIndex.from_fasta(argv[1], IndexConfig(k=min(qlen, 21)))
+    idx = SaplingIndex.from_fasta(argv[1], IndexConfig(k=min(qlen, 21)),
+                                  device=kv.get("device", "cuda"))
     tables = None
     if fancy:   # host work, before the device is touched
         suffix = build_suffix_data(idx.codes)
         tables = build_llcp_rlcp(np.asarray(suffix.lcp, np.int64), idx.n)
-    idx = idx.to(kv.get("device", "cpu"))
     rng = np.random.default_rng(0)
     starts = rng.integers(0, idx.n - qlen + 1, nq)
     codes2d = idx.codes[starts[:, None] + np.arange(qlen)]

@@ -6,7 +6,7 @@ binary (reference: src/sapling_example.cpp:30-99), plus the device:
     python -m sapling_tpu_torch.tools.sapling_example <genome.fa>
         [sapFn=..] [nb=<log2 buckets>] [maxMem=<genome/val bucket cap>]
         [k=<k>] [nq=<num queries>] [errFn=<error dump>]
-        [qLen=<query length>] [batch=1000000] [seed=0] [device=cpu|cuda]
+        [qLen=<query length>] [batch=1000000] [seed=0] [device=cuda|cpu]
 
 Runs the reference's experiment sweep (qLen in {k-10, k, k+10, k+20,
 k+30, k+80}, or one qLen) over nq random genome substrings: the plQuery
@@ -76,7 +76,8 @@ def main(argv):
     batch = int(kv.get("batch", 1_000_000))
 
     t0 = time.time()
-    idx = SaplingIndex.from_fasta(ref_fn, cfg)
+    idx = SaplingIndex.from_fasta(ref_fn, cfg,
+                                  device=kv.get("device", "cuda"))
     print(f"index ready in {time.time() - t0:.1f}s "
           f"(n={idx.n}, buckets=2^{idx.buckets})")
     if kv.get("errFn"):
@@ -103,12 +104,11 @@ def main(argv):
         idx.write_reference_artifacts(kv["sapFn"])
         print(f"wrote {kv['sapFn']}")
 
-    didx = idx.to(kv.get("device", "cpu"))
     rng = np.random.default_rng(int(kv.get("seed", 0)))
     k = idx.k
     for ql in ((k - 10, k, k + 10, k + 20, k + 30, k + 80) if qlen == -1
                else (qlen,)):
-        run_experiment(didx, ql, nq, batch, rng)
+        run_experiment(idx, ql, nq, batch, rng)
     return 0
 
 

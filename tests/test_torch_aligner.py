@@ -93,7 +93,8 @@ def _sam_lines_both(make, d, **cfg):
     jidx = JaxIndex.from_fasta(ref_fa, JaxIndexConfig(k=16, **cfg))
     JaxAligner(jidx, JaxAlignerConfig()).align_fastq(
         fq, jax_sam, cl=f"align {fq} {ref_fa} {jax_sam}", **run_kw)
-    idx = SaplingIndex.from_fasta(ref_fa, IndexConfig(k=16, **cfg))
+    idx = SaplingIndex.from_fasta(ref_fa, IndexConfig(k=16, **cfg),
+                                  device="cpu")
     SeedExtendAligner(idx, AlignerConfig(), device="cpu").align_fastq(
         fq, our_sam, cl=f"align {fq} {ref_fa} {our_sam}", **run_kw)
     with open(jax_sam) as f:
@@ -144,7 +145,7 @@ def test_cli_writes_the_same_sam_as_the_api(tmp_path):
     argv = ["align", fq, ref_fa, cli_sam, "max_hits=32", "device=cpu"]
     assert main(argv) == 0
     api_sam = os.path.join(d, "api.sam")
-    idx = SaplingIndex.load(ref_fa + "_k16_b-1.stpu.npz")
+    idx = SaplingIndex.load(ref_fa + "_k16_b-1.stpu.npz", device="cpu")
     SeedExtendAligner(idx, AlignerConfig(), device="cpu").align_fastq(
         fq, api_sam, cl=" ".join(argv))
     with open(cli_sam, "rb") as a, open(api_sam, "rb") as b:

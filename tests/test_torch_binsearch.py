@@ -45,7 +45,7 @@ def genome():
 def test_binsearch_matches_jax(genome, pos_dtype):
     jidx = JaxIndex.build(genome, IndexConfig(k=13, buckets=8,
                                               pos_dtype=pos_dtype))
-    tidx = SaplingIndex.from_arrays(jidx)
+    tidx = SaplingIndex.from_arrays(jidx, device="cpu")
     dev = tidx.device_arrays()
     for length in (8, 13, 40):
         codes = _codes(tidx, 400, length, seed=length)
@@ -62,7 +62,7 @@ def test_binsearch_matches_jax(genome, pos_dtype):
 
 def test_query_positions_binsearch_matches_jax(genome):
     jidx = JaxIndex.build(genome, IndexConfig(k=13, buckets=8))
-    tidx = SaplingIndex.from_arrays(jidx)
+    tidx = SaplingIndex.from_arrays(jidx, device="cpu")
     for length in (5, 13, 21):
         codes = _codes(tidx, 300, length, seed=40 + length)
         np.testing.assert_array_equal(
@@ -73,7 +73,7 @@ def test_query_positions_binsearch_matches_jax(genome):
 
 def test_fancy_binsearch_matches_jax_and_scalar(genome):
     jidx = JaxIndex.build(genome, IndexConfig(k=13, buckets=8))
-    tidx = SaplingIndex.from_arrays(jidx)
+    tidx = SaplingIndex.from_arrays(jidx, device="cpu")
     suffix = build_suffix_data(genome)
     llcp, rlcp = build_llcp_rlcp(np.asarray(suffix.lcp, np.int64), tidx.n)
     dev = tidx.device_arrays()

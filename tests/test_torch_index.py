@@ -6,6 +6,7 @@ port's own build gives the arrays the JAX package's build gives; and the
 cached `from_fasta` artifacts written by either package load in the other.
 """
 
+import inspect
 import os
 import sys
 
@@ -55,7 +56,7 @@ def genome():
 def test_build_matches_jax(genome, k, buckets):
     seq, ends = genome
     ours = SaplingIndex.build(Genome(seq=seq, chr_ends=ends),
-                              IndexConfig(k=k, buckets=buckets))
+                              IndexConfig(k=k, buckets=buckets), device="cpu")
     theirs = JaxIndex.build(JaxGenome(seq=seq, chr_ends=ends),
                             JaxIndexConfig(k=k, buckets=buckets))
     assert_same_index(ours, theirs)
@@ -66,13 +67,13 @@ def test_npz_round_trip_both_ways(genome, tmp_path):
     jidx = JaxIndex.build(JaxGenome(seq=seq, chr_ends=ends),
                           JaxIndexConfig(k=16))
     jidx.save(str(tmp_path / "jax.stpu.npz"))
-    ours = SaplingIndex.load(str(tmp_path / "jax.stpu.npz"))
+    ours = SaplingIndex.load(str(tmp_path / "jax.stpu.npz"), device="cpu")
     assert_same_index(ours, jidx)
     ours.save(str(tmp_path / "torch.stpu.npz"))
     back = JaxIndex.load(str(tmp_path / "torch.stpu.npz"))
     assert_same_index(back, jidx)
     # from_arrays shares the host arrays of any index object
-    assert_same_index(SaplingIndex.from_arrays(jidx), jidx)
+    assert_same_index(SaplingIndex.from_arrays(jidx, device="cpu"), jidx)
 
 
 def test_from_fasta_cache_is_shared(genome, tmp_path):
@@ -83,10 +84,12 @@ def test_from_fasta_cache_is_shared(genome, tmp_path):
     write_fasta(fa, [("chrA", bytes(seq[:25_000])),
                      ("chrB", bytes(seq[25_000:]))])
     jidx = JaxIndex.from_fasta(fa, JaxIndexConfig(k=16))
-    assert_same_index(SaplingIndex.from_fasta(fa, IndexConfig(k=16)), jidx)
+    assert_same_index(SaplingIndex.from_fasta(fa, IndexConfig(k=16),
+                                              device="cpu"), jidx)
     # a build from the cached .sa alone (no .npz) gives the same index
     (tmp_path / "ref.fa_k16_b-1.stpu.npz").unlink()
-    assert_same_index(SaplingIndex.from_fasta(fa, IndexConfig(k=16)), jidx)
+    assert_same_index(SaplingIndex.from_fasta(fa, IndexConfig(k=16),
+                                              device="cpu"), jidx)
     assert_same_index(JaxIndex.load(str(tmp_path / "ref.fa_k16_b-1.stpu.npz")),
                       jidx)
 
@@ -104,7 +107,7 @@ def test_split_limb_artifact_answers_as_jax(tmp_path):
     out = str(tmp_path / "big.stpu.npz")
     build_split(n, k, nb, workers=2, out=out)
     jidx = JaxIndex.load(out)
-    tidx = SaplingIndex.load(out)
+    tidx = SaplingIndex.load(out, device="cpu")
     assert tidx.rev_hi is not None and tidx.prefix3 is None
     rev = tidx.device_arrays()["rev"]
     assert rev.dtype == torch.int64
@@ -130,7 +133,8 @@ def test_cuda_index_without_a_gpu_raises(genome):
         pytest.skip("a GPU is present")
     seq, ends = genome
     idx = SaplingIndex.build(Genome(seq=seq, chr_ends=ends),
-                             IndexConfig(k=16), keep_aligner_arrays=False)
+                             IndexConfig(k=16), keep_aligner_arrays=False,
+                             device="cpu")
     codes = idx.codes[np.arange(8)[:, None] + np.arange(16)]
     with pytest.raises((AssertionError, RuntimeError)):
         idx.to("cuda").query_positions(codes)
@@ -141,7 +145,7 @@ def test_to_leaves_the_index_where_it_was(genome):
     aligner built on another device moves the caller's index."""
     seq, ends = genome
     idx = SaplingIndex.build(Genome(seq=seq, chr_ends=ends),
-                             IndexConfig(k=16))
+                             IndexConfig(k=16), device="cpu")
     cpu, meta = torch.device("cpu"), torch.device("meta")
     assert idx.to("cpu") is idx
     view = idx.to("meta")
@@ -150,3 +154,40 @@ def test_to_leaves_the_index_where_it_was(genome):
     aligner = SeedExtendAligner(idx, device="meta")
     assert aligner.idx.device == meta and idx.device == cpu
     assert SeedExtendAligner(idx, device="cpu").idx is idx
+
+
+def test_entry_points_default_to_the_card(genome, tmp_path):
+    """Every entry point of the port defaults to "cuda", and with no GPU a
+    query through a default index, aligner or CLI twin raises instead of
+    running on the CPU."""
+    from sapling_tpu_torch.tools import align, binarysearch, sapling_example
+
+    cuda = torch.device("cuda")
+    for fn in (SaplingIndex.build, SaplingIndex.from_arrays,
+               SaplingIndex.load, SaplingIndex.from_fasta,
+               SeedExtendAligner.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    seq, ends = genome
+    idx = SaplingIndex.build(Genome(seq=seq, chr_ends=ends),
+                             IndexConfig(k=16))
+    assert idx.device == cuda
+    assert SeedExtendAligner(idx).idx.device == cuda
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the defaults run there")
+    no_gpu = (AssertionError, RuntimeError)
+    codes = idx.codes[np.arange(8)[:, None] + np.arange(16)]
+    with pytest.raises(no_gpu):
+        idx.query_positions(codes)
+    fa = str(tmp_path / "ref.fa")
+    write_fasta(fa, [("chrA", bytes(seq[:20_000]))])
+    fq = str(tmp_path / "reads.fq")
+    with open(fq, "w") as f:
+        f.write("@r0\n" + bytes(b"ACGT"[c] for c in idx.codes[:100]).decode()
+                + "\n+\n" + "I" * 100 + "\n")
+    with pytest.raises(no_gpu):
+        align.main(["align", fq, fa, str(tmp_path / "out.sam")])
+    with pytest.raises(no_gpu):
+        binarysearch.main(["binarysearch", fa, "nq=50", "qLen=16"])
+    with pytest.raises(no_gpu):
+        sapling_example.main(["sapling_example", fa, "k=16", "nb=8",
+                              "nq=50", "qLen=16"])

@@ -27,7 +27,8 @@ FIELDS = ("match", "smaller", "off_end", "lcp")
 def index():
     seq = np.concatenate([uniform_genome(5000, seed=3),
                           repeat_genome(1003, period=17, seed=4)])
-    return SaplingIndex.build(seq, IndexConfig(k=12, buckets=8))
+    return SaplingIndex.build(seq, IndexConfig(k=12, buckets=8),
+                              device="cpu")
 
 
 def _queries(idx, pos, length, rng):

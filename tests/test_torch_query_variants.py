@@ -53,7 +53,7 @@ def test_boundary_queries_parity(k21_pair, prefix):
     every probe form (fast3 11/21, prefix64 31/32, packed 45)."""
     jidx, tidx = k21_pair
     if not prefix:
-        tidx = SaplingIndex.from_arrays(tidx)
+        tidx = SaplingIndex.from_arrays(tidx, device="cpu")
         tidx.prefix64 = tidx.prefix3 = None
     for length in (11, 21, 31, 32, 45):
         codes = _boundary_queries(tidx, length, 600, seed=length)

@@ -1,6 +1,6 @@
-"""The CUDA Smith-Waterman kernel on the card (skipped without a GPU).
+"""The CUDA Smith-Waterman kernels on the card (skipped without a GPU).
 
-The kernel (sapling_tpu_torch/csrc/sw.cu) has no CPU mode, so these tests
+The kernels (sapling_tpu_torch/csrc/sw.cu) have no CPU mode, so these tests
 need a CUDA device; here they skip. They import neither jax nor
 sapling_tpu, so they run on a machine without JAX, from the repo root:
 
@@ -31,14 +31,22 @@ def _batch(rng, b, w, r, dev):
     for i in range(0, b, 3):           # some high-scoring lanes
         ln = min(w, r - 5)
         ref[i, 5:5 + ln] = q[i, :ln]
-    ql = rng.integers(0, w + 1, b).astype(np.int32)   # qlen 0 included
+    ql = rng.integers(0, w + 1, b).astype(np.int32)
     rl = rng.integers(0, r + 1, b).astype(np.int32)
+    ql[:3], rl[2] = (0, 1, w), 0        # qlen 0, 1 and W; rlen 0
     return [torch.from_numpy(a).to(dev) for a in (q, ql, ref, rl)]
+
+
+# the score-only kernel's strip shapes (G lanes of S rows a pair) change at
+# these padded widths: each G from 1 to 32 on both sides of its edge
+STRIP_EDGES = (16, 17, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,w,r", [(700, 100, 128), (300, 31, 7),
-                                   (64, 1000, 300), (40, 500, 13_000)])
+                                   (64, 1000, 300), (40, 500, 13_000),
+                                   (48, 1024, 200)]
+                         + [(97, w, 60) for w in STRIP_EDGES])
 def test_kernel_matches_plain(dev, b, w, r):
     rng = np.random.default_rng(b + w + r)
     q, ql, ref, rl = _batch(rng, b, w, r, dev)
@@ -50,7 +58,14 @@ def test_kernel_matches_plain(dev, b, w, r):
                    (no_term, dict(match=3, mismatch=1, gap_open=5,
                                   gap_extend=2, mask_len=7)),
                    (no_term, dict(pad_to=16, score_only=True)),
-                   (no_term, dict(pad_to=8, score_only=True))):
+                   (no_term, dict(pad_to=8, score_only=True)),
+                   # a mismatch that scores
+                   (no_term, dict(match=1, mismatch=-1, gap_open=2,
+                                  gap_extend=1)),
+                   (no_term, dict(match=1, mismatch=-1, gap_open=2,
+                                  gap_extend=1, score_only=True)),
+                   (no_term, dict(match=3, mismatch=1, gap_open=5,
+                                  gap_extend=2, score_only=True))):
         before = sum(sw_cuda.LAUNCHES.values())
         got = sw_cuda.sw_pass_cuda(q, ql, ref, rl, tm, **kw)
         torch.cuda.synchronize()
