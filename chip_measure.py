@@ -55,7 +55,7 @@ import chip_smoke as cs
 N_SWEEP = cs.SW_SWEEP      # candidates of one 16,384-read aligner block
 # the score-only kernel the aligner's W=100 (pad 16) launches, and the DP
 # cells a lane computes in a trip of its step loop (two steps of S=14 rows)
-SASS_KERNEL, SASS_CELLS = "sw_score_kernelILi8ELi14EE", 28
+SASS_KERNEL, SASS_CELLS = "sw_kernelILi8ELi14ELb0EE", 28
 ALIGN_SIZES = (20_000, 100_000)
 RUNS = 3
 
@@ -79,7 +79,7 @@ def device_events(prof) -> dict:
 
 
 def _short(name: str) -> str:
-    """'sw_score_kernel<8, 14>' out of a kernel's full signature."""
+    """'sw_kernel<8, 14, false>' out of a kernel's full signature."""
     i = name.find("sw_")
     return name[i:name.find(">", i) + 1]
 
@@ -279,7 +279,7 @@ def aligner_times(dev, seq, idx16, workdir: str,
     ev = device_events(prof)
     busy = sum(ms for _c, ms in ev.values())
     sw_ev = {k: v for k, v in ev.items()
-             if "sw_pass_kernel" in k or "sw_score_kernel" in k}
+             if "sw_kernel" in k}
     copy_ms = sum(ms for k, (_c, ms) in ev.items() if "Memcpy" in k)
     out["profile"] = dict(reads=n, seconds=s, device_ms=busy,
                           copy_ms=copy_ms, sw_kernels=sw_ev, events=ev)

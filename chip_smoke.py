@@ -20,8 +20,9 @@ failure raises and the script exits non-zero:
      reads padded to 112 rows, 128-base windows, ragged lengths, related
      lanes), pad 16 and pad 8 + second_inclusive, full and score-only,
      and terminate: every field must be equal; the score-only kernel
-     also at one aligner block's candidate sweep (163,840 pairs); CUDA-
-     event times of both, beside each one's bound (sw_bound_ms);
+     also at one aligner block's candidate sweep (163,840 pairs), and both
+     modes at 1,500-base reads (1,024 pairs, two row tiles of 1,024 rows);
+     CUDA-event times of both, beside each one's bound (sw_bound_ms);
   4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
      SAM on the card; the first 1,000 reads' SAM must be byte-identical to
      the port's CPU path, and both SW kernel modes must have launched;
@@ -71,6 +72,7 @@ N_QUERY_CHECK = 100_000
 SWEEP = (11, 21, 31, 41, 51, 101)   # tools/sapling_example.py at k=21
 SW_BATCH, SW_W, SW_R = 16_384, 100, 128
 SW_SWEEP = 163_840                  # candidates of one 16,384-read block
+SW_TILED, SW_TILED_W, SW_TILED_R = 1_024, 1_500, 1_600   # two row tiles
 # the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
 # and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
 # pipes together); HBM bytes/s
@@ -169,13 +171,13 @@ def sw_bound_ms(qlen, rlen, w: int, r: int, out_words: int,
                 cells=cells)
 
 
-def sw_batch(dev, b: int):
-    """A seeded batch of b SW pairs at aligner shapes on `dev`: (query,
-    qlen, ref, rlen) with ragged lengths and every third lane related."""
+def sw_batch(dev, b: int, w: int = SW_W, r: int = SW_R):
+    """A seeded batch of b SW pairs at aligner shapes (or reads of w bases
+    in windows of r) on `dev`: (query, qlen, ref, rlen) with ragged lengths
+    and every third lane related."""
     import numpy as np
     import torch
 
-    w, r = SW_W, SW_R
     rng = np.random.default_rng(SEED)
     q = rng.integers(0, 5, (b, w)).astype(np.int8)
     ref = rng.integers(0, 5, (b, r)).astype(np.int8)
@@ -190,7 +192,7 @@ def sw_batch(dev, b: int):
 def kernel_vs_plain(dev, sm_clock_mhz: float) -> dict:
     """Phase 3: the kernel wrapper against the plain sw_pass on `dev`, and
     each mode's time beside its bound; the score-only kernel also at
-    SW_SWEEP pairs."""
+    SW_SWEEP pairs, and both modes at SW_TILED_W-base reads."""
     import torch
 
     from sapling_tpu_torch.ops.sw import sw_pass
@@ -203,20 +205,25 @@ def kernel_vs_plain(dev, sm_clock_mhz: float) -> dict:
              ("pad8", no_term, dict(pad_to=8, second_inclusive=True)),
              ("terminate", term, dict(pad_to=16))]
     err = {"full": 0, "score_only": 0}
-    for name, tm, kw in cases:
-        for so in (False, True):
-            if so and tm is term:
-                continue               # score-only takes no terminate
-            a = sw_pass(q, qlen, ref, rlen, tm, score_only=so, **kw)
-            k = sw_pass_cuda(q, qlen, ref, rlen, tm, score_only=so, **kw)
-            mode = "score_only" if so else "full"
-            for f in a:
-                d = int((a[f].long() - k[f].long()).abs().max())
-                err[mode] = max(err[mode], d)
-                if d:
-                    raise AssertionError(
-                        f"kernel != plain: {name} {mode} field {f}: "
-                        f"{int((a[f] != k[f]).sum())} lanes differ")
+
+    def check(name, q, qlen, ref, rlen, tm, cases):
+        for case, tm_, kw in cases:
+            for so in (False, True):
+                if so and tm_ is not tm:
+                    continue           # score-only takes no terminate
+                a = sw_pass(q, qlen, ref, rlen, tm_, score_only=so, **kw)
+                k = sw_pass_cuda(q, qlen, ref, rlen, tm_, score_only=so,
+                                 **kw)
+                mode = "score_only" if so else "full"
+                for f in a:
+                    d = int((a[f].long() - k[f].long()).abs().max())
+                    err[mode] = max(err[mode], d)
+                    if d:
+                        raise AssertionError(
+                            f"kernel != plain: {name} {case} {mode} field "
+                            f"{f}: {int((a[f] != k[f]).sum())} lanes differ")
+
+    check(f"B={SW_BATCH}", q, qlen, ref, rlen, no_term, cases)
     out = {m: {"max_abs_err": err[m]} for m in err}
     for mode, so in (("full", False), ("score_only", True)):
         out[mode]["ms"] = _time_ms(lambda: sw_pass_cuda(
@@ -247,6 +254,25 @@ def kernel_vs_plain(dev, sm_clock_mhz: float) -> dict:
     out["score_only"][f"b{SW_SWEEP}"] = dict(
         max_abs_err=d, ms=ms, bound_ms=bound["bound_ms"],
         pct_of_bound=100 * bound["bound_ms"] / ms)
+    del q, qlen, ref, rlen, no_term
+
+    # reads past one row tile: both modes, pad 16, pad 8 and terminate
+    w, r = SW_TILED_W, SW_TILED_R
+    q, qlen, ref, rlen = sw_batch(dev, SW_TILED, w, r)
+    no_term = torch.full((SW_TILED,), -1, dtype=torch.int32, device=dev)
+    term = sw_pass(q, qlen, ref, rlen, no_term)["score"].contiguous()
+    check(f"W={w}", q, qlen, ref, rlen, no_term,
+          [("pad16", no_term, dict(pad_to=16)),
+           ("pad8", no_term, dict(pad_to=8, second_inclusive=True)),
+           ("terminate", term, dict(pad_to=16))])
+    for mode, so in (("full", False), ("score_only", True)):
+        ms = _time_ms(lambda: sw_pass_cuda(q, qlen, ref, rlen, no_term,
+                                           score_only=so), dev)
+        bound = sw_bound_ms(qlen, rlen, w, r, 1 if so else 5, sm_clock_mhz)
+        out[mode][f"w{w}"] = dict(ms=ms, bound_ms=bound["bound_ms"],
+                                  pct_of_bound=100 * bound["bound_ms"] / ms)
+    out["full"]["max_abs_err"] = err["full"]
+    out["score_only"]["max_abs_err"] = err["score_only"]
     return out
 
 
@@ -490,14 +516,19 @@ def main() -> int:
     # 3. kernel vs plain on the card
     kp = kernel_vs_plain(dev, sm_clock_mhz)
     sweep = kp["score_only"][f"b{SW_SWEEP}"]
+    tiled = {m: kp[m].pop(f"w{SW_TILED_W}") for m in ("full", "score_only")}
     log("kernel vs plain: all fields equal (pad16, pad8+second_inclusive, "
-        f"terminate; full and score-only) at B={SW_BATCH} W={SW_W} R={SW_R},"
-        f" score-only also at B={SW_SWEEP}; " + ", ".join(
+        f"terminate; full and score-only) at B={SW_BATCH} W={SW_W} R={SW_R}"
+        f" and at B={SW_TILED} W={SW_TILED_W} R={SW_TILED_R} (two row "
+        f"tiles), score-only also at B={SW_SWEEP}; " + ", ".join(
             f"{m} {kp[m]['ms']:.4f} ms vs plain {kp[m]['plain_ms']:.3f} ms, "
             f"bound {kp[m]['bound_ms']:.4f} ms ({kp[m]['pct_of_bound']:.1f}%"
             " of it)" for m in ("full", "score_only"))
         + f"; score-only at B={SW_SWEEP} {sweep['ms']:.4f} ms, bound "
-        f"{sweep['bound_ms']:.4f} ms ({sweep['pct_of_bound']:.1f}%)")
+        f"{sweep['bound_ms']:.4f} ms ({sweep['pct_of_bound']:.1f}%); at "
+        f"W={SW_TILED_W} " + ", ".join(
+            f"{m} {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['pct_of_bound']:.1f}%)" for m, t in tiled.items()))
 
     # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:

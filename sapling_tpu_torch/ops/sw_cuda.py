@@ -1,9 +1,12 @@
 """Wrapper of the hand-written CUDA Smith-Waterman kernels (csrc/sw.cu).
 
-The kernels replace `sapling_tpu/ops/sw_pallas.py::_kernel`: the full mode
-runs `sw_pass_kernel` (one warp a pair), the score_only mode
-`sw_score_kernel` (a row-strip wavefront of G lanes a pair, real cells
-only). Both return exactly what the plain PyTorch `ops.sw.sw_pass` returns.
+The kernels replace `sapling_tpu/ops/sw_pallas.py::_kernel` in both its
+modes with one template, `sw_kernel<G, S, FULL>`: a row-strip wavefront of
+G lanes a pair, in row tiles of at most 1,024 rows, so there is no cap on W
+or R. The full mode records each column's maxima in a workspace and
+resolves ref_end, read_end, terminate and score2 from the records after
+the sweep. Both return exactly what the plain PyTorch `ops.sw.sw_pass`
+returns.
 `sw_pass_cuda` is the one entry point every SW pass of the port goes
 through:
 
@@ -32,9 +35,9 @@ SOURCE = os.path.join(_PKG, "csrc", "sw.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-MAX_ROWS = 1024                   # query rows (after pad_to) of a pair
-MAX_SMEM = 232448                 # bytes of shared memory one block may use
-                                  # (full mode: R column maxima a warp)
+TILE_ROWS = 1024                  # rows of a pair a group sweeps at once
+KEY_LIMIT = 1 << 20               # full mode: H below it (a column's max and
+                                  # its row share one int32 key)
 
 # kernel launches per mode, counted where the kernel is launched
 LAUNCHES = {"full": 0, "score_only": 0}
@@ -77,7 +80,7 @@ def bind(path: str) -> ctypes.CDLL:
     """The library at `path` with its C entry point `sw_pass_launch` typed."""
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sw_pass_launch.argtypes = [vp] * 6 + [ci] * 11 + [vp]
+    lib.sw_pass_launch.argtypes = [vp] * 7 + [ci] * 11 + [vp]
     lib.sw_pass_launch.restype = ci
     return lib
 
@@ -88,6 +91,16 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             _LIB = bind(build_kernel())
     return _LIB
+
+
+def workspace_ints(b: int, w: int, r: int, pad_to: int,
+                   score_only: bool) -> int:
+    """int32 the kernel needs beside its output: in full mode a record of
+    three a column a pair (its real max key, tile and pad max); past
+    TILE_ROWS padded rows, two alternating tile boundaries of two a column a
+    pair (H and F)."""
+    tiled = -(-w // pad_to) * pad_to > TILE_ROWS
+    return (0 if score_only else 3 * r * b) + (4 * r * b if tiled else 0)
 
 
 def _check(name, t, dtype, ndim, device):
@@ -106,10 +119,12 @@ def sw_pass_cuda(query, qlen, ref, rlen, terminate, *, match: int = 2,
     kernel for tensors on the card.
 
     On the card: query int8 [B, W] and ref int8 [B, R] base codes, qlen /
-    rlen / terminate int32 [B], all contiguous on one device;
-    ceil(W / pad_to) * pad_to <= 1024 and, in full mode, R <= 58112.
-    pad_to does not change the score-only result (pad rows lie below every
-    real row); it changes only which strip shape the kernel is built for.
+    rlen / terminate int32 [B], all contiguous on one device, any W and R;
+    in full mode the scores must stay below KEY_LIMIT: max(match,
+    -mismatch, -gap_open, -gap_extend, 0) * (ceil(W / pad_to) * pad_to +
+    R) < 2^20 (H can grow by at most that step a row and a column). pad_to
+    does not change the score-only result (pad rows lie below every real
+    row); it changes only which strip shape the kernel is built for.
     """
     if query.device.type == "cpu":
         from .sw import sw_pass
@@ -136,14 +151,14 @@ def sw_pass_cuda(query, qlen, ref, rlen, terminate, *, match: int = 2,
             raise ValueError(f"{name} has {t.shape[0]} rows, query {b}")
     if ref.shape[0] != b:
         raise ValueError(f"ref has {ref.shape[0]} rows, query {b}")
-    if -(-w // pad_to) * pad_to > MAX_ROWS:
-        raise ValueError(f"query width {w} (padded to {pad_to}) exceeds "
-                         f"the kernel's {MAX_ROWS} rows")
-    if not score_only and 4 * r > MAX_SMEM:
-        raise ValueError(f"ref width {r} exceeds the kernel's "
-                         f"{MAX_SMEM // 4} columns")
+    step = max(match, -mismatch, -gap_open, -gap_extend, 0)
+    if not score_only and step * (-(-w // pad_to) * pad_to + r) >= KEY_LIMIT:
+        raise ValueError(f"scores up to {step} a cell over {w} x {r} cells "
+                         f"may reach the full mode's key limit {KEY_LIMIT}")
     out = torch.empty((1 if score_only else 5, b), dtype=torch.int32,
                       device=dev)
+    ws = torch.empty(workspace_ints(b, w, r, pad_to, score_only),
+                     dtype=torch.int32, device=dev)
     if b:
         lib = _lib()
         with torch.cuda.device(dev):
@@ -151,8 +166,9 @@ def sw_pass_cuda(query, qlen, ref, rlen, terminate, *, match: int = 2,
             rc = lib.sw_pass_launch(
                 query.data_ptr(), ref.data_ptr(), qlen.data_ptr(),
                 rlen.data_ptr(), terminate.data_ptr(), out.data_ptr(),
-                b, w, r, match, mismatch, gap_open, gap_extend, mask_len,
-                pad_to, int(second_inclusive), int(score_only), stream)
+                ws.data_ptr(), b, w, r, match, mismatch, gap_open,
+                gap_extend, mask_len, pad_to, int(second_inclusive),
+                int(score_only), stream)
         if rc != 0:
             raise RuntimeError(f"SW kernel launch failed: cudaError {rc}")
         with _LOCK:

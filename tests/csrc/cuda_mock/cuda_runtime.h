@@ -24,12 +24,7 @@ using std::max;
 using std::min;
 
 typedef void* cudaStream_t;
-typedef int cudaError_t;
-enum { cudaSuccess = 0 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 inline int cudaGetLastError() { return 0; }
-template <class F>
-int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 
 struct MockDim { int x; };
 inline thread_local MockDim threadIdx, blockIdx, blockDim;
@@ -40,7 +35,6 @@ struct MockWarp {
 };
 inline thread_local MockWarp* mock_warp;
 inline thread_local int mock_lane;
-inline thread_local int32_t* mock_smem;
 
 // every lane posts v, then reads lane src's (its own when `own`)
 inline int mock_exchange(int v, int src, bool own) {
@@ -76,10 +70,10 @@ inline int __vimax3_s32_relu(int a, int b, int c) {
 inline int __viaddmax_s32(int a, int b, int c) { return std::max(a + b, c); }
 
 // kernel<<<blocks, threads, smem, stream>>>(args) is rewritten by the test
-// into mock_launch(blocks, threads, smem, [=] { kernel(args); })
-inline void mock_launch(int blocks, int threads, size_t smem,
+// into mock_launch(blocks, threads, smem, [=] { kernel(args); }); sw.cu
+// uses no shared memory
+inline void mock_launch(int blocks, int threads, size_t,
                         const std::function<void()>& kernel) {
-  std::vector<int32_t> shared(smem / 4 + 1);
   for (int b = 0; b < blocks; ++b) {
     std::vector<std::unique_ptr<MockWarp>> warps;
     for (int w = 0; w < threads / 32; ++w)
@@ -92,7 +86,6 @@ inline void mock_launch(int blocks, int threads, size_t smem,
         blockDim.x = threads;
         mock_warp = warps[t / 32].get();
         mock_lane = t % 32;
-        mock_smem = shared.data();
         kernel();
       });
     for (auto& lane : lanes) lane.join();

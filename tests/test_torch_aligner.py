@@ -79,6 +79,17 @@ def corpus_mixed(d):
             dict(block=64, workers=2))
 
 
+def corpus_long_read(d):
+    """One block with a 1,500-base read among 100-base reads (the card's
+    twin is tests/test_torch_sw_cuda.py long_read_corpus): every candidate
+    is padded to 1,500 query rows, and the long read's score overflows
+    SSW's byte kernel, so its winner takes the pad-8 passes."""
+    g = uniform_genome(60_000, seed=88)
+    short, _pos, _rc = simulate_reads(g, 8, 100, sub_rate=0.02, seed=9)
+    long_, _pos, _rc = simulate_reads(g, 1, 1500, sub_rate=0.02, seed=10)
+    return [("chrL", g)], list(short[:4]) + [long_[0]] + list(short[4:]), {}
+
+
 def _sam_lines_both(make, d, **cfg):
     """(port SAM lines, JAX SAM lines, number of reads) for one corpus,
     each package aligning from the same FASTA and cached artifacts, its
@@ -116,9 +127,9 @@ def _assert_same_sam(got, want, n_reads):
 
 
 @pytest.mark.parametrize("make", [corpus_fixed, corpus_indel, corpus_repeat,
-                                  corpus_mixed],
+                                  corpus_mixed, corpus_long_read],
                          ids=["fixed", "indel", "repeat_heavy",
-                              "mixed_length"])
+                              "mixed_length", "long_read"])
 def test_sam_bytes_match_jax(make, tmp_path):
     _assert_same_sam(*_sam_lines_both(make, str(tmp_path)))
 

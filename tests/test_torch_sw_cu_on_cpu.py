@@ -30,16 +30,14 @@ _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<([^>]*)>>>\((.*?)\);",
 
 
 def _for_the_cpu(src: str) -> str:
-    """sw.cu with its launches and its dynamic shared memory mocked."""
+    """sw.cu with its kernel launch mocked."""
     def launch(m):
         grid, block, smem, _stream = (x.strip() for x in m.group(2).split(","))
         return (f"mock_launch({grid}, {block}, {smem}, "
                 f"[=] {{ {m.group(1)}({m.group(3)}); }});")
 
-    src = src.replace("extern __shared__ int32_t smem[];",
-                      "int32_t* smem = mock_smem;")
     src, n = _LAUNCH.subn(launch, src)
-    assert n == 2, "sw.cu should launch two kernels"
+    assert n == 1, "sw.cu should launch one kernel template"
     return src
 
 
@@ -66,10 +64,13 @@ def launch(tmp_path_factory):
             gap_open=3, gap_extend=1, mask_len=15, pad_to=16,
             second_inclusive=False):
         b, w = q.shape
+        r = ref.shape[1]
         out = np.full((1 if score_only else 5, b), -777, np.int32)
+        ws = np.full(max(sw_cuda.workspace_ints(b, w, r, pad_to, score_only),
+                         1), -555, np.int32)
         rc = lib.sw_pass_launch(
             q.ctypes.data, ref.ctypes.data, ql.ctypes.data, rl.ctypes.data,
-            tm.ctypes.data, out.ctypes.data, b, w, ref.shape[1], match,
+            tm.ctypes.data, out.ctypes.data, ws.ctypes.data, b, w, r, match,
             mismatch, gap_open, gap_extend, mask_len, pad_to,
             int(second_inclusive), int(score_only), None)
         assert rc == 0
@@ -79,7 +80,10 @@ def launch(tmp_path_factory):
 
 def _batch(seed, b, w, r):
     """Seeded pairs: every third ref holds its query; qlen 0, 1 and W and
-    rlen 0 and 1 among the ragged lengths."""
+    rlen 0 and 1 among the ragged lengths. Past one tile of 1,024 rows
+    (b >= 8), pair 6 holds a query segment with a gap across each tile
+    boundary and pair 7 one that repeats in the first and the last tile,
+    so the best path crosses tiles and ties between them."""
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 5, (b, w)).astype(np.int8)
     ref = rng.integers(0, 5, (b, r)).astype(np.int8)
@@ -91,20 +95,35 @@ def _batch(seed, b, w, r):
     rl = rng.integers(0, r + 1, b).astype(np.int32)
     ql[:3] = (0, 1, w)
     rl[3:5] = (0, min(1, r))
+    if w > 1024 and b >= 9:
+        ln, h = (r - 2) // 2, (r - 2) // 4
+        for k, top in enumerate(range(1024, w, 1024)):
+            at = slice(2 + k * ln, 2 + (k + 1) * ln)
+            ref[6, at] = q[6, top - h:top - h + ln]
+            # pair 8 skips query rows [top - 3, top + 3): a vertical gap
+            # through the tile edge
+            ref[8, at] = np.concatenate([q[8, top - h:top - 3],
+                                         q[8, top + 3:top + 6 + ln - h]])
+        q[7, w - ln:] = q[7, :ln]
+        ref[7, 2:2 + ln] = q[7, :ln]
+        ql[6:9], rl[6:9] = w, r
     return q, ql, ref, rl
 
 
 SCORING = {"default": {},
-           "nondefault": dict(match=3, mismatch=1, gap_open=5, gap_extend=2),
+           "nondefault": dict(match=3, mismatch=1, gap_open=5, gap_extend=2,
+                              mask_len=7),
            "negative": dict(match=1, mismatch=-1, gap_open=2, gap_extend=1)}
 
-# (B, W, R, pad_to, scoring): the score-only kernel at strips of G = 1 to 32
-# lanes, a mismatch that scores, the aligner's width in both pads
+# (B, W, R, pad_to, scoring): strips of G = 1 to 32 lanes, a mismatch that
+# scores, the aligner's width in both pads, and row tiles: W = 1,100 and
+# 2,100 sweep two and three tiles of 1,024 rows
 SCORE_CASES = [(40, 100, 128, 16, "default"), (40, 100, 128, 8, "default"),
                (40, 100, 128, 16, "negative"), (30, 7, 30, 1, "default"),
                (30, 17, 21, 8, "nondefault"), (24, 33, 40, 8, "negative"),
                (16, 65, 20, 16, "default"), (12, 129, 20, 8, "nondefault"),
-               (8, 257, 16, 8, "default"), (6, 1024, 12, 16, "default")]
+               (8, 257, 16, 8, "default"), (6, 1024, 12, 16, "default"),
+               (9, 1100, 40, 16, "default"), (9, 2100, 40, 8, "negative")]
 
 
 @pytest.mark.parametrize("b,w,r,pad_to,scoring", SCORE_CASES)
@@ -119,16 +138,37 @@ def test_score_only_kernel_source_matches_plain(launch, b, w, r, pad_to,
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("case", ["pad16", "pad8", "terminate", "negative"])
-def test_full_kernel_source_matches_plain(launch, case):
-    b, w, r = 24, 100, 128
-    q, ql, ref, rl = _batch(7, b, w, r)
-    tm = np.full(b, -1, np.int32)
-    kw = {"pad16": {}, "pad8": dict(pad_to=8, second_inclusive=True),
-          "terminate": {}, "negative": SCORING["negative"]}[case]
+# (B, W, R, pad_to, scoring, terminate): pad 8 runs with second_inclusive
+# as the aligner's word pass does; terminate at each pair's forward score
+FULL_CASES = [
+    pytest.param(24, 100, 128, 16, "default", False, id="pad16"),
+    pytest.param(24, 100, 128, 8, "default", False, id="pad8"),
+    pytest.param(24, 100, 128, 16, "default", True, id="terminate"),
+    pytest.param(24, 100, 128, 16, "negative", False, id="negative"),
+    pytest.param(24, 100, 128, 8, "negative", True, id="negative-pad8-term"),
+    pytest.param(30, 7, 30, 1, "default", True, id="g1-term"),
+    pytest.param(30, 7, 30, 16, "nondefault", False, id="g1-pad16"),
+    pytest.param(30, 17, 21, 8, "nondefault", False, id="g2"),
+    pytest.param(24, 33, 40, 8, "negative", True, id="g4-term"),
+    pytest.param(16, 65, 20, 16, "default", True, id="g8-term"),
+    pytest.param(12, 129, 20, 8, "nondefault", True, id="g16-term"),
+    pytest.param(9, 257, 16, 8, "default", False, id="g32"),
+    pytest.param(6, 1024, 12, 16, "default", True, id="g32-s32-term"),
+    pytest.param(9, 1100, 40, 16, "default", True, id="tiles2-term"),
+    pytest.param(9, 1100, 40, 8, "negative", False, id="tiles2-pad8"),
+    pytest.param(9, 2100, 40, 8, "nondefault", True, id="tiles3-pad8-term"),
+    pytest.param(9, 2100, 40, 16, "default", False, id="tiles3")]
+
+
+@pytest.mark.parametrize("b,w,r,pad_to,scoring,terminate", FULL_CASES)
+def test_full_kernel_source_matches_plain(launch, b, w, r, pad_to, scoring,
+                                          terminate):
+    kw = dict(SCORING[scoring], pad_to=pad_to, second_inclusive=pad_to == 8)
+    q, ql, ref, rl = _batch(w + r + b, b, w, r)
     t = [torch.from_numpy(a) for a in (q, ql, ref, rl)]
-    if case == "terminate":
-        tm = sw.sw_pass(*t, torch.from_numpy(tm))["score"].numpy()
+    tm = np.full(b, -1, np.int32)
+    if terminate:
+        tm = sw.sw_pass(*t, torch.from_numpy(tm), **kw)["score"].numpy()
     got = launch(q, ql, ref, rl, tm, **kw)
     want = sw.sw_pass(*t, torch.from_numpy(tm), **kw)
     for i, k in enumerate(("score", "ref_end", "read_end", "score2",

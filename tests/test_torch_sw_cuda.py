@@ -16,6 +16,8 @@ import torch
 
 from sapling_tpu_torch.ops import sw, sw_cuda
 from sapling_tpu_torch.ops.pack import pack_codes
+from sapling_tpu_torch.sim.genomes import (simulate_reads, uniform_genome,
+                                           write_fastq)
 
 
 @pytest.fixture
@@ -45,7 +47,9 @@ STRIP_EDGES = (16, 17, 32, 33, 64, 65, 128, 129, 256, 257, 512, 513, 1024)
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,w,r", [(700, 100, 128), (300, 31, 7),
                                    (64, 1000, 300), (40, 500, 13_000),
-                                   (48, 1024, 200)]
+                                   (48, 1024, 200),
+                                   # row tiles: two and three of 1,024 rows
+                                   (24, 1500, 1600), (6, 2100, 200)]
                          + [(97, w, 60) for w in STRIP_EDGES])
 def test_kernel_matches_plain(dev, b, w, r):
     rng = np.random.default_rng(b + w + r)
@@ -86,9 +90,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         sw_cuda.sw_pass_cuda(q, ql.cpu(), ref, rl, tm)          # device
     with pytest.raises(ValueError):
         sw_cuda.sw_pass_cuda(q[:, ::2], ql, ref, rl, tm)        # layout
-    wide = torch.zeros((8, 1025), dtype=torch.int8, device=dev)
-    with pytest.raises(ValueError):
-        sw_cuda.sw_pass_cuda(wide, ql, ref, rl, tm)             # W > 1024
+    with pytest.raises(ValueError):                             # key range
+        sw_cuda.sw_pass_cuda(q, ql, ref, rl, tm, match=1 << 16)
+
+
+@pytest.mark.cuda
+def test_full_kernel_past_the_old_column_cap(dev):
+    """R = 60,000 columns, past the 58,112 that the full mode's shared
+    memory once held: the column records live in device memory."""
+    b, w, r = 4, 40, 60_000
+    q, ql, ref, rl = _batch(np.random.default_rng(3), b, w, r, dev)
+    rl[:] = torch.tensor([r, r - 7, 0, r // 2], dtype=torch.int32)
+    tm = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    got = sw_cuda.sw_pass_cuda(q, ql, ref, rl, tm)
+    want = sw.sw_pass(q, ql, ref, rl, tm)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 @pytest.mark.cuda
@@ -121,3 +138,41 @@ def test_winner_program_on_card_matches_cpu(dev):
     has = cwin < c
     for k in sw.WINNER_FIELDS:
         np.testing.assert_array_equal(gf[k][has], cf[k][has], err_msg=k)
+
+
+def long_read_corpus():
+    """A 60 kbp genome and one block of reads: eight of 100 bases and one
+    of 1,500 (2% substitutions each). tests/test_torch_aligner.py aligns
+    the same block on the CPU against sapling_tpu."""
+    g = uniform_genome(60_000, seed=88)
+    short, _pos, _rc = simulate_reads(g, 8, 100, sub_rate=0.02, seed=9)
+    long_, _pos, _rc = simulate_reads(g, 1, 1500, sub_rate=0.02, seed=10)
+    return g, list(short[:4]) + [long_[0]] + list(short[4:])
+
+
+@pytest.mark.cuda
+def test_aligner_block_with_a_long_read_matches_cpu(dev, tmp_path):
+    """One block holding a 1,500-base read among 100-base reads: every
+    candidate is padded to 1,500 rows (two tiles), and the long read's
+    winner overflows SSW's byte score and takes the pad-8 full passes. The
+    SAM on the card is byte-identical to the port's CPU path."""
+    from sapling_tpu_torch.align.aligner import SeedExtendAligner
+    from sapling_tpu_torch.config import AlignerConfig, IndexConfig
+    from sapling_tpu_torch.index.sapling import SaplingIndex
+    from sapling_tpu_torch.io.fasta import write_fasta
+
+    g, reads = long_read_corpus()
+    ref_fa, fq = str(tmp_path / "ref.fa"), str(tmp_path / "reads.fq")
+    write_fasta(ref_fa, [("chrL", bytes(g))])
+    write_fastq(fq, reads)
+    idx = SaplingIndex.from_fasta(ref_fa, IndexConfig(k=16), device="cpu")
+    cpu_sam, dev_sam = str(tmp_path / "cpu.sam"), str(tmp_path / "dev.sam")
+    SeedExtendAligner(idx, AlignerConfig(), device="cpu").align_fastq(
+        fq, cpu_sam, cl="align")
+    before = dict(sw_cuda.LAUNCHES)
+    SeedExtendAligner(idx, AlignerConfig(), device=dev).align_fastq(
+        fq, dev_sam, cl="align")
+    # the winner rows' two passes and the long read's four pad-8 ones
+    assert sw_cuda.LAUNCHES["full"] == before["full"] + 6
+    with open(cpu_sam, "rb") as a, open(dev_sam, "rb") as b:
+        assert a.read() == b.read()

@@ -1,6 +1,6 @@
 """The score-only SW kernel's schedule, emulated in numpy on the CPU.
 
-`sw_score_kernel<G, S>` in sapling_tpu_torch/csrc/sw.cu runs on the card
+`sw_kernel<G, S, false>` in sapling_tpu_torch/csrc/sw.cu runs on the card
 only. Its decomposition is emulated here step for step: a group of G
 lanes scores one pair, lane g owns the S query rows [g*S, g*S + S) in
 registers and computes column s - g at step s; at the end of a step it
