@@ -314,9 +314,9 @@ def profiled(fn, dev) -> dict:
                 device_ms=busy_ms, busy=busy_ms / (wall * 1e3), events=ev)
 
 
-def query_times(dev, seq, idx21) -> dict:
+def query_times(dev, idx21) -> dict:
     length = cs.QUERY_LEN
-    codes, _n_in = cs.query_codes(seq)
+    codes, _n_in = cs.query_codes(idx21.codes)
     didx = idx21.to(dev)
     inputs = didx.query_inputs(codes)
     ms = [cs._time_ms(lambda: didx.query_device(*inputs, length), dev,
@@ -341,13 +341,13 @@ def query_times(dev, seq, idx21) -> dict:
     return dict(query_device_ms=ms, profile=prof, query_positions_s=host)
 
 
-def sweep_times(dev, seq, idx21) -> list[dict]:
+def sweep_times(dev, idx21) -> list[dict]:
     """The length sweep on both indexes; profiled at lengths 21 and 101."""
     from sapling_tpu_torch.ops import query
 
     rows = []
     for length in cs.SWEEP:
-        codes, _n_in = cs.query_codes(seq, length)
+        codes, _n_in = cs.query_codes(idx21.codes, length)
         row = dict(length=length)
         for name, idx in (("built", idx21),
                           ("no_prefix", cs.without_prefix(idx21))):
@@ -379,8 +379,8 @@ def sweep_times(dev, seq, idx21) -> list[dict]:
     return rows
 
 
-def baseline_times(dev, seq, idx21, tables) -> dict:
-    codes, _n_in = cs.query_codes(seq)
+def baseline_times(dev, idx21, tables) -> dict:
+    codes, _n_in = cs.query_codes(idx21.codes)
     out = {}
     for name, fn in cs.baseline_runs(idx21.to(dev), codes, tables).items():
         ms = [cs._time_ms(fn, dev, reps=3, warm=1) for _ in range(3)]
@@ -421,9 +421,9 @@ def main(argv: list[str]) -> int:
                            against[0] if against else None))
     with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
         res["aligner"] = aligner_times(dev, seq, idx16, td, sm_clock_mhz)
-    res["query"] = query_times(dev, seq, idx21)
-    res["sweep"] = sweep_times(dev, seq, idx21)
-    res["baselines"] = baseline_times(dev, seq, idx21, tables)
+    res["query"] = query_times(dev, idx21)
+    res["sweep"] = sweep_times(dev, idx21)
+    res["baselines"] = baseline_times(dev, idx21, tables)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(res, f, indent=1)

@@ -14,7 +14,11 @@ failure raises and the script exits non-zero:
   2. build: a 4.6 Mbp benchmark genome (15% duplications and tandem
      repeats), ONE suffix array, a k=16 aligner index and a k=21 query
      index on the host (before CUDA starts: the host build may fork), then
-     the SW kernels (nvcc, sm_90a);
+     the SW kernels (nvcc, sm_90a); beside them, in a child process started
+     first, phase 8's artifact: the port's build_big_index at SCALE_N
+     bases (k=21, 2^SCALE_NB buckets, bounds, no prefix arrays, no stage
+     cache) into a temporary directory, then its retable_index to
+     2^SCALE_RETABLE_NB buckets (table only); it ends before phase 3;
   3. kernel vs plain: the CUDA SW kernels against the plain PyTorch
      sw_pass on the card, at the aligner's shapes (16384 pairs, 100-base
      reads padded to 112 rows, 128-base windows, ragged lengths, related
@@ -45,6 +49,15 @@ failure raises and the script exits non-zero:
   7. baselines: the plain and the llcp/rlcp-pruned binary search on phase
      5's queries; in-genome queries must self-check and the first 100,000
      positions must equal the CPU path's.
+  8. scale: phase 2's artifact loaded memory-mapped without inv and the
+     aligner's run arrays (SaplingIndex.load(skip, mmap), codes copied
+     into RAM), 1,000,000 queries of 21 and of 101 bases (7/8 from the
+     genome) on the card with the artifact's own table and then, after
+     SaplingIndex.swap_table, with the retabled one: every in-genome query
+     must self-check, the first 100,000 positions must equal the CPU
+     path's, and rev and packed must stay the same device tensors across
+     the swap; CUDA-event times, the index's device bytes and the peak
+     device memory (torch.cuda.max_memory_allocated).
 
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -55,6 +68,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shlex
+import signal
 import subprocess
 import sys
 import tempfile
@@ -73,6 +88,14 @@ SWEEP = (11, 21, 31, 41, 51, 101)   # tools/sapling_example.py at k=21
 SW_BATCH, SW_W, SW_R = 16_384, 100, 128
 SW_SWEEP = 163_840                  # candidates of one 16,384-read block
 SW_TILED, SW_TILED_W, SW_TILED_R = 1_024, 1_500, 1_600   # two row tiles
+# phase 8: bench_sweep's middle size, 46 Mbp, at 2^24 buckets (k=21, no
+# prefix arrays: packed-genome probes), its 2^23 retable, two lengths.
+# Not bench.py's 230 Mbp row: there the build alone took 473 s on the
+# chip host's 8 cores (NVIDIA H100 80GB HBM3 machine), past a third of
+# this script's time limit; the scale tools run 230 Mbp (README).
+SCALE_N = 46_000_000
+SCALE_NB, SCALE_RETABLE_NB = 24, 23
+SCALE_LENGTHS = (21, 101)
 # the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
 # and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
 # pipes together); HBM bytes/s
@@ -347,31 +370,29 @@ def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
                 phases=dict(aligner.phase_seconds), bare_seconds=bare_s)
 
 
-def query_codes(seq, length: int = QUERY_LEN):
-    """Seeded query codes [N_QUERIES, length]: the first n_in taken from
-    the genome, the last N_QUERIES // 8 random. Returns (codes, n_in)."""
+def query_codes(genome_codes, length: int = QUERY_LEN):
+    """Seeded query codes [N_QUERIES, length] from a genome's base codes
+    (0..3): the first n_in taken from the genome, the last N_QUERIES // 8
+    random. Returns (codes, n_in)."""
     import numpy as np
-
-    from sapling_tpu_torch.ops import pack as packops
 
     n_q = N_QUERIES
     rng = np.random.default_rng(SEED + 2)
     n_in = n_q - n_q // 8
-    starts = rng.integers(0, len(seq) - length + 1, n_in)
+    starts = rng.integers(0, len(genome_codes) - length + 1, n_in)
     q = np.concatenate([
-        seq[starts[:, None] + np.arange(length)],
-        np.frombuffer(b"ACGT", np.uint8)[
-            rng.integers(0, 4, (n_q - n_in, length))]])
-    return packops.encode_bases(q), n_in
+        genome_codes[starts[:, None] + np.arange(length)],
+        rng.integers(0, 4, (n_q - n_in, length)).astype(np.uint8)])
+    return q, n_in
 
 
-def query_phase(dev, seq, idx21) -> dict:
+def query_phase(dev, idx21) -> dict:
     """Phase 5: 21-base plquery on `dev`, self-checked, positions held
     against the CPU path on the first N_QUERY_CHECK queries."""
     import numpy as np
 
     length, n_check = QUERY_LEN, N_QUERY_CHECK
-    codes, n_in = query_codes(seq)
+    codes, n_in = query_codes(idx21.codes)
     didx = idx21.to(dev)
     inputs = didx.query_inputs(codes)
     pos = didx.query_device(*inputs, length).cpu().numpy()
@@ -413,7 +434,7 @@ def _probe_form(idx, length: int) -> str:
     return "packed"
 
 
-def sweep_phase(dev, seq, idx21) -> list[dict]:
+def sweep_phase(dev, idx21) -> list[dict]:
     """Phase 6: the length sweep on the k=21 index as built and without
     its prefix arrays; per length and index: probe form, CUDA-event ms,
     q/s, and the host loop rounds of one call (ops.query.ROUNDS)."""
@@ -424,7 +445,7 @@ def sweep_phase(dev, seq, idx21) -> list[dict]:
     indexes = (("built", idx21), ("no_prefix", without_prefix(idx21)))
     rows = []
     for length in SWEEP:
-        codes, n_in = query_codes(seq, length)
+        codes, n_in = query_codes(idx21.codes, length)
         row = {"length": length}
         got = []
         for name, idx in indexes:
@@ -469,10 +490,10 @@ def baseline_runs(didx, codes, tables) -> dict:
             "fancy": lambda: didx.binsearch_device(qw, length, *lr)}
 
 
-def baseline_phase(dev, seq, idx21, tables) -> dict:
+def baseline_phase(dev, idx21, tables) -> dict:
     """Phase 7: the plain and the llcp/rlcp-pruned binary search on phase
     5's queries, self-checked and held against the CPU path."""
-    codes, n_in = query_codes(seq)
+    codes, n_in = query_codes(idx21.codes)
     didx = idx21.to(dev)
     on_cpu = {"binsearch": lambda c: idx21.query_positions_binsearch(c),
               "fancy": lambda c: idx21.query_positions_fancy(c, *tables)}
@@ -486,22 +507,98 @@ def baseline_phase(dev, seq, idx21, tables) -> dict:
     return out
 
 
-def main() -> int:
-    sys.path.insert(0, ROOT)
-    import torch  # noqa: F401  (fails here on a machine without PyTorch)
+def start_scale_build(workdir: str):
+    """Phase 2's chromosome-scale build, started in the background before
+    CUDA starts: the port's build_big_index (fork workers on the host)
+    at SCALE_N, then its retable_index to SCALE_RETABLE_NB (table only),
+    in one child shell whose log goes to workdir. Returns
+    (process, artifact, table, log path)."""
+    art = os.path.join(workdir, "scale.stpu.npz")
+    table = os.path.join(workdir, f"scale_nb{SCALE_RETABLE_NB}.table.npz")
+    workers = f"workers={min(8, os.cpu_count() or 1)}"
+    tool = [sys.executable, "-m", "sapling_tpu_torch.tools."]
+    build = [*tool[:2], tool[2] + "build_big_index", f"n={SCALE_N}",
+             f"k={QUERY_LEN}", f"nb={SCALE_NB}", "bounds=1", "stage=0",
+             workers, f"out={art}"]
+    retable = [*tool[:2], tool[2] + "retable_index", art,
+               f"nb={SCALE_RETABLE_NB}", workers, f"out={table}"]
+    path = os.path.join(workdir, "scale_build.log")
+    with open(path, "w") as logf:
+        proc = subprocess.Popen(
+            ["sh", "-c", f"{shlex.join(build)} && {shlex.join(retable)}"],
+            cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT,
+            start_new_session=True)         # main kills the whole group
+    return proc, art, table, path
+
+
+def finish_scale_build(build) -> None:
+    """Wait for start_scale_build's child; fail with its log's end."""
+    proc, _art, _table, path = build
+    if proc.wait() != 0:
+        with open(path) as f:
+            tail = f.read()[-3000:]
+        raise RuntimeError(f"scale build failed (rc {proc.returncode}):\n"
+                           f"{tail}")
+
+
+def scale_phase(dev, art: str, table_path: str) -> dict:
+    """Phase 8: the SCALE_N artifact loaded memory-mapped without the
+    members a query never reads (its codes copied into RAM, as
+    bench_query_scale loads it), SCALE_LENGTHS queries on `dev` with the
+    artifact's own table and then, after swap_table, with the retabled
+    one; every in-genome query self-checks and the first N_QUERY_CHECK
+    positions equal the CPU path's; rev and packed stay the same tensors
+    across the swap."""
+    import torch
+
+    from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
+    from sapling_tpu_torch.tools.retable_index import load_table
+
+    didx = load_for_queries(art, dev)
+    host = didx.to("cpu")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    arrays = didx.device_arrays()
+    torch.cuda.synchronize(dev)
+    out = dict(n=didx.n, send_s=time.perf_counter() - t0,
+               device_bytes=didx.device_bytes(), rows=[])
+    ptrs = {f: arrays[f].data_ptr() for f in ("rev", "packed")}
+    for name, table in (("own", None),
+                        ("retable", load_table(table_path, didx.n, didx.k))):
+        if table is not None:
+            didx.swap_table(table)
+            host.swap_table(table)
+            moved = [f for f, p in ptrs.items()
+                     if didx.device_arrays()[f].data_ptr() != p]
+            if moved:
+                raise AssertionError(f"swap_table moved {moved}")
+        for length in SCALE_LENGTHS:
+            codes, n_in = query_codes(didx.codes, length)
+            inputs = didx.query_inputs(codes)
+            pos = didx.query_device(*inputs, length).cpu().numpy()
+            ok = didx.verify_hits(codes, pos)
+            tag = f"2^{didx.buckets} L={length}"
+            _check(tag, pos, ok, n_in,
+                   host.query_positions(codes[:N_QUERY_CHECK]))
+            ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
+                          reps=3, warm=1)
+            out["rows"].append(dict(table=name, buckets=didx.buckets,
+                                    length=length, ms=ms,
+                                    qps=N_QUERIES / (ms / 1e3),
+                                    self_check=int(ok[:n_in].sum()),
+                                    in_genome=n_in))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def run_phases(td: str, scale, sm_clock_mhz: float):
+    """Phases 2 (after start_scale_build) to 8 in `td`; each logs its
+    line. Returns phase 3's kernel results and phase 4's aligner
+    results, which the kernels line reads."""
+    import torch
 
     from sapling_tpu_torch.ops import sw_cuda
 
-    # 1. the card
-    if not torch.cuda.is_available():
-        raise RuntimeError("torch.cuda.is_available() is false: no GPU")
-    info = card()
-    log(info["name_power"])
-    log(f"card: max SM clock {info['sm_clock_max']} (the bound's clock); "
-        f"{info['uuid']} on host {info['host']}")
-    sm_clock_mhz = float(info["sm_clock_max"].split()[0])
-
-    # 2. build (host indexes first: nothing has touched CUDA yet)
     t0 = time.perf_counter()
     seq, idx16, idx21, tables = build_indexes(GENOME_N)
     log(f"build: {GENOME_N} bp genome, k=16 and k=21 indexes and the "
@@ -511,6 +608,15 @@ def main() -> int:
     sw_cuda.build_kernel()
     log(f"build: SW kernels (nvcc sm_90a) in "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    finish_scale_build(scale)
+    with open(scale[3]) as f:
+        totals = [ln.split("TOTAL ")[1].strip() for ln in f if "TOTAL " in ln]
+    log(f"build: {SCALE_N} bp artifact, k={QUERY_LEN} 2^{SCALE_NB} buckets "
+        f"with bounds, no prefix arrays (build_big_index, TOTAL "
+        f"{totals[0]}), and its 2^{SCALE_RETABLE_NB} table (retable_index, "
+        f"TOTAL {totals[1]}), beside the builds above; waited "
+        f"{time.perf_counter() - t0:.1f} s more for it")
     dev = torch.device("cuda", 0)
 
     # 3. kernel vs plain on the card
@@ -530,9 +636,9 @@ def main() -> int:
             f"{m} {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['pct_of_bound']:.1f}%)" for m, t in tiled.items()))
 
-    # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
-        al = aligner_phase(dev, seq, idx16, workdir=td)
+    # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines,
+    # 8. scale
+    al = aligner_phase(dev, seq, idx16, workdir=td)
     if min(al["launches"].values()) == 0:
         raise AssertionError(f"SW kernel not launched: {al['launches']}")
     log(f"aligner: {N_READS} reads in {al['seconds']:.3f} s = "
@@ -544,12 +650,12 @@ def main() -> int:
         raise AssertionError(f"too few good alignments: {al}")
     log(f"aligner without prefix arrays: first {N_SAM_CHECK} reads in "
         f"{al['bare_seconds']:.3f} s; SAM byte-identical to phase 4's")
-    qr = query_phase(dev, seq, idx21)
+    qr = query_phase(dev, idx21)
     log(f"query: {N_QUERIES} 21-base queries in {qr['ms']:.3f} ms = "
         f"{qr['qps']:.1f} q/s; self-check {qr['self_check']}/"
         f"{qr['in_genome']} in-genome; first {N_QUERY_CHECK} positions "
         "identical to the CPU path")
-    for row in sweep_phase(dev, seq, idx21):
+    for row in sweep_phase(dev, idx21):
         log(f"sweep L={row['length']}: " + "; ".join(
             f"{name} ({r['form']}) {r['ms']:.3f} ms = {r['qps']:.1f} q/s, "
             f"{r['bisect_rounds']} bisection rounds, {r['stride_steps']} "
@@ -558,13 +664,54 @@ def main() -> int:
             + f"; self-check {row['self_check']}/{row['in_genome']} "
             "in-genome, both indexes agree on every lane, first "
             f"{N_QUERY_CHECK} identical to the CPU path")
-    bl = baseline_phase(dev, seq, idx21, tables)
+    bl = baseline_phase(dev, idx21, tables)
     log(f"baselines: {N_QUERIES} 21-base queries: binary search "
         f"{bl['binsearch']['ms']:.3f} ms = {bl['binsearch']['qps']:.1f} q/s, "
         f"llcp/rlcp-pruned {bl['fancy']['ms']:.3f} ms = "
         f"{bl['fancy']['qps']:.1f} q/s, plquery (phase 5) "
         f"{qr['qps']:.1f} q/s; in-genome self-checked, first "
         f"{N_QUERY_CHECK} identical to the CPU path")
+    sc = scale_phase(dev, scale[1], scale[2])
+    for r in sc["rows"]:
+        log(f"scale n={sc['n']} 2^{r['buckets']} ({r['table']} table) "
+            f"L={r['length']}: {N_QUERIES} queries in {r['ms']:.3f} ms = "
+            f"{r['qps']:.1f} q/s; self-check {r['self_check']}/"
+            f"{r['in_genome']} in-genome, first {N_QUERY_CHECK} identical "
+            "to the CPU path")
+    log(f"scale: loaded memory-mapped without inv/lcpk, device arrays "
+        f"{sc['device_bytes'] / 1e9:.3f} GB sent in {sc['send_s']:.2f} s, "
+        f"peak device memory {sc['peak_bytes'] / 1e9:.3f} GB "
+        "(torch.cuda.max_memory_allocated); swap_table kept rev and "
+        "packed in place")
+    return kp, al
+
+
+def main() -> int:
+    sys.path.insert(0, ROOT)
+    import torch  # noqa: F401  (fails here on a machine without PyTorch)
+
+    from sapling_tpu_torch.ops import sw_cuda
+
+    # 1. the card
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: no GPU")
+    info = card()
+    log(info["name_power"])
+    log(f"card: max SM clock {info['sm_clock_max']} (the bound's clock); "
+        f"{info['uuid']} on host {info['host']}")
+    sm_clock_mhz = float(info["sm_clock_max"].split()[0])
+
+    # 2. build (host work first: nothing has touched CUDA yet); the
+    # scale build runs in a child while the 4.6 Mbp indexes and the SW
+    # kernels build, and ends before anything is timed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        scale = start_scale_build(td)
+        try:
+            kp, al = run_phases(td, scale, sm_clock_mhz)
+        finally:
+            if scale[0].poll() is None:
+                os.killpg(scale[0].pid, signal.SIGKILL)
+                scale[0].wait()
 
     src = os.path.relpath(sw_cuda.SOURCE, ROOT)
     kernels = [

@@ -14,6 +14,7 @@ query reads there are made from the host arrays on first use
 from __future__ import annotations
 
 import os
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -133,7 +134,7 @@ class SaplingIndex:
         genome = read_fasta(path)
         npz = f"{path}_k{cfg.k}_b{cfg.buckets}.stpu.npz"
         if cache and os.path.exists(npz):
-            return cls.load(npz, device)
+            return cls.load(npz, device=device)
         sa_path = path + ".sa"
         pdt = _pos_dtype(genome.n, cfg.pos_dtype)
         bdt = _build_dtype(pdt)
@@ -188,9 +189,19 @@ class SaplingIndex:
     SUPPORTED_FORMATS = (1, 2, 3, 4)
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "SaplingIndex":
-        """Load an artifact written by either package."""
-        z = artifacts.load_npz(path)
+    def load(cls, path: str, skip: tuple = (), mmap: bool = False,
+             device="cuda") -> "SaplingIndex":
+        """Load an artifact written by either package. skip: member names
+        to leave out; an optional one loads as None, packed, rev or inv as
+        an empty array (e.g. skip=("inv",) for query-only use: the inverse
+        array is never read by a query). mmap=True memory-maps large members instead of
+        copying them into RAM (io.artifacts.load_npz): load returns in
+        milliseconds and untouched members cost no disk reads. A mapped
+        member is read-only; device_arrays never hands one to a tensor
+        that could be written."""
+        z = artifacts.load_npz(path, skip=skip, mmap=mmap)
+        for name in skip:
+            z.setdefault(name, np.zeros(0, np.uint8))
         ver = int(z.get("format_version", 1))
         if ver not in cls.SUPPORTED_FORMATS:
             raise IOError(
@@ -251,13 +262,8 @@ class SaplingIndex:
           * bounds: the per-bucket window bounds as an int32 view, or None.
         """
         if not self._device:
-
-            def put(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(
-                    self.device)
-
             def view(a, dt):
-                return None if a is None else put(a.view(dt))
+                return None if a is None else self._put(a.view(dt))
 
             if self.rev_hi is not None:
                 rev = (self.rev.astype(np.int64)
@@ -267,15 +273,47 @@ class SaplingIndex:
             else:
                 rev = self.rev.view(np.int32)
             self._device = {
-                "rev": put(rev),
-                "packed": put(self.packed.astype(np.int64)),
-                "xlist": put(self.table.xlist.astype(np.int64)),
-                "ylist": put(self.table.ylist.astype(np.int64)),
+                "rev": self._put(rev),
+                "packed": self._put(self.packed.astype(np.int64)),
+                "xlist": self._put(self.table.xlist.astype(np.int64)),
+                "ylist": self._put(self.table.ylist.astype(np.int64)),
                 "prefix64": view(self.prefix64, np.int64),
                 "prefix3": view(self.prefix3, np.int64),
                 "bounds": view(self.table.bounds, np.int32),
             }
         return self._device
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor on self.device. On the CPU the tensor
+        shares the array's memory, so a read-only array (a memory-mapped
+        member of load(mmap=True)) is copied first. For the card the
+        tensor made from it is only read, by the copy to the device."""
+        a = np.ascontiguousarray(a)
+        if self.device.type == "cpu":
+            return torch.from_numpy(a if a.flags.writeable else a.copy())
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", "The given NumPy array is not writable")
+            return torch.from_numpy(a).to(self.device)
+
+    def device_bytes(self) -> int:
+        """Bytes of the arrays device_arrays() keeps on self.device."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.device_arrays().values() if t is not None)
+
+    def swap_table(self, table: PwlTable) -> None:
+        """Replace the PWL table in place (e.g. a
+        tools/retable_index.py bucket-count A/B). If the device arrays
+        exist already, only the table's (xlist, ylist, bounds) are sent
+        again: rev, packed and the prefix arrays stay the same tensors."""
+        self.table = table
+        self.buckets = table.buckets
+        if self._device:
+            self._device.update(
+                xlist=self._put(table.xlist.astype(np.int64)),
+                ylist=self._put(table.ylist.astype(np.int64)),
+                bounds=(None if table.bounds is None
+                        else self._put(table.bounds.view(np.int32))))
 
     # --- queries -------------------------------------------------------------
 

@@ -132,10 +132,13 @@ def load_npz(path: str, skip: tuple = (), mmap: bool = False) -> dict:
             if key in skip:
                 continue
             with zf.open(name) as f:
-                version = np.lib.format.read_magic(f)
-                np.lib.format._check_version(version)
-                shape, fortran, dtype = \
-                    np.lib.format._read_array_header(f, version)
+                # numpy's public header readers: the private helpers the
+                # JAX package's copy calls are gone from newer numpy
+                fmt = np.lib.format
+                version = fmt.read_magic(f)
+                read_header = (fmt.read_array_header_1_0 if version == (1, 0)
+                               else fmt.read_array_header_2_0)
+                shape, fortran, dtype = read_header(f)
                 hdr_len = f.tell()  # data offset within the member
                 nbytes = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
                 if (zinfo.compress_type != zipfile.ZIP_STORED

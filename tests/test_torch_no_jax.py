@@ -19,8 +19,11 @@ names = [m.name for m in pkgutil.walk_packages(
     sapling_tpu_torch.__path__, "sapling_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert {"sapling_tpu_torch.tools.sapling_example",
-        "sapling_tpu_torch.tools.binarysearch"} <= set(names), names
+tools = ("sapling_example", "binarysearch", "build_big_index",
+         "retable_index", "swap_table_artifact", "add_bucket_bounds",
+         "bench_query_scale", "bench_align", "bench_sweep")
+assert {f"sapling_tpu_torch.tools.{t}" for t in tools} | {
+    "sapling_tpu_torch.evalx.memory"} <= set(names), names
 import chip_smoke, chip_measure
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "sapling_tpu.")))

@@ -1,7 +1,11 @@
-"""The port's CLI twins of tools/sapling_example.py and
-tools/binarysearch.py run on the CPU and self-check every answer; the
-sapling_example twin's sapFn/errFn dumps equal the JAX package's."""
+"""The port's CLI twins of tools/sapling_example.py,
+tools/binarysearch.py, tools/bench_query_scale.py, tools/bench_align.py
+and tools/bench_sweep.py run on the CPU and self-check every answer; the
+sapling_example twin's sapFn/errFn dumps equal the JAX package's; the
+TPU-only flags of bench_query_scale and bench_align's ref=1 are refused.
+"""
 
+import json
 import re
 
 import numpy as np
@@ -15,9 +19,13 @@ from sapling_tpu.ops.pack import kmers_scan
 from sapling_tpu.ops.predict import predict_pwl_f64
 from sapling_tpu_torch.io.fasta import write_fasta
 from sapling_tpu_torch.sim.genomes import benchmark_genome
-from sapling_tpu_torch.tools import binarysearch, sapling_example
+from sapling_tpu_torch.tools import (bench_align, bench_query_scale,
+                                     bench_sweep, binarysearch,
+                                     build_big_index, retable_index,
+                                     sapling_example)
 
 _CORRECT = re.compile(r"correctness: (\d+) out of (\d+)")
+_SELF_CHECK = re.compile(r"self-check (\d+)/(\d+)")
 
 
 @pytest.fixture
@@ -77,3 +85,75 @@ def test_predict_pwl_f64_matches_jax():
         np.testing.assert_array_equal(
             ours(x, xlist, ylist, 24, 6, 10_000),
             predict_pwl_f64(x, xlist, ylist, 24, 6, 10_000))
+
+
+@pytest.fixture(scope="module")
+def artifacts_dir(tmp_path_factory):
+    """A k=21 query artifact with bounds and its 2^9 retable, and a k=16
+    aligner artifact, from the port's build_big_index."""
+    d = tmp_path_factory.mktemp("scale")
+    common = ["stage=0", "workers=1"]
+    assert build_big_index.main(
+        ["b", "n=200000", "k=21", "nb=10", "bounds=1", *common,
+         f"out={d / 'q.stpu.npz'}"]) == 0
+    assert retable_index.main(
+        ["r", str(d / "q.stpu.npz"), "nb=9", "workers=1",
+         f"out={d / 'q_nb9.table.npz'}"]) == 0
+    assert build_big_index.main(
+        ["b", "n=200000", "k=16", "nb=10", "aligner=1", *common,
+         f"out={d / 'a.stpu.npz'}"]) == 0
+    return d
+
+
+@pytest.mark.parametrize("ab", [True, False])
+def test_bench_query_scale(artifacts_dir, capsys, ab):
+    """ab=1: the artifact's table, then its 2^9 retable (which has no
+    bounds); else adaptive=1 on the artifact's own bounds."""
+    d = artifacts_dir
+    extra = ([f"table={d / 'q_nb9.table.npz'}", "ab=1"] if ab
+             else ["adaptive=1"])
+    argv = ["bqs", str(d / "q.stpu.npz"), "nq=3000", "qLen=21,41",
+            "iters=1", "hitrate=1", *extra, "device=cpu"]
+    assert bench_query_scale.main(argv) == 0
+    out = capsys.readouterr().out
+    found = _SELF_CHECK.findall(out)
+    assert len(found) == (4 if ab else 2), out
+    assert all(a == b == "3000" for a, b in found), out
+    assert "prediction-probe hit rate" in out and "index on cpu" in out
+
+
+@pytest.mark.parametrize("flag", bench_query_scale.TPU_ONLY)
+def test_bench_query_scale_refuses_tpu_flags(artifacts_dir, flag):
+    with pytest.raises(SystemExit) as e:
+        bench_query_scale.main(["bqs", str(artifacts_dir / "q.stpu.npz"),
+                                f"{flag}=1", "device=cpu"])
+    assert f"{flag}=" in str(e.value.code) and "TPU" in str(e.value.code)
+
+
+def test_bench_align(artifacts_dir, capsys):
+    argv = ["ba", "n=200000", "reads=200", "block=128", "workers=2",
+            f"index={artifacts_dir / 'a.stpu.npz'}", "device=cpu"]
+    assert bench_align.main(argv) == 0
+    out = capsys.readouterr().out
+    m = re.search(r"aligned: (\d+)/200; within 10bp of truth: (\d+)", out)
+    assert m and int(m[1]) >= 190 and int(m[2]) >= 150, out
+    with pytest.raises(SystemExit) as e:
+        bench_align.main(["ba", "ref=1", "device=cpu"])
+    assert "ref=1" in str(e.value.code)
+
+
+def test_bench_sweep(tmp_path, capsys):
+    argv = ["bs", "sizes=100000,150000", "nq=3000", f"cache={tmp_path}",
+            f"out={tmp_path / 'out'}", "device=cpu"]
+    assert bench_sweep.main(argv) == 0
+    with open(tmp_path / "out" / "results.json") as f:
+        res = json.load(f)
+    assert [r["n"] for r in res["sizes"]] == [100_000, 150_000]
+    assert all(r["binsearch_qps"] > 0 and r["device_bytes"] > 0
+               for r in res["sizes"])
+    points = res["qlen_sweep"]["points"]
+    assert [p["qlen"] for p in points] == list(bench_sweep.SWEEP)
+    for p in res["sizes"] + [p for p in points if p["qlen"] >= 21]:
+        good, total = p["self_check"].split("/")
+        assert good == total, p
+    assert "self_check" in capsys.readouterr().out
