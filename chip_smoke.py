@@ -57,7 +57,18 @@ failure raises and the script exits non-zero:
      must self-check, the first 100,000 positions must equal the CPU
      path's, and rev and packed must stay the same device tensors across
      the swap; CUDA-event times, the index's device bytes and the peak
-     device memory (torch.cuda.max_memory_allocated).
+     device memory (torch.cuda.max_memory_allocated);
+  9. NN predictor: the residual model trained on the card at
+     bench_nn_query's width (models.serve.train_serving on the k=21 index,
+     64 chunks x 16 units, 300 epochs, seed 0) and audited; the predicted
+     ranks of every genome k-mer must equal the same model's on the CPU,
+     and every audit error must lie inside the max windows; NNQueryEngine
+     on phase 5's queries: every in-genome query must self-check and the
+     first 100,000 positions must equal the CPU path's with the same
+     model; CUDA-event time and bisection rounds, timed in turns with the
+     PWL engine on the same inputs; then test_models.py's small corpus fitted on the card and on
+     the CPU from one set of initial parameters: equal stop epochs, loss
+     histories within NN_TRAIN_RTOL.
 
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -96,6 +107,12 @@ SW_TILED, SW_TILED_W, SW_TILED_R = 1_024, 1_500, 1_600   # two row tiles
 SCALE_N = 46_000_000
 SCALE_NB, SCALE_RETABLE_NB = 24, 23
 SCALE_LENGTHS = (21, 101)
+# phase 9: bench_nn_query's defaults (64 chunks of 16 hidden units, 300
+# epochs) on the k=21 index; predictions in batches of NN_BATCH k-mers;
+# the card's and the CPU's training loss histories agree to NN_TRAIN_RTOL
+NN_CHUNKS, NN_UNITS, NN_EPOCHS = 64, 16, 300
+NN_BATCH = 1 << 22
+NN_TRAIN_RTOL = 1e-9
 # the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
 # and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
 # pipes together); HBM bytes/s
@@ -591,6 +608,126 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
     return out
 
 
+def _predict_all(srv, kmers):
+    """srv's predicted ranks for every k-mer, in NN_BATCH batches on srv's
+    device, as one host array."""
+    import numpy as np
+    import torch
+
+    out = []
+    with torch.no_grad():
+        for lo in range(0, len(kmers), NN_BATCH):
+            x = torch.from_numpy(kmers[lo:lo + NN_BATCH]).to(srv.device)
+            out.append(srv.predict_ranks(x).cpu().numpy())
+    return np.concatenate(out)
+
+
+def nn_train_parity(dev) -> dict:
+    """Phase 9's training check: test_models.py's corpus (8 kbp, k=11, 4
+    chunks of 8 units, 200 epochs, window 60) fitted on the card and on the
+    CPU from one set of initial parameters; the stop epochs must be equal
+    and the loss histories within NN_TRAIN_RTOL."""
+    import numpy as np
+    import torch
+
+    from sapling_tpu_torch.config import IndexConfig
+    from sapling_tpu_torch.index.sapling import SaplingIndex
+    from sapling_tpu_torch.models import residual
+    from sapling_tpu_torch.ops.pack import kmers_scan
+    from sapling_tpu_torch.sim.genomes import uniform_genome
+
+    idx = SaplingIndex.build(uniform_genome(8000, seed=5),
+                             IndexConfig(k=11, buckets=6), device="cpu")
+    kmers = kmers_scan(idx.codes, 11)
+    ds = residual.prepare_dataset(kmers, np.asarray(idx.inv[:len(kmers)]), 4)
+    init = residual.params_to_numpy(residual.init_params(
+        torch.Generator().manual_seed(0), 4, 8, device="cpu"))
+    runs = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        tr = residual.Trainer.from_params(residual.params_from_numpy(init, d))
+        t0 = time.perf_counter()
+        hist = tr.fit(ds, epochs=200, convergence_window=60)
+        runs[name] = (hist, tr.stop_epochs, time.perf_counter() - t0)
+    (h_card, s_card, t_card), (h_cpu, s_cpu, t_cpu) = runs["card"], runs["cpu"]
+    if not np.array_equal(s_card, s_cpu):
+        raise AssertionError(f"training stop epochs differ: card {s_card}, "
+                             f"CPU {s_cpu}")
+    np.testing.assert_allclose(h_card, h_cpu, rtol=NN_TRAIN_RTOL, atol=0)
+    return dict(stops=s_card.tolist(), epochs=len(h_card),
+                max_rel=float(np.max(np.abs(h_card - h_cpu) / h_cpu)),
+                card_s=t_card, cpu_s=t_cpu)
+
+
+def nn_phase(dev, idx21) -> dict:
+    """Phase 9: the NN predictor on the k=21 index on `dev`. Trains the
+    residual family at bench_nn_query's width (train_serving, NN_CHUNKS x
+    NN_UNITS, NN_EPOCHS, seed 0) and audits it; every genome k-mer's
+    predicted rank must equal the same model's on the CPU and the audit's
+    errors must lie inside the windows; NNQueryEngine answers phase 5's
+    queries (every in-genome one self-checks, the first N_QUERY_CHECK
+    equal the CPU path's with the same model) and is timed in turns with
+    the PWL engine on the same inputs (NN then PWL, three times; the
+    median of each engine's three timings); then the training check of
+    nn_train_parity."""
+    import numpy as np
+
+    from sapling_tpu_torch.models.serve import (NNQueryEngine, audit_serving,
+                                                train_serving)
+    from sapling_tpu_torch.ops import query
+    from sapling_tpu_torch.ops.pack import kmers_scan
+
+    didx = idx21.to(dev)
+    lines = []
+    t0 = time.perf_counter()
+    srv = train_serving(didx, num_chunks=NN_CHUNKS, layer_size=NN_UNITS,
+                        epochs=NN_EPOCHS, seed=0, log=lines.append)
+    out = dict(train_audit_s=time.perf_counter() - t0, trained=lines[-1],
+               windows=(srv.most_over, srv.most_under, srv.max_over,
+                        srv.max_under))
+    t0 = time.perf_counter()
+    audit = audit_serving(srv, didx)
+    out["audit_s"] = time.perf_counter() - t0
+    err = audit.errors
+    if srv.max_over < int(err.max(initial=0)) or \
+            srv.max_under < int(-err.min(initial=0)):
+        raise AssertionError(f"audit errors outside the windows {out}")
+
+    kmers = kmers_scan(idx21.codes, idx21.k)
+    host = srv.to("cpu")
+    t0 = time.perf_counter()
+    card = _predict_all(srv, kmers)
+    want = _predict_all(host, kmers)
+    if not np.array_equal(card, want):
+        raise AssertionError(f"{int((card != want).sum())} of {len(kmers)} "
+                             "predicted ranks differ between the card and "
+                             "the CPU")
+    out.update(n_kmers=len(kmers), ranks_s=time.perf_counter() - t0)
+
+    codes, n_in = query_codes(idx21.codes)
+    eng = NNQueryEngine(didx, srv)
+    inputs = didx.query_inputs(codes)
+    query.ROUNDS.update(C=0, D=0)
+    pos = eng.query_device(*inputs).cpu().numpy()
+    nn_rounds = query.ROUNDS["D"]
+    query.ROUNDS.update(C=0, D=0)
+    didx.query_device(*inputs, QUERY_LEN)
+    pwl_rounds = query.ROUNDS["D"]
+    _check("NN engine", pos, didx.verify_hits(codes, pos), n_in,
+           NNQueryEngine(idx21, host).query_positions(codes[:N_QUERY_CHECK]))
+    runs = {"nn": lambda: eng.query_device(*inputs),
+            "pwl": lambda: didx.query_device(*inputs, QUERY_LEN)}
+    times = {name: [] for name in runs}
+    for _ in range(3):
+        for name, fn in runs.items():
+            times[name].append(_time_ms(fn, dev, reps=5, warm=1))
+    ms, pwl_ms = (float(np.median(times[name])) for name in runs)
+    out.update(ms=ms, pwl_ms=pwl_ms, qps=N_QUERIES / (ms / 1e3),
+               pwl_qps=N_QUERIES / (pwl_ms / 1e3), nn_rounds=nn_rounds,
+               pwl_rounds=pwl_rounds, ratio=pwl_ms / ms, in_genome=n_in)
+    out["train_parity"] = nn_train_parity(dev)
+    return out
+
+
 def run_phases(td: str, scale, sm_clock_mhz: float):
     """Phases 2 (after start_scale_build) to 8 in `td`; each logs its
     line. Returns phase 3's kernel results and phase 4's aligner
@@ -683,6 +820,33 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"peak device memory {sc['peak_bytes'] / 1e9:.3f} GB "
         "(torch.cuda.max_memory_allocated); swap_table kept rev and "
         "packed in place")
+
+    # 9. the NN predictor
+    t0 = time.perf_counter()
+    nn = nn_phase(dev, idx21)
+    t = idx21.table
+    log(f"nn: train_serving {NN_CHUNKS} chunks x {NN_UNITS} units, "
+        f"{NN_EPOCHS} epochs on the card: {nn['trained']}; trained and "
+        f"audited in {nn['train_audit_s']:.2f} s (the audit alone "
+        f"{nn['audit_s']:.2f} s); NN windows most=({nn['windows'][0]},"
+        f"{nn['windows'][1]}) max=({nn['windows'][2]},{nn['windows'][3]}), "
+        f"PWL most=({t.most_over},{t.most_under}) max=({t.max_over},"
+        f"{t.max_under}); every audit error inside the max windows")
+    log(f"nn: predicted ranks of all {nn['n_kmers']} k-mers equal on the "
+        f"card and the CPU ({nn['ranks_s']:.2f} s)")
+    log(f"nn: NNQueryEngine, {N_QUERIES} 21-base queries in "
+        f"{nn['ms']:.3f} ms = {nn['qps']:.1f} q/s, {nn['nn_rounds']} "
+        f"bisection rounds (PWL in turns: {nn['pwl_ms']:.3f} ms = "
+        f"{nn['pwl_qps']:.1f} q/s, {nn['pwl_rounds']} rounds; NN/PWL = "
+        f"{nn['ratio']:.3f}; median of 3 timings each); "
+        f"self-check {nn['in_genome']}/{nn['in_genome']} in-genome, first "
+        f"{N_QUERY_CHECK} identical to the CPU path")
+    tp = nn["train_parity"]
+    log(f"nn: training card vs CPU (8 kbp, k=11, 4 x 8, 200 epochs): stop "
+        f"epochs {tp['stops']} on both, {tp['epochs']} epochs, loss "
+        f"histories within {tp['max_rel']:.2e} relative (limit "
+        f"{NN_TRAIN_RTOL:g}); card {tp['card_s']:.2f} s, CPU "
+        f"{tp['cpu_s']:.2f} s; phase 9 took {time.perf_counter() - t0:.1f} s")
     return kp, al
 
 

@@ -21,12 +21,16 @@ for name in names:
     importlib.import_module(name)
 tools = ("sapling_example", "binarysearch", "build_big_index",
          "retable_index", "swap_table_artifact", "add_bucket_bounds",
-         "bench_query_scale", "bench_align", "bench_sweep")
+         "bench_query_scale", "bench_align", "bench_sweep", "nn_pipeline",
+         "bench_nn_query")
 assert {f"sapling_tpu_torch.tools.{t}" for t in tools} | {
-    "sapling_tpu_torch.evalx.memory"} <= set(names), names
+    "sapling_tpu_torch.evalx.memory", "sapling_tpu_torch.evalx.sa_sample",
+    "sapling_tpu_torch.models.residual",
+    "sapling_tpu_torch.models.serve"} <= set(names), names
 import chip_smoke, chip_measure
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith(("jax.", "sapling_tpu.")))
+                if m in ("jax", "optax")
+                or m.startswith(("jax.", "optax.", "sapling_tpu.")))
 print(len(names), leaked)
 assert not leaked, leaked
 """
