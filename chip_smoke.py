@@ -68,7 +68,26 @@ failure raises and the script exits non-zero:
      model; CUDA-event time and bisection rounds, timed in turns with the
      PWL engine on the same inputs; then test_models.py's small corpus fitted on the card and on
      the CPU from one set of initial parameters: equal stop epochs, loss
-     histories within NN_TRAIN_RTOL.
+     histories within NN_TRAIN_RTOL;
+ 10. sharded serving (parallel/, torch.distributed): ranks in child
+     processes started with spawn, which load what the phases above saved
+     to the temporary directory (the k=16 and k=21 artifacts, phase 5's and
+     phase 8's positions, phase 4's SAM, phase 9's trained family). World
+     1 over NCCL: ShardedQueryEngine and IndexShardedEngine on phase 5's
+     queries and on phase 8's artifact at L = 21 and 101 must equal those
+     phases' positions. Two ranks on the one card over gloo (named here:
+     NCCL refuses two ranks on one device): IndexShardedEngine at idx=2 on
+     phase 8's artifact (equal positions, every in-genome query
+     self-checks), ShardedQueryEngine at dp=2 on phase 5's queries (equal
+     positions), align_fastq_multihost on phase 4's reads (the merged SAM
+     byte-identical to phase 4's), error_histogram of phase 5's prediction
+     errors (equal to numpy's bincount), and one shard_for_mesh step of
+     phase 9's family at dp=1, tp=2 (loss and parameters within
+     MULTI_TRAIN_ATOL of a one-rank step). CUDA-event times of each
+     engine's query_device on the rank's own lanes beside the
+     single-device index's, the collectives a call, the aligner's
+     reads/s. A rank that fails, or a group that does not form, fails the
+     phase.
 
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -113,6 +132,10 @@ SCALE_LENGTHS = (21, 101)
 NN_CHUNKS, NN_UNITS, NN_EPOCHS = 64, 16, 300
 NN_BATCH = 1 << 22
 NN_TRAIN_RTOL = 1e-9
+# phase 10: the sharded training step against a one-rank step; the
+# deadline of each world of ranks (seconds)
+MULTI_TRAIN_ATOL = 1e-12
+MULTI_TIMEOUT = 300
 # the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
 # and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
 # pipes together); HBM bytes/s
@@ -423,7 +446,7 @@ def query_phase(dev, idx21) -> dict:
             f"{int((pos[:n_check] != want).sum())} positions differ from "
             "the CPU path")
     out = dict(self_check=int(ok[:n_in].sum()), in_genome=n_in,
-               random_found=int(ok[n_in:].sum()))
+               random_found=int(ok[n_in:].sum()), pos=pos)
     ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
                   reps=5, warm=1)
     out.update(ms=ms, qps=N_QUERIES / (ms / 1e3))
@@ -578,7 +601,7 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
     arrays = didx.device_arrays()
     torch.cuda.synchronize(dev)
     out = dict(n=didx.n, send_s=time.perf_counter() - t0,
-               device_bytes=didx.device_bytes(), rows=[])
+               device_bytes=didx.device_bytes(), rows=[], pos={})
     ptrs = {f: arrays[f].data_ptr() for f in ("rev", "packed")}
     for name, table in (("own", None),
                         ("retable", load_table(table_path, didx.n, didx.k))):
@@ -597,6 +620,8 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
             tag = f"2^{didx.buckets} L={length}"
             _check(tag, pos, ok, n_in,
                    host.query_positions(codes[:N_QUERY_CHECK]))
+            if table is None:
+                out["pos"][length] = pos
             ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
                           reps=3, warm=1)
             out["rows"].append(dict(table=name, buckets=didx.buckets,
@@ -683,7 +708,9 @@ def nn_phase(dev, idx21) -> dict:
                         epochs=NN_EPOCHS, seed=0, log=lines.append)
     out = dict(train_audit_s=time.perf_counter() - t0, trained=lines[-1],
                windows=(srv.most_over, srv.most_under, srv.max_over,
-                        srv.max_under))
+                        srv.max_under),
+               params=[{k: v.cpu().numpy() for k, v in layer.items()}
+                       for layer in srv.params])
     t0 = time.perf_counter()
     audit = audit_serving(srv, didx)
     out["audit_s"] = time.perf_counter() - t0
@@ -728,8 +755,273 @@ def nn_phase(dev, idx21) -> dict:
     return out
 
 
+def _p10_inputs(td: str) -> dict:
+    """Phase 10's inputs, as multi_rank_phase saved them to `td`."""
+    import numpy as np
+
+    with np.load(os.path.join(td, "p10_pos.npz")) as z:
+        pos = {k: z[k] for k in z.files}
+    with np.load(os.path.join(td, "p10_nn.npz")) as z:
+        nn = [{"w": z[f"p{i}_w"], "b": z[f"p{i}_b"]}
+              for i in range(len(z.files) // 2)]
+    return dict(pos=pos, nn=nn, idx21=os.path.join(td, "p10_idx21.stpu.npz"),
+                idx16=os.path.join(td, "p10_idx16.stpu.npz"),
+                scale=os.path.join(td, "scale.stpu.npz"))
+
+
+def _engine_run(name, eng, codes, want, dev, reps):
+    """One engine's checked query_positions (positions equal to `want`),
+    the collectives it issued (parallel.mesh.COLLECTIVES), and the
+    CUDA-event time of its query_device on this rank's prepared lanes
+    (reps calls after a warm one; every rank of the world calls it
+    alike)."""
+    import numpy as np
+
+    from sapling_tpu_torch.parallel.mesh import COLLECTIVES
+
+    COLLECTIVES.update(all_reduce=0, all_gather=0)
+    pos = eng.query_positions(codes)
+    coll = sum(COLLECTIVES.values())
+    if not np.array_equal(pos, want):
+        raise AssertionError(f"{name}: {int((pos != want).sum())} positions "
+                             "differ from the single-device phase's")
+    x, q3, q_words, _b = eng.query_inputs(codes)
+    length = int(codes.shape[1])
+    ms = _time_ms(lambda: eng.query_device(x, q3, q_words, length), dev,
+                  reps=reps, warm=1)
+    return pos, dict(ms=ms, lanes=len(x), collectives=coll)
+
+
+def _p10_world1(rank, world, td):
+    """Phase 10, world 1 over NCCL: both engines on phase 5's queries and
+    on phase 8's artifact at SCALE_LENGTHS, equal to those phases'
+    positions; the single-device index's query_positions timed the same
+    way beside them."""
+    import torch
+    import torch.distributed as dist
+
+    from sapling_tpu_torch.index.sapling import SaplingIndex
+    from sapling_tpu_torch.parallel.mesh import make_mesh
+    from sapling_tpu_torch.parallel.query import ShardedQueryEngine
+    from sapling_tpu_torch.parallel.sharded_index import IndexShardedEngine
+    from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"world 1 runs {dist.get_backend()}, not nccl")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    inp = _p10_inputs(td)
+    mesh = make_mesh(1, device=dev)
+    imesh = make_mesh(1, axes=("dp", "idx"), device=dev)
+    idx21 = SaplingIndex.load(inp["idx21"], device=dev)
+    big = load_for_queries(inp["scale"], dev)
+    runs = [(5, idx21, QUERY_LEN, inp["pos"]["phase5"])]
+    runs += [(8, big, n, inp["pos"][f"scale{n}"]) for n in SCALE_LENGTHS]
+    out = []
+    for phase, idx, length, want in runs:
+        tag = f"{idx.n} bp L={length}"
+        codes, _n_in = query_codes(idx.codes, length)
+        row = dict(phase=phase, length=length, tag=tag)
+        for name, eng in (("dp", ShardedQueryEngine(idx, mesh)),
+                          ("idx", IndexShardedEngine(idx, imesh))):
+            row[name] = _engine_run(f"world 1 {name} {tag}", eng, codes,
+                                    want, dev, reps=3)[1]
+        inputs = idx.query_inputs(codes)
+        ms = _time_ms(lambda: idx.query_device(*inputs, length), dev,
+                      reps=3, warm=1)
+        row["single"] = dict(ms=ms, lanes=len(codes))
+        out.append(row)
+    return out
+
+
+def _p10_world2(rank, world, td):
+    """Phase 10, two ranks on the one card over gloo: IndexShardedEngine at
+    idx=2 on phase 8's artifact, ShardedQueryEngine at dp=2 on phase 5's
+    queries, error_histogram of their prediction errors,
+    align_fastq_multihost on phase 4's reads, one shard_for_mesh step of
+    phase 9's family at dp=1, tp=2."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sapling_tpu_torch.index.sapling import SaplingIndex
+    from sapling_tpu_torch.models import residual
+    from sapling_tpu_torch.ops import sw_cuda
+    from sapling_tpu_torch.ops.pack import kmers_scan
+    from sapling_tpu_torch.ops.predict import predict_pwl
+    from sapling_tpu_torch.parallel.mesh import make_mesh
+    from sapling_tpu_torch.parallel.multihost import align_fastq_multihost
+    from sapling_tpu_torch.parallel.query import (ShardedQueryEngine,
+                                                  error_histogram)
+    from sapling_tpu_torch.parallel.sharded_index import IndexShardedEngine
+    from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
+
+    if dist.get_backend() != "gloo":
+        raise AssertionError(f"two ranks run {dist.get_backend()}")
+    dev = torch.device("cuda", 0)
+    inp = _p10_inputs(td)
+    out = {"rank": rank}
+
+    big = load_for_queries(inp["scale"], dev)
+    ieng = IndexShardedEngine(
+        big, make_mesh(2, tp=2, axes=("dp", "idx"), device=dev))
+    for length in SCALE_LENGTHS:
+        codes, n_in = query_codes(big.codes, length)
+        pos, out[f"idx2 L={length}"] = _engine_run(
+            f"idx=2 L={length}", ieng, codes, inp["pos"][f"scale{length}"],
+            dev, reps=1)
+        ok = big.verify_hits(codes, pos)
+        if not ok[:n_in].all():
+            raise AssertionError(f"idx=2 L={length}: "
+                                 f"{int((~ok[:n_in]).sum())} in-genome "
+                                 "queries failed self-check")
+    del big, ieng
+
+    idx21 = SaplingIndex.load(inp["idx21"], device=dev)
+    mesh = make_mesh(2, device=dev)
+    codes, _n_in = query_codes(idx21.codes)
+    pos, out["dp2"] = _engine_run("dp=2", ShardedQueryEngine(idx21, mesh),
+                                  codes, inp["pos"]["phase5"], dev, reps=1)
+    # the prediction errors of the found lanes: predicted - true rank
+    d = idx21.device_arrays()
+    x = torch.from_numpy(idx21.kmerize_batch(codes)).to(dev)
+    pred = predict_pwl(x, d["xlist"], d["ylist"], 2 * idx21.k,
+                       idx21.buckets, idx21.n).cpu().numpy()
+    found = pos >= 0
+    errors = pred[found] - idx21.inv[pos[found]].astype(np.int64)
+    hist = error_histogram(errors, mesh, nbins=64)
+    lo, hi = int(errors.min()), int(errors.max()) + 1
+    width = max(1, (hi - lo + 63) // 64)
+    ref = np.bincount(np.clip((errors - lo) // width, 0, 63), minlength=64)
+    if not np.array_equal(hist, ref):
+        raise AssertionError("error_histogram differs from numpy's bincount")
+    out["hist"] = dict(n=len(errors), lo=lo, hi=hi, width=width,
+                       bin0=int(hist[0]))
+
+    # one shard_for_mesh step of phase 9's family, against a one-rank step
+    tmesh = make_mesh(2, tp=2, device=dev)
+    kmers = kmers_scan(idx21.codes, idx21.k)
+    ds = residual.prepare_dataset(
+        kmers, np.asarray(idx21.inv[:len(kmers)], np.int64), NN_CHUNKS)
+    tr = residual.Trainer.from_params(residual.params_from_numpy(inp["nn"],
+                                                                 dev))
+    x, y, v = residual.shard_for_mesh(tr, ds, tmesh)
+    loss = float(tr.train_step(x, y, v, tp=tmesh.groups["tp"],
+                               dp=tmesh.groups["dp"]))
+    one = residual.Trainer.from_params(residual.params_from_numpy(inp["nn"],
+                                                                  dev))
+    one_loss = float(one.train_step(ds.x, ds.res, ds.valid))
+    w = NN_UNITS // 2
+    cols = slice(rank * w, (rank + 1) * w)
+    worst = abs(loss - one_loss)
+    with torch.no_grad():
+        for mine, whole, last in zip(tr.params, one.params, (False, True)):
+            want = ({"w": whole["w"][:, cols, :], "b": whole["b"]} if last
+                    else {"w": whole["w"][:, :, cols],
+                          "b": whole["b"][:, cols]})
+            for key in ("w", "b"):
+                worst = max(worst,
+                            float((mine[key] - want[key]).abs().max()))
+    if worst > MULTI_TRAIN_ATOL:
+        raise AssertionError(f"shard_for_mesh step {worst:.3e} from the "
+                             "one-rank step")
+    out["train"] = dict(loss=loss, worst=worst)
+
+    idx16 = SaplingIndex.load(inp["idx16"], device=dev)
+    sam = os.path.join(td, "p10_multi.sam")
+    for k in sw_cuda.LAUNCHES:
+        sw_cuda.LAUNCHES[k] = 0
+    dist.barrier()
+    t0 = time.perf_counter()
+    align_fastq_multihost(idx16, os.path.join(td, "reads.fq"), sam,
+                          cl="chip_smoke", work_dir=os.path.join(td, "p10"),
+                          device=dev)
+    out["align_s"] = time.perf_counter() - t0
+    out["launches"] = dict(sw_cuda.LAUNCHES)
+    if rank == 0:
+        with open(sam, "rb") as f, \
+                open(os.path.join(td, "dev.sam"), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("the 2-rank SAM differs from phase 4's")
+    return out
+
+
+def multi_rank_phase(td: str, idx16, idx21, qr, sc, nn) -> dict:
+    """Phase 10: save what the ranks load, then world 1 over NCCL and two
+    ranks on the one card over gloo, each world in spawned children."""
+    import numpy as np
+
+    from sapling_tpu_torch.parallel.multihost import spawn_ranks
+
+    t0 = time.perf_counter()
+    idx21.save(os.path.join(td, "p10_idx21.stpu.npz"))
+    idx16.save(os.path.join(td, "p10_idx16.stpu.npz"))
+    np.savez(os.path.join(td, "p10_pos.npz"), phase5=qr["pos"],
+             **{f"scale{n}": p for n, p in sc["pos"].items()})
+    np.savez(os.path.join(td, "p10_nn.npz"), **{
+        f"p{i}_{k}": layer[k] for i, layer in enumerate(nn["params"])
+        for k in ("w", "b")})
+    save_s = time.perf_counter() - t0
+    one = spawn_ranks(_p10_world1, 1, f"file://{td}/p10_rendezvous1",
+                      "nccl", args=(td,), timeout=MULTI_TIMEOUT)[0]
+    t1 = time.perf_counter()
+    two = spawn_ranks(_p10_world2, 2, f"file://{td}/p10_rendezvous2",
+                      "gloo", args=(td,), timeout=MULTI_TIMEOUT)
+    return dict(world1=one, world2=two, save_s=save_s,
+                world1_s=t1 - t0 - save_s, world2_s=time.perf_counter() - t1,
+                seconds=time.perf_counter() - t0)
+
+
+def _p10_log(p10, qr, sc) -> None:
+    """Phase 10's lines. Times are each engine's query_device on the
+    rank's prepared lanes (CUDA events); q/s counts the whole batch over
+    the slowest rank's time (`shared`: every rank runs the same lanes)."""
+    def rate(rows, key, shared=False):
+        ms = max(r[key]["ms"] for r in rows)
+        lanes = (rows[0][key]["lanes"] if shared
+                 else sum(r[key]["lanes"] for r in rows))
+        per_rank = " / ".join(f"{r[key]['ms']:.3f}" for r in rows)
+        coll = rows[0][key].get("collectives")
+        return (f"{per_rank} ms = {lanes / (ms / 1e3):.1f} q/s"
+                + ("" if coll is None else f", {coll} collectives a call"))
+
+    own = {r["length"]: r for r in sc["rows"] if r["table"] == "own"}
+    for row in p10["world1"]:
+        base = qr if row["phase"] == 5 else own[row["length"]]
+        log(f"multi-rank world 1 (nccl) {row['tag']}: dp engine "
+            f"{rate([row], 'dp')}; idx engine {rate([row], 'idx')}; the "
+            f"single-device index in turns {rate([row], 'single')}, in "
+            f"phase {row['phase']} {base['ms']:.3f} ms; positions equal to "
+            f"phase {row['phase']}'s")
+    r0, r1 = p10["world2"]
+    for length in SCALE_LENGTHS:
+        log(f"multi-rank 2 ranks on one card (gloo) idx=2 {SCALE_N} bp "
+            f"L={length}: ranks 0 / 1 "
+            f"{rate([r0, r1], f'idx2 L={length}', shared=True)}; positions "
+            "equal to phase 8's, every in-genome query self-checked")
+    log(f"multi-rank 2 ranks (gloo) dp=2 {GENOME_N} bp L={QUERY_LEN}: "
+        f"ranks 0 / 1 {rate([r0, r1], 'dp2')}; positions equal to phase "
+        "5's")
+    h = r0["hist"]
+    log(f"multi-rank 2 ranks (gloo) error_histogram of {h['n']} prediction "
+        f"errors in [{h['lo']}, {h['hi']}) (64 bins of {h['width']}): equal "
+        "to numpy's bincount")
+    worst = max(r0["train"]["worst"], r1["train"]["worst"])
+    log(f"multi-rank 2 ranks (gloo) shard_for_mesh dp=1 tp=2 step of phase "
+        f"9's family ({NN_CHUNKS} x {NN_UNITS}): loss {r0['train']['loss']!r}"
+        f", loss and parameters within {worst:.2e} of a one-rank step "
+        f"(limit {MULTI_TRAIN_ATOL:g})")
+    slowest = max(r0["align_s"], r1["align_s"])
+    log(f"multi-rank 2 ranks (gloo) align_fastq_multihost: {N_READS} reads "
+        f"in {slowest:.3f} s = {N_READS / slowest:.1f} reads/s; merged SAM "
+        f"byte-identical to phase 4's; SW launches rank 0 {r0['launches']}, "
+        f"rank 1 {r1['launches']}")
+    log(f"multi-rank: phase 10 took {p10['seconds']:.1f} s (saving the "
+        f"inputs {p10['save_s']:.1f} s, world 1 {p10['world1_s']:.1f} s, "
+        f"two ranks {p10['world2_s']:.1f} s)")
+
+
 def run_phases(td: str, scale, sm_clock_mhz: float):
-    """Phases 2 (after start_scale_build) to 8 in `td`; each logs its
+    """Phases 2 (after start_scale_build) to 10 in `td`; each logs its
     line. Returns phase 3's kernel results and phase 4's aligner
     results, which the kernels line reads."""
     import torch
@@ -847,6 +1139,9 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"histories within {tp['max_rel']:.2e} relative (limit "
         f"{NN_TRAIN_RTOL:g}); card {tp['card_s']:.2f} s, CPU "
         f"{tp['cpu_s']:.2f} s; phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # 10. sharded serving in spawned ranks
+    _p10_log(multi_rank_phase(td, idx16, idx21, qr, sc, nn), qr, sc)
     return kp, al
 
 

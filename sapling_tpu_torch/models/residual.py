@@ -31,7 +31,10 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from ..parallel.mesh import all_gather, all_reduce
 
 F64 = torch.float64
 
@@ -147,27 +150,85 @@ def params_to_numpy(params) -> list[dict[str, np.ndarray]]:
             for layer in params]
 
 
-def forward(params, x: torch.Tensor) -> torch.Tensor:
+class _SumOverTp(torch.autograd.Function):
+    """Forward: the sum over the tp group; backward: the identity. Every tp
+    rank computes the same loss from the sum, so each rank's own gradient
+    of it is already the whole gradient of its partial product
+    (torch.distributed.nn's all_reduce would sum the gradients too, tp
+    times too large)."""
+
+    @staticmethod
+    def forward(ctx, h, group):
+        return all_reduce(h.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherOverTp(torch.autograd.Function):
+    """Forward: the tp group's hidden units side by side (last axis);
+    backward: the sum over the group of the gradients of the gathered
+    activations, this rank's units' slice of it. Each rank's next layer
+    reads every unit but holds only its own output units, so every rank
+    adds a part of each unit's gradient."""
+
+    @staticmethod
+    def forward(ctx, h, group):
+        ctx.group = group
+        ctx.width = h.shape[-1]
+        ctx.me = dist.get_rank(group)
+        parts = all_gather(h.movedim(-1, 0), group)
+        return parts.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce(g.contiguous(), ctx.group)
+        lo = ctx.me * ctx.width
+        return g[..., lo:lo + ctx.width], None
+
+
+def forward(params, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Every chunk's MLP at once: x [C, B, 1] -> [C, B, 1] float64. x is
-    cast to float64 first (exact from float32), as JAX promotes it."""
+    cast to float64 first (exact from float32), as JAX promotes it.
+
+    tp: the process group over which shard_for_mesh split the hidden units
+    (each hidden layer's output units, the last layer's input rows), or
+    None. Hidden activations are gathered over it before a hidden layer,
+    and the last layer's partial products summed over it before its
+    bias."""
     h = x.to(F64)
+    last = len(params) - 1
     for i, layer in enumerate(params):
-        h = (torch.einsum("cbi,cio->cbo", h, layer["w"])
-             + layer["b"][:, None, :])
-        if i < len(params) - 1:
+        if tp is not None and 0 < i < last:
+            h = _GatherOverTp.apply(h, tp)
+        h = torch.einsum("cbi,cio->cbo", h, layer["w"])
+        if tp is not None and i == last:
+            h = _SumOverTp.apply(h, tp)
+        h = h + layer["b"][:, None, :]
+        if i < last:
             h = torch.relu(h)
     return h
 
 
-def _squared_errors(params, x, y, valid):
-    pred = forward(params, x)
+def _squared_errors(params, x, y, valid, tp=None):
+    pred = forward(params, x, tp)
     return ((pred - y) ** 2).squeeze(-1) * valid
 
 
-def mse_loss(params, x, y, valid):
-    """The mean squared error over every valid point of every chunk."""
-    se = _squared_errors(params, x, y, valid)
-    return se.sum() / torch.clamp(valid.sum(), min=1)
+def mse_loss(params, x, y, valid, tp=None, dp=None):
+    """The mean squared error over every valid point of every chunk.
+
+    tp: forward's hidden-unit group. dp: the group over which
+    shard_for_mesh split the chunks, or None; the local squared errors are
+    then divided by the valid count of every chunk (summed over dp), so
+    the gradient of each rank's loss is that of the global mean for its
+    own chunks, and the global mean is the sum of the dp ranks' losses."""
+    se = _squared_errors(params, x, y, valid, tp)
+    count = valid.sum()
+    if dp is not None:
+        count = all_reduce(count.clone(), dp)
+    return se.sum() / torch.clamp(count, min=1)
 
 
 def mse_loss_per_chunk(params, x, y, valid):
@@ -271,21 +332,27 @@ class Trainer:
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
 
-    def _grads(self, loss_fn, x, y, valid):
-        """(loss, grads) of loss_fn(params, x, y, valid) summed over its
-        entries, for every parameter of the model."""
+    def _grads(self, loss_fn, x, y, valid, **groups):
+        """(loss, grads) of loss_fn(params, x, y, valid, **groups) summed
+        over its entries, for every parameter of the model."""
         params = list(self.model.parameters())
-        loss = loss_fn(self.model.params, x, y, valid)
+        loss = loss_fn(self.model.params, x, y, valid, **groups)
         grads = torch.autograd.grad(loss.sum(), params)
         return loss.detach(), params, grads
 
-    def train_step(self, x, y, valid) -> torch.Tensor:
+    def train_step(self, x, y, valid, tp=None, dp=None) -> torch.Tensor:
         """One plain Adam step on the mean loss over all chunks (no
         per-chunk freezing), in place; returns the loss before the step.
-        x, y: [C, B, 1]; valid: [C, B] (host arrays or tensors)."""
+        x, y: [C, B, 1]; valid: [C, B] (host arrays or tensors). After
+        shard_for_mesh: this rank's slices and the mesh's groups (tp, dp);
+        the returned loss is then the global mean, summed over dp, and
+        Adam stays elementwise on the local shards."""
         x, y = self._tensor(x), self._tensor(y)
         valid = self._tensor(valid, torch.float32)
-        loss, params, grads = self._grads(mse_loss, x, y, valid)
+        loss, params, grads = self._grads(mse_loss, x, y, valid, tp=tp,
+                                          dp=dp)
+        if dp is not None:
+            loss = all_reduce(loss.clone(), dp)
         new, self.opt_state = _adam(params, grads, self.opt_state, self.lr)
         with torch.no_grad():
             for p, q in zip(params, new):
@@ -397,3 +464,42 @@ def error_percentiles(pred_rows: np.ndarray, true_rows: np.ndarray,
     for p in pcts:
         out[f"p{p}"] = float(np.percentile(err, p))
     return out
+
+
+def shard_for_mesh(trainer: Trainer, ds: ResidualDataset, mesh):
+    """This rank's part of SPMD training over a ("dp", "tp") mesh
+    (parallel.mesh): the chunk axis over "dp", the hidden units over "tp"
+    (every hidden layer's output units and bias, the last layer's input
+    rows; the last bias whole), as JAX's shard_for_mesh places them. The
+    trainer keeps only its shard of the parameters, with a fresh Adam
+    state; returns this rank's (x, y, valid) slices of the dataset. Then
+    trainer.train_step(x, y, valid, tp=mesh.groups["tp"],
+    dp=mesh.groups["dp"]) takes one step of the whole family."""
+    ndp, ntp = mesh.shape["dp"], mesh.shape["tp"]
+    d, t = mesh.coords["dp"], mesh.coords["tp"]
+    c = ds.x.shape[0]
+    if c % ndp:
+        raise ValueError(f"dp={ndp} must divide the {c} chunks")
+    chunks = slice(d * c // ndp, (d + 1) * c // ndp)
+
+    def units(n):
+        if n % ntp:
+            raise ValueError(f"tp={ntp} must divide {n} hidden units")
+        return slice(t * n // ntp, (t + 1) * n // ntp)
+
+    params = trainer.params
+    last = len(params) - 1
+    local = []
+    with torch.no_grad():
+        for i, layer in enumerate(params):
+            w, b = layer["w"][chunks], layer["b"][chunks]
+            if i < last:
+                cols = units(w.shape[2])
+                w, b = w[:, :, cols], b[:, cols]
+            else:
+                w = w[:, units(w.shape[1]), :]
+            local.append({"w": w.contiguous(), "b": b.contiguous()})
+    fresh = Trainer.from_params(local, lr=trainer.lr)
+    trainer.model, trainer.opt_state = fresh.model, fresh.opt_state
+    return (trainer._tensor(ds.x[chunks]), trainer._tensor(ds.res[chunks]),
+            trainer._tensor(ds.valid[chunks], torch.float32))

@@ -27,6 +27,12 @@ Lane state is int64 throughout: torch has no uint32 arithmetic on the CPU,
 so uint32 values are held as int64, or stored as int32 whose bits
 `gather64` reads back as uint32.
 
+Every gather from a per-rank array (rev, prefix64, prefix3) goes through a
+`take(arr, rank)` hook: `take_rank` on one device, or `make_take`'s
+index-sharded gather, which reads the local rank range and combines the
+ranks of an index-shard group with one all_reduce
+(parallel.sharded_index).
+
 LCP bookkeeping (loLcp/hiLcp) is dropped, as in sapling_tpu: the reference
 only uses it as a compare start offset, which never changes an outcome.
 """
@@ -36,7 +42,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import all_reduce
 from .pack import BASES_PER_WORD, P3_BASES
 from .predict import predict_pwl
 
@@ -61,6 +69,50 @@ def gather64(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """a[idx] as int64, where `a` is int64 or int32 holding uint32 bits."""
     v = a[idx]
     return v if v.dtype == torch.int64 else v.long() & _MASK32
+
+
+class SplitRanks(NamedTuple):
+    """rank -> pos values of >= 2^32-base genomes in 5 bytes a rank: `lo`
+    the low 32 bits (int32 holding the uint32 bits), `hi` bits 32.. (uint8).
+    int64 would take 8 bytes a rank; take_rank reassembles the int64."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+
+
+def take_rank(a, idx: torch.Tensor) -> torch.Tensor:
+    """a[idx] as int64 from a per-rank array: int64, int32 holding uint32
+    bits, or SplitRanks."""
+    if isinstance(a, SplitRanks):
+        return (a.hi[idx].long() << 32) | gather64(a.lo, idx)
+    return gather64(a, idx)
+
+
+def make_take(shard=None):
+    """The per-rank gather of the query: take_rank, or under index sharding
+    (shard = (group, shard_size)) a gather over rank-range shards.
+
+    Each rank of `group` holds the contiguous rank range [me*size,
+    (me+1)*size) of every per-rank array. A lane whose rank lives elsewhere
+    gathers local index 0 and contributes 0, so after one all_reduce (SUM)
+    over the group every rank holds every lane's value. The values are
+    int64 before the sum (uint32 bits widened, split limbs reassembled), so
+    the sum of one value and zeros is exact, negative int64 views of uint64
+    words included. Every rank of the group gets the same result, so every
+    later decision, and each host loop's trip count, is the same on each:
+    the collectives line up."""
+    if shard is None:
+        return take_rank
+    group, size = shard
+    me = dist.get_rank(group)
+
+    def take(arr, rank):
+        owner = rank // size
+        mine = owner == me
+        v = take_rank(arr, torch.where(mine, rank - owner * size, 0))
+        return all_reduce(torch.where(mine, v, 0), group)
+
+    return take
 
 
 def _clz32(x: torch.Tensor) -> torch.Tensor:
@@ -121,7 +173,8 @@ def probe_at(packed, pos, q_words, *, n: int, length: int) -> Probe:
     return _finish_probe(lcp_raw, qw > aw, pos, n=n, length=length)
 
 
-def make_rank_probe(packed, rev, prefix, q_words, *, n: int, length: int):
+def make_rank_probe(packed, rev, prefix, q_words, *, n: int, length: int,
+                    take=take_rank):
     """rank [B] -> (text position, Probe).
 
     With `prefix` (the int64 view of ops.pack.rank_prefix64's uint64
@@ -130,6 +183,7 @@ def make_rank_probe(packed, rev, prefix, q_words, *, n: int, length: int):
     bits order as unsigned. Zero-padded short suffixes stay exact: the
     off-end test n - pos < length decides a tie at a pad base. Otherwise
     gather rev[rank], then compare against the packed genome (probe_at).
+    `take(arr, rank)` does the per-rank gathers (make_take).
     """
     if prefix is not None and length <= 32:
         if length <= 16:
@@ -144,8 +198,8 @@ def make_rank_probe(packed, rev, prefix, q_words, *, n: int, length: int):
                else torch.zeros_like(qhi))
 
         def probe(rank):
-            pos = gather64(rev, rank)
-            pw = prefix[rank]
+            pos = take(rev, rank)
+            pw = take(prefix, rank)
             phi = (pw >> 32) & mhi
             plo = pw & mlo
             dhi = phi ^ qhi
@@ -159,13 +213,13 @@ def make_rank_probe(packed, rev, prefix, q_words, *, n: int, length: int):
         return probe
 
     def probe(rank):
-        pos = gather64(rev, rank)
+        pos = take(rev, rank)
         return pos, probe_at(packed, pos, q_words, n=n, length=length)
 
     return probe
 
 
-def make_rank_probe3(prefix3, q3, *, length: int):
+def make_rank_probe3(prefix3, q3, *, length: int, take=take_rank):
     """rank [B] -> (rank, Probe) via one int64 gather of prefix3.
 
     prefix3 / q3 hold the shifted 3-bit encoding (ops.pack.rank_prefix3)
@@ -173,14 +227,15 @@ def make_rank_probe3(prefix3, q3, *, length: int):
     every value is < 2^63 and a signed compare orders them as the
     unsigned words. The pad value 0 sorts below every base, so the
     compare alone gives the reference's order, off-end-is-smaller
-    included. A hit returns the rank; the caller gathers rev once."""
+    included. A hit returns the rank; the caller gathers rev once.
+    `take(arr, rank)` does the gather (make_take)."""
     mask = 0
     for j in range(length):
         mask |= 7 << (60 - 3 * j)
     qm = q3 & mask
 
     def probe(rank):
-        pm = prefix3[rank] & mask
+        pm = take(prefix3, rank) & mask
         match = pm == qm
         return rank, Probe(match=match, smaller=~match & (qm > pm))
 
@@ -230,7 +285,8 @@ def plquery_batch(packed, rev, xlist, ylist, q_words, x, prefix=None,
                   k: int, buckets: int, most_over: int, most_under: int,
                   max_over: int, max_under: int,
                   max_stride_steps: int = 1 << 20,
-                  adaptive_bounds: bool = False, pred64=None):
+                  adaptive_bounds: bool = False, pred64=None,
+                  take=take_rank):
     """Batched Sapling::plQuery (reference: src/sapling_api.h:159-248).
 
     packed: int64 genome words; rev: rank -> pos (int64, or int32 holding
@@ -254,6 +310,9 @@ def plquery_batch(packed, rev, xlist, ylist, q_words, x, prefix=None,
     prediction (for another predictor); the caller passes the most/max
     windows measured for that predictor.
 
+    take: the per-rank gather (make_take): rev, prefix and prefix3 may be
+    rank-range shards whose gathers combine over an index-shard group.
+
     Returns int64 [B] text positions, -1 where the reference returns -1,
     bit-identical to `sapling_tpu`'s plquery_batch on the same arguments
     (which member of a duplicate run comes back included).
@@ -263,13 +322,13 @@ def plquery_batch(packed, rev, xlist, ylist, q_words, x, prefix=None,
     fast3 = (prefix3 is not None and q3 is not None
              and length <= min(k, P3_BASES))
     if fast3:
-        probe = make_rank_probe3(prefix3, q3, length=length)
+        probe = make_rank_probe3(prefix3, q3, length=length, take=take)
     elif q_words is None:
         raise ValueError(f"length {length} at k={k} takes the general "
                          "path, which needs q_words")
     else:
         probe = make_rank_probe(packed, rev, prefix, q_words, n=n,
-                                length=length)
+                                length=length, take=take)
     pred = (predict_pwl(x, xlist, ylist, 2 * k, buckets, n)
             if pred64 is None else pred64)
     e_right = torch.clamp(pred + most_over, max=n - 1)
@@ -357,20 +416,23 @@ def plquery_batch(packed, rev, xlist, ylist, q_words, x, prefix=None,
     if not fast3:
         return res
     found = res >= 0
-    return torch.where(found, gather64(rev, torch.where(found, res, 0)), -1)
+    return torch.where(found, take(rev, torch.where(found, res, 0)), -1)
 
 
-def binsearch_batch(packed, rev, q_words, *, n: int, length: int):
+def binsearch_batch(packed, rev, q_words, *, n: int, length: int,
+                    take=take_rank):
     """Batched classic suffix-array binary search, the baseline Sapling is
     measured against (reference: src/binarysearch.cpp:38-58,158-165).
 
     Like the reference's bQuery it probes rank 0 and rank n-1 first, then
     searches [0, n-1]. The reference's recursion has no not-found guard
     and can recurse forever on an absent query; those lanes resolve to -1.
-    Returns int64 [B] positions, bit-identical to `sapling_tpu`'s."""
+    take: the per-rank gather (make_take). Returns int64 [B] positions,
+    bit-identical to `sapling_tpu`'s."""
     zero = torch.zeros(q_words.shape[1], dtype=torch.int64,
                        device=q_words.device)
-    probe = make_rank_probe(packed, rev, None, q_words, n=n, length=length)
+    probe = make_rank_probe(packed, rev, None, q_words, n=n, length=length,
+                            take=take)
     pos_lo, p_lo = probe(zero)
     res = torch.where(p_lo.match, pos_lo, -1)
     resolved = p_lo.match

@@ -22,17 +22,34 @@ for name in names:
 tools = ("sapling_example", "binarysearch", "build_big_index",
          "retable_index", "swap_table_artifact", "add_bucket_bounds",
          "bench_query_scale", "bench_align", "bench_sweep", "nn_pipeline",
-         "bench_nn_query")
+         "bench_nn_query", "query_big_split")
 assert {f"sapling_tpu_torch.tools.{t}" for t in tools} | {
     "sapling_tpu_torch.evalx.memory", "sapling_tpu_torch.evalx.sa_sample",
     "sapling_tpu_torch.models.residual",
-    "sapling_tpu_torch.models.serve"} <= set(names), names
+    "sapling_tpu_torch.models.serve", "sapling_tpu_torch.graft_entry",
+    "sapling_tpu_torch.parallel.mesh", "sapling_tpu_torch.parallel.query",
+    "sapling_tpu_torch.parallel.sharded_index",
+    "sapling_tpu_torch.parallel.multihost"} <= set(names), names
 import chip_smoke, chip_measure
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "optax")
                 or m.startswith(("jax.", "optax.", "sapling_tpu.")))
 print(len(names), leaked)
 assert not leaked, leaked
+"""
+
+
+# a rank spawned by the port's launcher (tests/torch_dist_worker.py
+# imports the port only) holds no jax either
+_SPAWNED_RANK = """
+import sys, tempfile
+from sapling_tpu_torch.parallel.multihost import spawn_ranks
+from tests import torch_dist_worker
+with tempfile.TemporaryDirectory() as td:
+    leaked = spawn_ranks(torch_dist_worker.leaked_modules, 2,
+                         "file://" + td + "/rendezvous", "gloo")
+print(leaked)
+assert leaked == [[], []], leaked
 """
 
 
@@ -49,6 +66,12 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     n_modules = int(res.stdout.split()[0])
     assert n_modules >= 20
+
+
+def test_spawned_rank_imports_no_jax():
+    res = _run(["-c", _SPAWNED_RANK], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[[], []]"
 
 
 def test_chip_smoke_fails_without_a_gpu():

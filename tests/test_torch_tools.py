@@ -1,6 +1,7 @@
 """The port's CLI twins of tools/sapling_example.py,
-tools/binarysearch.py, tools/bench_query_scale.py, tools/bench_align.py
-and tools/bench_sweep.py run on the CPU and self-check every answer; the
+tools/binarysearch.py, tools/bench_query_scale.py, tools/bench_align.py,
+tools/bench_sweep.py and tools/query_big_split.py run on the CPU and
+self-check every answer (query_big_split's as JAX's tool does); the
 sapling_example twin's sapFn/errFn dumps equal the JAX package's; the
 TPU-only flags of bench_query_scale and bench_align's ref=1 are refused.
 """
@@ -21,8 +22,8 @@ from sapling_tpu_torch.io.fasta import write_fasta
 from sapling_tpu_torch.sim.genomes import benchmark_genome
 from sapling_tpu_torch.tools import (bench_align, bench_query_scale,
                                      bench_sweep, binarysearch,
-                                     build_big_index, retable_index,
-                                     sapling_example)
+                                     build_big_index, query_big_split,
+                                     retable_index, sapling_example)
 
 _CORRECT = re.compile(r"correctness: (\d+) out of (\d+)")
 _SELF_CHECK = re.compile(r"self-check (\d+)/(\d+)")
@@ -157,3 +158,36 @@ def test_bench_sweep(tmp_path, capsys):
         good, total = p["self_check"].split("/")
         assert good == total, p
     assert "self_check" in capsys.readouterr().out
+
+
+def test_query_big_split(tmp_path, capsys):
+    """The twin on a small split-limb artifact from the port's build_split,
+    force_small=1, idx=2 x dp=2 gloo ranks on the CPU: every check passes,
+    and its self-check and hi-limb counts are JAX's tool's on the same
+    artifact (4 of conftest's virtual devices)."""
+    import os
+    import sys
+
+    art = str(tmp_path / "split.stpu.npz")
+    build_big_index.build_split(100_000, 16, 8, workers=1, out=art)
+    capsys.readouterr()
+    args = [art, "nq=3000", "idx=2", "dp=2", "force_small=1"]
+    assert query_big_split.main(["qbs", *args, "device=cpu",
+                                 "backend=gloo"]) == 0
+    ours = capsys.readouterr().out
+    assert "4 ranks (gloo, cpu)" in ours
+    assert "mesh: {'dp': 2, 'idx': 2}" in ours
+    assert "self-check: 3000/3000" in ours, ours
+    assert "sharded == single-device: exact" in ours, ours
+    assert re.search(r"device bytes a rank at idx=2: .* sharded rev "
+                     r"250,000 ", ours), ours
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import query_big_split as jax_tool
+
+    assert jax_tool.main(["qbs", *args]) == 0
+    theirs = capsys.readouterr().out
+    for key in ("self-check: ", "positions with hi limb nonzero: "):
+        line = [ln for ln in ours.splitlines() if ln.startswith(key)]
+        assert line and line[0] in theirs.splitlines(), (line, theirs)
