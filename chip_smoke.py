@@ -87,7 +87,18 @@ failure raises and the script exits non-zero:
      engine's query_device on the rank's own lanes beside the
      single-device index's, the collectives a call, the aligner's
      reads/s. A rank that fails, or a group that does not form, fails the
-     phase.
+     phase;
+ 11. the last modules: utils.profiling's profile_trace around one
+     phase-5 query call (the Chrome trace must exist and hold CUDA kernel
+     events) and bench_fn on it; evalx on the host: compare_sam of phase
+     4's SAM against the simulation's truth (equal to phase 4's counts),
+     kmer_spectrum of the genome's LCP at k = 16 and 21 (distinct 21-mers
+     == np.unique's count), per_bin_errors' p95 on the k=21 index's audit
+     (its per-bin statistics at 2^EVALX_BINS bins); and the
+     microbench_gather twin's every mode at GATHER_N elements (past 2^31:
+     int64 indexes), GATHER_LANES lanes, GATHER_ITERS deep, randref and
+     sorted at GATHER_GB GB, then randref again at each of
+     GATHER_SWEEP_LANES lanes.
 
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -136,6 +147,15 @@ NN_TRAIN_RTOL = 1e-9
 # deadline of each world of ranks (seconds)
 MULTI_TRAIN_ATOL = 1e-12
 MULTI_TIMEOUT = 300
+# phase 11: the gather microbenchmark's operands (the rev halves and 2D
+# layouts hold GATHER_N entries, 8.8 GB) and lanes
+GATHER_N, GATHER_LANES = 2_200_000_000, 5_000_000
+GATHER_ITERS, GATHER_GB = 8, 12.4
+# phase 11: randref's lane counts past GATHER_LANES (more gathers in
+# flight)
+GATHER_SWEEP_LANES = (50_000_000, 200_000_000)
+# phase 11: the bins of evalx.bins.per_bin_errors' per-bin statistics
+EVALX_BINS = 16
 # the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
 # and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
 # pipes together); HBM bytes/s
@@ -1020,8 +1040,111 @@ def _p10_log(p10, qr, sc) -> None:
         f"two ranks {p10['world2_s']:.1f} s)")
 
 
+def profiling_phase(dev, idx21, workdir: str) -> dict:
+    """Phase 11's profiling: utils.profiling.profile_trace around one
+    phase-5 query call (the Chrome trace must exist and hold CUDA kernel
+    events), then bench_fn on the same call."""
+    from sapling_tpu_torch.utils.profiling import bench_fn, profile_trace
+
+    codes, _n_in = query_codes(idx21.codes)
+    didx = idx21.to(dev)
+    inputs = didx.query_inputs(codes)
+    didx.query_device(*inputs, QUERY_LEN)
+    with profile_trace(os.path.join(workdir, "trace")) as tr:
+        didx.query_device(*inputs, QUERY_LEN)
+    if not os.path.exists(tr["path"]) or tr["kernels"] == 0:
+        raise AssertionError(f"no CUDA kernel event in the trace {tr}")
+    best, _pos = bench_fn(didx.query_device, *inputs, QUERY_LEN)
+    return dict(kernels=tr["kernels"], trace_bytes=os.path.getsize(
+        tr["path"]), bench_ms=best * 1e3)
+
+
+def evalx_phase(seq, idx21, workdir: str, al: dict) -> dict:
+    """Phase 11's evalx, on the host: compare_sam of phase 4's SAM against
+    truth records of the simulation's positions (its good, bad and
+    unaligned counts must be phase 4's near, aligned - near and
+    N_READS - aligned), the k-mer spectrum of the genome's LCP at k = 16
+    and 21 (the distinct 21-mers must be np.unique's count), and
+    per_bin_errors' p95 on the k=21 index's error audit."""
+    import numpy as np
+
+    from sapling_tpu_torch.evalx.alignment_quality import (compare_sam,
+                                                           truth_sam_lines)
+    from sapling_tpu_torch.evalx.bins import per_bin_errors
+    from sapling_tpu_torch.evalx.kmer_stats import kmer_spectrum
+    from sapling_tpu_torch.index.pwl import error_audit
+    from sapling_tpu_torch.index.suffix_array import build_suffix_data
+    from sapling_tpu_torch.ops.pack import kmers_scan
+    from sapling_tpu_torch.sim.genomes import simulate_reads
+
+    _reads, true_pos, _rc = simulate_reads(seq, N_READS, READ_LEN,
+                                           sub_rate=0.01, seed=SEED + 1)
+    truth = truth_sam_lines([f"read{i + 1}" for i in range(N_READS)],
+                            ["bench"] * N_READS, true_pos)
+    rep = compare_sam(os.path.join(workdir, "dev.sam"), truth)
+    got = (rep.good, rep.bad, rep.unaligned, rep.missing)
+    want = (al["near"], al["aligned"] - al["near"], N_READS - al["aligned"],
+            0)
+    if got != want:
+        raise AssertionError(f"compare_sam (good, bad, unaligned, missing) "
+                             f"{got} != phase 4's {want}")
+    t0 = time.perf_counter()
+    suffix = build_suffix_data(seq, np.int32)
+    spec = kmer_spectrum(suffix.lcp, GENOME_N, max_k=idx21.k)
+    t = idx21.table
+    kmers = kmers_scan(idx21.codes, idx21.k)
+    distinct = len(np.unique(kmers))
+    if spec["distinct"][idx21.k - 1] != distinct:
+        raise AssertionError(f"kmer_spectrum: {spec['distinct'][-1]} "
+                             f"distinct {idx21.k}-mers, np.unique "
+                             f"{distinct}")
+    audit = error_audit(kmers, suffix.inv, suffix.lcp, t.xlist, t.ylist,
+                        idx21.k, idx21.buckets, idx21.n)
+    # the statistics at 2^EVALX_BINS bins: per_bin_stats takes one
+    # np.median a non-empty bin, ~40 s over the table's 2^22
+    stats = per_bin_errors(audit, kmers, idx21.k, EVALX_BINS)
+    if int(stats["count"].sum()) != len(kmers):
+        raise AssertionError("per_bin_errors does not count every k-mer")
+    return dict(quality=got, seconds=time.perf_counter() - t0,
+                spectrum={k: (int(spec["distinct"][k - 1]),
+                              int(spec["unique"][k - 1]),
+                              int(spec["total"][k - 1])) for k in (16, 21)},
+                p95=stats["p95"], max_abs=int(np.abs(audit.errors).max()))
+
+
+def last_modules_phase(dev, seq, idx21, td, al) -> None:
+    """Phase 11, logged line by line."""
+    from sapling_tpu_torch.tools.microbench_gather import MODES, run_modes
+
+    t0 = time.perf_counter()
+    pr = profiling_phase(dev, idx21, td)
+    log(f"profiling: profile_trace of one {N_QUERIES}-query L={QUERY_LEN} "
+        f"call: {pr['kernels']} CUDA kernel events in the Chrome trace "
+        f"({pr['trace_bytes']} bytes); bench_fn {pr['bench_ms']:.3f} ms "
+        "(min of 3 fenced calls)")
+    ev = evalx_phase(seq, idx21, td, al)
+    good, bad, unal, _miss = ev["quality"]
+    log(f"evalx: compare_sam of phase 4's SAM against the simulation's "
+        f"truth: good {good}, bad {bad}, unaligned {unal} (phase 4: near "
+        f"{al['near']} of {al['aligned']} aligned); kmer_spectrum "
+        + ", ".join(f"k={k}: {d} distinct, {u} unique of {t}"
+                    for k, (d, u, t) in ev["spectrum"].items())
+        + f"; per_bin_errors of the 2^{idx21.buckets}-bucket table's audit"
+        f" at k={idx21.k} in 2^{EVALX_BINS} bins: p95 |error| "
+        f"{ev['p95']:.1f}, max {ev['max_abs']}; "
+        f"{ev['seconds']:.1f} s")
+    # the gather microbenchmark, every mode, each operand freed before
+    # the next
+    run_modes(GATHER_N, GATHER_LANES, GATHER_ITERS, MODES, (GATHER_GB,),
+              dev, log=lambda m: log(f"gather: {m}"))
+    for lanes in GATHER_SWEEP_LANES:
+        run_modes(GATHER_N, lanes, GATHER_ITERS, ("randref",), (GATHER_GB,),
+                  dev, log=lambda m, n=lanes: log(f"gather {n} lanes: {m}"))
+    log(f"last modules: phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def run_phases(td: str, scale, sm_clock_mhz: float):
-    """Phases 2 (after start_scale_build) to 10 in `td`; each logs its
+    """Phases 2 (after start_scale_build) to 11 in `td`; each logs its
     line. Returns phase 3's kernel results and phase 4's aligner
     results, which the kernels line reads."""
     import torch
@@ -1142,6 +1265,9 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 10. sharded serving in spawned ranks
     _p10_log(multi_rank_phase(td, idx16, idx21, qr, sc, nn), qr, sc)
+
+    # 11. profiling, evalx, the gather microbenchmark
+    last_modules_phase(dev, seq, idx21, td, al)
     return kp, al
 
 

@@ -188,6 +188,25 @@ def _reverse_prefixes(query, ref, q_end, r_end):
     return q_rev, r_rev
 
 
+def _ssw_pass(query, qlen, ref, rlen, terminate, score=None, **kw):
+    """sw_pass_cuda as ssw_align splits it between its byte and word
+    kernels (ssw.c:835-841): pad 16 on every lane, then pad 8 with the
+    word kernel's inclusive second-best edge on the lanes whose score
+    overflows a byte (score + mismatch >= 255), whose fields the rerun
+    replaces. `score` is the forward score that decides the split (a
+    reverse pass's); without it, this pass's own. kw: match, mismatch,
+    gap_open, gap_extend, mask_len."""
+    out = sw_pass_cuda(query, qlen, ref, rlen, terminate, pad_to=16, **kw)
+    s = out["score"] if score is None else score
+    rows = torch.nonzero(s + kw["mismatch"] >= 255).squeeze(1)
+    if rows.numel():
+        sub = sw_pass_cuda(query[rows], qlen[rows], ref[rows], rlen[rows],
+                           terminate[rows], pad_to=8, second_inclusive=True,
+                           **kw)
+        out = {k: v.index_put((rows,), sub[k]) for k, v in out.items()}
+    return out
+
+
 def sw_align_ends(query, qlen, ref, rlen, *, match=2, mismatch=2,
                   gap_open=3, gap_extend=1, mask_len=15):
     """Forward + reverse passes: full ssw_align endpoint semantics
@@ -204,31 +223,9 @@ def sw_align_ends(query, qlen, ref, rlen, *, match=2, mismatch=2,
     qlen, rlen = _lens(qlen), _lens(rlen)
     kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
               gap_extend=gap_extend, mask_len=mask_len)
-    no_term = torch.full_like(qlen, -1)
-
-    fwd = sw_pass_cuda(query, qlen, ref, rlen, no_term, pad_to=16, **kw)
-    overflow = fwd["score"] + mismatch >= 255
-    any_overflow = bool(overflow.any())
-    if any_overflow:
-        fw = sw_pass_cuda(query, qlen, ref, rlen, no_term, pad_to=8,
-                          second_inclusive=True, **kw)
-        fwd = {k: torch.where(overflow, fw[k], v) for k, v in fwd.items()}
-
-    # reverse pass: reversed query prefix [0..read_end] vs reversed ref
-    # prefix [0..ref_end], terminate at the forward score (ssw.c:860-875)
-    q_end, r_end = fwd["read_end"], fwd["ref_end"]
-    q_rev, r_rev = _reverse_prefixes(query, ref, q_end.long(), r_end.long())
-    qlen_rev, rlen_rev = _lens(q_end + 1), _lens(r_end + 1)
-    term = fwd["score"].contiguous()
-    rev = sw_pass_cuda(q_rev, qlen_rev, r_rev, rlen_rev, term, pad_to=16,
-                       **kw)
-    if any_overflow:
-        rv = sw_pass_cuda(q_rev, qlen_rev, r_rev, rlen_rev, term, pad_to=8,
-                          second_inclusive=True, **kw)
-        rev = {k: torch.where(overflow, rv[k], v) for k, v in rev.items()}
+    fwd = _ssw_pass(query, qlen, ref, rlen, torch.full_like(qlen, -1), **kw)
     out = dict(fwd)
-    out["ref_begin"] = r_end - rev["ref_end"]
-    out["read_begin"] = q_end - rev["read_end"]
+    out.update(sw_align_begins(query, qlen, ref, rlen, fwd, **kw))
     return out
 
 
@@ -350,14 +347,8 @@ def sw_align_begins(query, qlen, ref, rlen, fwd_rows, *, match=2,
     kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
               gap_extend=gap_extend, mask_len=mask_len)
     q_rev, r_rev = _reverse_prefixes(query, ref, q_end.long(), r_end.long())
-    qlen_rev, rlen_rev = _lens(q_end + 1), _lens(r_end + 1)
-    rev = sw_pass_cuda(q_rev, qlen_rev, r_rev, rlen_rev, score, pad_to=16,
-                       **kw)
-    overflow = score + mismatch >= 255
-    if bool(overflow.any()):
-        rv = sw_pass_cuda(q_rev, qlen_rev, r_rev, rlen_rev, score, pad_to=8,
-                          second_inclusive=True, **kw)
-        rev = {k: torch.where(overflow, rv[k], v) for k, v in rev.items()}
+    rev = _ssw_pass(q_rev, _lens(q_end + 1), r_rev, _lens(r_end + 1), score,
+                    score=score, **kw)
     return {
         "ref_begin": r_end - rev["ref_end"],
         "read_begin": q_end - rev["read_end"],

@@ -56,6 +56,60 @@ def load_aligner_index(path: str, device) -> SaplingIndex:
     return idx
 
 
+def aligner_index(n: int, path: str, device) -> SaplingIndex:
+    """The aligner artifact at `path` (load_aligner_index), or, without
+    one, an index of benchmark_genome(n) below 1 Gbp built here and saved
+    there first."""
+    if os.path.exists(path):
+        return load_aligner_index(path, device)
+    if n > 1_000_000_000:
+        raise SystemExit(
+            f"no aligner index at {path}; build it first:\n  python -m "
+            f"sapling_tpu_torch.tools.build_big_index n={n} k=16 nb=26 "
+            f"aligner=1 out={path}")
+    idx = SaplingIndex.build(benchmark_genome(n), IndexConfig(k=16),
+                             device=device)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    idx.save(path)
+    return idx
+
+
+def simulated_reads(idx: SaplingIndex, n_reads: int, rlen: int,
+                    sub: float):
+    """(reads, true 0-based positions): n_reads reads of rlen bases from
+    the index's genome with `sub` substitutions (seed 42)."""
+    reads_arr, pos, _rc = simulate_reads(decode_bases(idx.codes), n_reads,
+                                         rlen, sub_rate=sub, seed=42)
+    reads = [Read(name=f"r{i}", seq=reads_arr[i].tobytes(), qual="I" * rlen)
+             for i in range(n_reads)]
+    return reads, pos
+
+
+def aligner_pass(aligner, reads, pos, block: int, workers: int,
+                 coalesce: int):
+    """One pass of align_blocks over the reads in blocks of `block`:
+    (host seconds, aligned reads, reads within 10 bp of their truth)."""
+    t0 = time.perf_counter()
+    n_aligned = n_good = ri = 0
+    blocks = (reads[lo : lo + block] for lo in range(0, len(reads), block))
+    for out in aligner.align_blocks(blocks, workers=workers,
+                                    coalesce=coalesce):
+        for ar in out:
+            if ar.aligned:
+                n_aligned += 1
+                if abs(ar.alignment.ref_begin - pos[ri]) <= 10:
+                    n_good += 1
+            ri += 1
+    return time.perf_counter() - t0, n_aligned, n_good
+
+
+def phase_shares(phase_seconds: dict) -> str:
+    tot = sum(phase_seconds.values()) or 1.0
+    return "  ".join(f"{k}={v:.2f}s({100*v/tot:.0f}%)"
+                     for k, v in sorted(phase_seconds.items(),
+                                        key=lambda kv: -kv[1]))
+
+
 def main(argv):
     kv = parse_keyval_args(argv[1:])
     if int(kv.get("ref", 0)):
@@ -72,57 +126,20 @@ def main(argv):
     path = kv.get("index", os.path.join(CACHE, f"align_{n}_k16.stpu.npz"))
 
     t0 = time.time()
-    if os.path.exists(path):
-        idx = load_aligner_index(path, device)
-    else:
-        if n > 1_000_000_000:
-            raise SystemExit(
-                f"no aligner index at {path}; build it first:\n  python -m "
-                f"sapling_tpu_torch.tools.build_big_index n={n} k=16 nb=26 "
-                f"aligner=1 out={path}")
-        idx = SaplingIndex.build(benchmark_genome(n), IndexConfig(k=16),
-                                 device=device)
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        idx.save(path)
+    idx = aligner_index(n, path, device)
     print(f"index ready ({time.time()-t0:.1f}s, n={idx.n:,}, "
           f"buckets=2^{idx.buckets})", flush=True)
-
-    g_ascii = decode_bases(idx.codes)
-    reads_arr, pos, _rc = simulate_reads(g_ascii, n_reads, rlen,
-                                         sub_rate=sub, seed=42)
-    reads = [Read(name=f"r{i}", seq=reads_arr[i].tobytes(), qual="I" * rlen)
-             for i in range(n_reads)]
+    reads, pos = simulated_reads(idx, n_reads, rlen, sub)
     aligner = SeedExtendAligner(idx, AlignerConfig(), device=device)
-
-    def blocks():
-        return (reads[lo : lo + block] for lo in range(0, n_reads, block))
-
-    t0 = time.time()
-    for _ in aligner.align_blocks(blocks(), workers=workers,
-                                  coalesce=coalesce):
-        pass
-    print(f"warm pass {time.time()-t0:.1f}s", flush=True)
+    dt, _, _ = aligner_pass(aligner, reads, pos, block, workers, coalesce)
+    print(f"warm pass {dt:.1f}s", flush=True)
     aligner.phase_seconds.clear()
-    t0 = time.perf_counter()
-    n_aligned = n_good = 0
-    ri = 0
-    for out in aligner.align_blocks(blocks(), workers=workers,
-                                    coalesce=coalesce):
-        for ar in out:
-            if ar.aligned:
-                n_aligned += 1
-                if abs(ar.alignment.ref_begin - pos[ri]) <= 10:
-                    n_good += 1
-            ri += 1
-    dt = time.perf_counter() - t0
+    dt, n_aligned, n_good = aligner_pass(aligner, reads, pos, block,
+                                         workers, coalesce)
     print(f"aligned {n_reads} reads in {dt:.3f}s on {device} -> "
           f"{n_reads/dt:,.1f} reads/s")
     print(f"aligned: {n_aligned}/{n_reads}; within 10bp of truth: {n_good}")
-    tot = sum(aligner.phase_seconds.values()) or 1.0
-    print("phases: " + "  ".join(
-        f"{k}={v:.2f}s({100*v/tot:.0f}%)"
-        for k, v in sorted(aligner.phase_seconds.items(),
-                           key=lambda kv: -kv[1])))
+    print("phases: " + phase_shares(aligner.phase_seconds))
     return 0
 
 

@@ -22,9 +22,11 @@ the fast3 path) and cached as <cache>/bench_<n>_k21.stpu.npz (a file of
 that name is loaded as it is). Times are CUDA events around
 SaplingIndex.query_device / binsearch_device on prepared inputs
 (utils.timing.timed); 100,000 sampled positions are self-checked and,
-at lengths >= k, must all verify. Writes <out>/results.json. It writes
-no plots yet: the JAX tool's PNGs come from evalx/plots.py (matplotlib),
-which the port does not have.
+at lengths >= k, must all verify. Writes <out>/results.json, then the
+JAX tool's three plots (timing.png, memory.png, query_length.png,
+evalx/plots.py). The plots need matplotlib: where it is not installed,
+the last line says so and the tool still succeeds (the results are
+written first).
 """
 
 from __future__ import annotations
@@ -122,7 +124,31 @@ def main(argv):
     path = os.path.join(out_dir, "results.json")
     with open(path, "w") as f:
         json.dump(results, f, indent=1)
-    print(f"wrote {path} (no plots)")
+    try:
+        from ..evalx import plots
+    except ModuleNotFoundError as e:
+        if e.name != "matplotlib":
+            raise
+        print(f"wrote {path}; no plots: matplotlib is not installed")
+        return 0
+    ns = [r["n"] for r in results["sizes"]]
+    plots.timing_plot(
+        ns,
+        {f"port ({device.type})": [r["plquery_qps"]
+                                   for r in results["sizes"]],
+         f"binary search ({device.type})": [r["binsearch_qps"]
+                                            for r in results["sizes"]]},
+        os.path.join(out_dir, "timing.png"))
+    plots.memory_plot(
+        [f"{r['n']/1e6:.0f}Mbp" for r in results["sizes"]],
+        [r["memory"]["total_bytes"] / 1e9 for r in results["sizes"]],
+        os.path.join(out_dir, "memory.png"))
+    pts = results["qlen_sweep"]["points"]
+    plots.query_length_plot(
+        [p["qlen"] for p in pts],
+        {f"port ({device.type})": [p["plquery_qps"] for p in pts]},
+        os.path.join(out_dir, "query_length.png"))
+    print(f"wrote {path} + plots")
     return 0
 
 

@@ -22,9 +22,13 @@ for name in names:
 tools = ("sapling_example", "binarysearch", "build_big_index",
          "retable_index", "swap_table_artifact", "add_bucket_bounds",
          "bench_query_scale", "bench_align", "bench_sweep", "nn_pipeline",
-         "bench_nn_query", "query_big_split")
+         "bench_nn_query", "query_big_split", "bench_align_ab",
+         "gen_perf_table", "ref_to_suffix_array", "microbench_gather")
+evalx = ("memory", "sa_sample", "kmer_stats", "bins", "alignment_quality",
+         "plots")
 assert {f"sapling_tpu_torch.tools.{t}" for t in tools} | {
-    "sapling_tpu_torch.evalx.memory", "sapling_tpu_torch.evalx.sa_sample",
+    f"sapling_tpu_torch.evalx.{e}" for e in evalx} | {
+    "sapling_tpu_torch.utils.profiling",
     "sapling_tpu_torch.models.residual",
     "sapling_tpu_torch.models.serve", "sapling_tpu_torch.graft_entry",
     "sapling_tpu_torch.parallel.mesh", "sapling_tpu_torch.parallel.query",

@@ -153,3 +153,51 @@ def test_winner_from_genome_matches_jax():
     for k in sw.WINNER_FIELDS:
         np.testing.assert_array_equal(tf[k][has], np.asarray(jf[k])[has],
                                       err_msg=k)
+
+
+def _genome_candidates(rng, n, w, c, exact_len):
+    """A packed genome and c candidate rows against it (the winner
+    program's inputs but cand_rd): every entry is a read cut from the
+    genome, a third of them exact over their first `exact_len` bases, the
+    rest with 3 substitutions; windows hold the read's locus, or another
+    one."""
+    codes = rng.integers(0, 4, n).astype(np.uint8)
+    packed = pack_codes(codes, pad_words=16)
+    ne = 12
+    starts = rng.integers(8, n - w - 8, ne)
+    codes_mat = codes[starts[:, None] + np.arange(w)].copy()
+    lens = rng.integers(w - 30, w + 1, ne)
+    lens[::3] = np.maximum(lens[::3], exact_len)
+    for e in range(ne):
+        if e % 3:
+            codes_mat[e, rng.integers(0, w, 3)] = rng.integers(0, 4, 3)
+        codes_mat[e, lens[e]:] = 0
+    cand_ei = rng.integers(0, ne, c)
+    qlen = lens[cand_ei].astype(np.int32)
+    lo = np.where(rng.random(c) < 0.7, starts[cand_ei] - 2,
+                  rng.integers(0, n - w - 8, c))
+    rlen = (qlen + 4).astype(np.int32)
+    return packed, codes_mat, cand_ei, qlen, lo, rlen
+
+
+def test_winner_from_genome_overflow_matches_jax():
+    """The aligner's device program where winners score past a byte
+    (candidates of >= 127 exact bases): win and every pad-16 winner field
+    equal to JAX's, on the overflowing reads as on the others."""
+    rng = np.random.default_rng(23)
+    packed, codes_mat, cand_ei, qlen, lo, rlen = _genome_candidates(
+        rng, 5000, 150, 120, exact_len=140)
+    nr = 40
+    cand_rd = np.sort(rng.integers(0, nr, 120))
+    jwin, jf = jsw.sw_align_winner_from_genome(
+        packed, codes_mat, cand_ei, qlen, lo, rlen, cand_rd, nr)
+    twin, tf = sw.sw_align_winner_from_genome(
+        torch.from_numpy(packed.astype(np.int64)),
+        torch.from_numpy(codes_mat), cand_ei, qlen, lo, rlen, cand_rd, nr)
+    np.testing.assert_array_equal(twin, jwin)
+    has = jwin < len(cand_ei)
+    over = np.asarray(jf["score"])[has] + 2 >= 255
+    assert over.any() and not over.all()
+    for k in sw.WINNER_FIELDS:
+        np.testing.assert_array_equal(tf[k][has], np.asarray(jf[k])[has],
+                                      err_msg=k)

@@ -1,9 +1,12 @@
 """The port's CLI twins of tools/sapling_example.py,
 tools/binarysearch.py, tools/bench_query_scale.py, tools/bench_align.py,
-tools/bench_sweep.py and tools/query_big_split.py run on the CPU and
-self-check every answer (query_big_split's as JAX's tool does); the
-sapling_example twin's sapFn/errFn dumps equal the JAX package's; the
-TPU-only flags of bench_query_scale and bench_align's ref=1 are refused.
+tools/bench_align_ab.py, tools/bench_sweep.py and tools/query_big_split.py
+run on the CPU and self-check every answer (query_big_split's as JAX's
+tool does); the sapling_example twin's sapFn/errFn dumps and the
+ref_to_suffix_array twin's .ref/.sa bytes equal the JAX package's; the
+microbench_gather twin runs every mode and gen_perf_table rewrites its
+README block; the TPU-only flags of bench_query_scale, bench_align's
+ref=1 and bench_align_ab's seedcu are refused.
 """
 
 import json
@@ -20,9 +23,11 @@ from sapling_tpu.ops.pack import kmers_scan
 from sapling_tpu.ops.predict import predict_pwl_f64
 from sapling_tpu_torch.io.fasta import write_fasta
 from sapling_tpu_torch.sim.genomes import benchmark_genome
-from sapling_tpu_torch.tools import (bench_align, bench_query_scale,
-                                     bench_sweep, binarysearch,
-                                     build_big_index, query_big_split,
+from sapling_tpu_torch.tools import (bench_align, bench_align_ab,
+                                     bench_query_scale, bench_sweep,
+                                     binarysearch, build_big_index,
+                                     gen_perf_table, microbench_gather,
+                                     query_big_split, ref_to_suffix_array,
                                      retable_index, sapling_example)
 
 _CORRECT = re.compile(r"correctness: (\d+) out of (\d+)")
@@ -143,7 +148,21 @@ def test_bench_align(artifacts_dir, capsys):
     assert "ref=1" in str(e.value.code)
 
 
-def test_bench_sweep(tmp_path, capsys):
+def _without_matplotlib(monkeypatch):
+    """Imports of matplotlib fail, as on the card's machine."""
+    import sys
+
+    import sapling_tpu_torch.evalx as evalx
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, "sapling_tpu_torch.evalx.plots",
+                        raising=False)
+    monkeypatch.delattr(evalx, "plots", raising=False)
+
+
+def _bench_sweep(tmp_path, capsys):
+    """The twin at a tiny size: results.json and the printed self-checks;
+    returns the PNGs written and the last line printed."""
     argv = ["bs", "sizes=100000,150000", "nq=3000", f"cache={tmp_path}",
             f"out={tmp_path / 'out'}", "device=cpu"]
     assert bench_sweep.main(argv) == 0
@@ -157,7 +176,31 @@ def test_bench_sweep(tmp_path, capsys):
     for p in res["sizes"] + [p for p in points if p["qlen"] >= 21]:
         good, total = p["self_check"].split("/")
         assert good == total, p
-    assert "self_check" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "self_check" in out
+    return ({p.name for p in (tmp_path / "out").glob("*.png")},
+            out.strip().splitlines()[-1])
+
+
+def test_bench_sweep(tmp_path, capsys):
+    """results.json, then the JAX tool's three plots where matplotlib is
+    installed."""
+    pngs, last = _bench_sweep(tmp_path, capsys)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        assert not pngs and "matplotlib is not installed" in last, last
+    else:
+        assert pngs == {"timing.png", "memory.png", "query_length.png"}
+        assert last.endswith("+ plots"), last
+
+
+def test_bench_sweep_without_matplotlib(tmp_path, capsys, monkeypatch):
+    """Without matplotlib the last line says so, no plot is written and
+    the tool still succeeds."""
+    _without_matplotlib(monkeypatch)
+    pngs, last = _bench_sweep(tmp_path, capsys)
+    assert not pngs and "matplotlib is not installed" in last, last
 
 
 def test_query_big_split(tmp_path, capsys):
@@ -191,3 +234,93 @@ def test_query_big_split(tmp_path, capsys):
     for key in ("self-check: ", "positions with hi limb nonzero: "):
         line = [ln for ln in ours.splitlines() if ln.startswith(key)]
         assert line and line[0] in theirs.splitlines(), (line, theirs)
+
+
+def test_bench_align_ab(artifacts_dir, capsys):
+    argv = ["bab", "n=200000", "reads=200", "repeats=1",
+            "configs=base,block32k,coalesce4",
+            f"index={artifacts_dir / 'a.stpu.npz'}", "device=cpu"]
+    assert bench_align_ab.main(argv) == 0
+    out = capsys.readouterr().out
+    for name in ("base", "block32k", "coalesce4"):
+        m = re.search(rf"\[{name}\] [\d,.]+ reads/s on cpu \(median of 1: "
+                      r".*; (\d+) aligned, (\d+) within 10bp\)", out)
+        assert m and int(m[1]) >= 190 and int(m[2]) >= 150, out
+    assert out.strip().splitlines()[-1].startswith("A/B: base:")
+    for bad in ("seedcu", "base,nope"):
+        with pytest.raises(SystemExit):
+            bench_align_ab.main(["bab", f"configs={bad}", "device=cpu"])
+
+
+def test_ref_to_suffix_array_matches_jax(fasta, tmp_path, capsys):
+    """The .ref and .sa bytes equal the JAX tool's; existing outputs are
+    skipped."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "tools"))
+    import ref_to_suffix_array as jax_tool
+
+    ours, theirs = str(tmp_path / "ours"), str(tmp_path / "theirs")
+    assert ref_to_suffix_array.main(["r2sa", fasta, ours]) == 0
+    assert jax_tool.main(["r2sa", fasta, theirs]) == 0
+    for ext in (".ref", ".sa"):
+        with open(ours + ext, "rb") as a, open(theirs + ext, "rb") as b:
+            assert a.read() == b.read(), ext
+    capsys.readouterr()
+    with open(ours + ".ref", "wb") as f:
+        f.write(b"kept")
+    assert ref_to_suffix_array.main(["r2sa", fasta, ours]) == 0
+    out = capsys.readouterr().out
+    assert f"skip {ours}.ref (exists)" in out
+    assert f"skip {ours}.sa (exists)" in out
+    with open(ours + ".ref", "rb") as f:
+        assert f.read() == b"kept"
+
+
+def test_microbench_gather(capsys):
+    """Every mode at a tiny size on the CPU: one line each, the chains'
+    indexes kept inside their operands."""
+    argv = ["mg", "n=300000", "lanes=2000", "iters=3", "gb=0.001,0.002",
+            "device=cpu"]
+    assert microbench_gather.main(argv) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    names = [ln.split()[0] for ln in lines]
+    assert names == ["halves", "rev2d", "words32", "words64", "argsort64",
+                     "argsort32", "rand", "sort", "rand", "sort"], lines
+    assert all("M lanes/s" in ln for ln in lines)
+    assert sum("GB/s of 32-byte sectors" in ln for ln in lines) == 8
+    with pytest.raises(SystemExit):
+        microbench_gather.main(["mg", "which=halves,flat", "device=cpu"])
+
+
+def test_gen_perf_table(tmp_path, capsys):
+    """A copy of README.md: the perf-torch block is rewritten from
+    docs/measured_torch.json, the TPU block and the rest stay."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "README.md")) as f:
+        src = f.read()
+    data_path = os.path.join(root, "docs", "measured_torch.json")
+    with open(data_path) as f:
+        data = json.load(f)
+    begin, end = "<!-- perf-torch:begin -->\n", "<!-- perf-torch:end -->"
+    head, rest = src.split(begin)
+    _old, tail = rest.split(end)
+    readme = tmp_path / "README.md"
+    readme.write_text(head + begin + "stale\n" + end + tail)
+    argv = ["gpt", f"readme={readme}", f"data={data_path}"]
+    assert gen_perf_table.main(argv) == 0
+    got = readme.read_text()
+    assert got == head + begin + gen_perf_table.table(data) + "\n" + end \
+        + tail
+    assert got == src              # README.md holds the generated block
+    block = gen_perf_table.table(data)
+    assert data["measured_on"] in block and "NVIDIA H100" in block
+    for row in data["scales"]:
+        assert row["label"] in block
+    readme.write_text("no markers\n")
+    with pytest.raises(SystemExit):
+        gen_perf_table.main(argv)
