@@ -31,7 +31,8 @@ and queries (same seeds) and measures:
            query_positions as a user calls it (host clock);
   sweep:   chip_smoke.py's length sweep (11 ... 101) on the k=21 index as
            built and without prefix arrays, three CUDA-event timings each,
-           and one profiled call per index at lengths 21 and 101;
+           the kernel's rounds (stats=True), and one profiled call per
+           index at lengths 21 and 101;
   baselines: the plain and the llcp/rlcp-pruned binary search on the
            21-base queries, three timings and one profiled call each.
 
@@ -354,7 +355,7 @@ def sweep_times(dev, idx21) -> list[dict]:
             didx = idx.to(dev)
             inputs = didx.query_inputs(codes)
             query.ROUNDS.update(C=0, D=0)
-            didx.query_device(*inputs, length)
+            didx.query_device(*inputs, length, stats=True)
             r = dict(form=cs._probe_form(idx, length),
                      rounds=dict(query.ROUNDS),
                      ms=[cs._time_ms(lambda: didx.query_device(

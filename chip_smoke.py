@@ -14,7 +14,8 @@ failure raises and the script exits non-zero:
   2. build: a 4.6 Mbp benchmark genome (15% duplications and tandem
      repeats), ONE suffix array, a k=16 aligner index and a k=21 query
      index on the host (before CUDA starts: the host build may fork), then
-     the SW kernels (nvcc, sm_90a); beside them, in a child process started
+     the kernels, csrc/sw.cu and csrc/query.cu (one nvcc each, sm_90a, at
+     once); beside them, in a child process started
      first, phase 8's artifact: the port's build_big_index at SCALE_N
      bases (k=21, 2^SCALE_NB buckets, bounds, no prefix arrays, no stage
      cache) into a temporary directory, then its retable_index to
@@ -24,9 +25,23 @@ failure raises and the script exits non-zero:
      reads padded to 112 rows, 128-base windows, ragged lengths, related
      lanes), pad 16 and pad 8 + second_inclusive, full and score-only,
      and terminate: every field must be equal; the score-only kernel
-     also at one aligner block's candidate sweep (163,840 pairs), and both
-     modes at 1,500-base reads (1,024 pairs, two row tiles of 1,024 rows);
-     CUDA-event times of both, beside each one's bound (sw_bound_ms);
+     also at one aligner block's candidate sweep (163,840 pairs), both
+     modes at 1,500-base reads (1,024 pairs, two row tiles of 1,024 rows),
+     and the full mode past the int32 key (SW_KEY64: a best score past
+     2^21, the int64-key instantiation); CUDA-event times of both, beside
+     each one's bound (sw_bound_ms);
+  3b. query kernels vs plain: on the same CUDA tensors, 1,000,000 lanes a
+     case, plquery_cuda must equal the plain plquery_batch on every lane,
+     and the kernel's stats rounds the plain path's ROUNDS: every probe form
+     at QK_LENGTHS on the k=21 index as built and without prefix arrays;
+     an int64 copy of rev, adaptive bounds, a pred64 moved by up to
+     QK_SHIFT ranks, and that with the stride cap QK_STRIDE_CAP, at
+     QK_OPTION_LENGTHS; phase 8's artifact at SCALE_LENGTHS; and
+     binsearch_cuda against binsearch_batch on phase 5's queries. Each
+     case prints the kernel's CUDA-event time, the plain path's, the
+     kernel's launches and its bound (query_bound_ms: the distinct 32-byte
+     sectors its lanes read, from its sector trace, and the coalesced
+     inputs and output, over HBM_BYTES_PER_S);
   4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
      SAM on the card; the first 1,000 reads' SAM must be byte-identical to
      the port's CPU path, and both SW kernel modes must have launched;
@@ -45,7 +60,8 @@ failure raises and the script exits non-zero:
      reference's algorithm does not promise it), the two indexes must
      agree on every lane and the first 100,000 positions must equal the
      CPU path's;
-     CUDA-event times, phase D bisection rounds and phase C stride steps;
+     CUDA-event times, phase D bisection rounds and phase C stride steps
+     (the kernel's stats);
   7. baselines: the plain and the llcp/rlcp-pruned binary search on phase
      5's queries; in-genome queries must self-check and the first 100,000
      positions must equal the CPU path's.
@@ -100,6 +116,10 @@ failure raises and the script exits non-zero:
      sorted at GATHER_GB GB, then randref again at each of
      GATHER_SWEEP_LANES lanes.
 
+Phases 4 to 9 each count the query kernels' launches over their main call
+(`counted`): each must launch its kernel (the pruned binary search has
+none), and no plain cascade may run a host round there.
+
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
 """
@@ -150,12 +170,26 @@ MULTI_TIMEOUT = 300
 # phase 11: the gather microbenchmark's operands (the rev halves and 2D
 # layouts hold GATHER_N entries, 8.8 GB) and lanes
 GATHER_N, GATHER_LANES = 2_200_000_000, 5_000_000
-GATHER_ITERS, GATHER_GB = 8, 12.4
+GATHER_ITERS, GATHER_GB = 4, 12.4
 # phase 11: randref's lane counts past GATHER_LANES (more gathers in
 # flight)
 GATHER_SWEEP_LANES = (50_000_000, 200_000_000)
 # phase 11: the bins of evalx.bins.per_bin_errors' per-bin statistics
 EVALX_BINS = 16
+# phase 3b: the query kernels against the plain cascade on the card, at
+# phase 5's query count: these lengths on the k=21 index as built and
+# without prefix arrays; the options at QK_OPTION_LENGTHS; pred64 moved by
+# up to QK_SHIFT ranks; the stride cap QK_STRIDE_CAP
+QK_LENGTHS = (11, 16, 21, 31, 41, 51, 101)
+QK_OPTION_LENGTHS = (21, 41)
+QK_SHIFT, QK_STRIDE_CAP = 300, 2
+# the sector numbers a lane records for the bound (a lane that touches more
+# records the first QK_TRACE: the distinct count stays a lower bound)
+QK_TRACE = 128
+# phase 3: a full-mode SW batch whose H passes 2^21, past the int32 key
+# (the int64-key instantiation): SW_KEY64 pairs of SW_KEY64_W bases in
+# windows as long, match SW_KEY64_MATCH
+SW_KEY64, SW_KEY64_W, SW_KEY64_MATCH = 6, 1_100, 3_000
 # the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
 # and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
 # pipes together); HBM bytes/s
@@ -206,6 +240,26 @@ def without_prefix(idx):
     yet (as an index above IndexConfig.prefix_max_n is built): every probe
     reads the packed genome."""
     return dataclasses.replace(idx, prefix64=None, prefix3=None, _device={})
+
+
+def counted(fn, want: str | None = "plquery"):
+    """fn() with the query kernels' launch counts (ops.query_cuda.LAUNCHES)
+    and the plain cascade's host loop rounds (ops.query.ROUNDS) set to 0
+    just before it and read just after: (result, launches, rounds). With
+    `want`, fail unless that kernel launched and no plain cascade looped
+    (a plain plquery or binary search of a real batch runs host rounds;
+    the kernels add to ROUNDS only when asked for stats)."""
+    from sapling_tpu_torch.ops import query, query_cuda
+
+    for k in query_cuda.LAUNCHES:
+        query_cuda.LAUNCHES[k] = 0
+    query.ROUNDS.update(C=0, D=0)
+    out = fn()
+    launches, rounds = dict(query_cuda.LAUNCHES), dict(query.ROUNDS)
+    if want and (launches[want] == 0 or any(rounds.values())):
+        raise AssertionError(f"{want} kernel not on the path: launches "
+                             f"{launches}, plain rounds {rounds}")
+    return out, launches, rounds
 
 
 def _time_ms(fn, dev, reps: int = 10, warm: int = 2) -> float:
@@ -354,9 +408,156 @@ def kernel_vs_plain(dev, sm_clock_mhz: float) -> dict:
         bound = sw_bound_ms(qlen, rlen, w, r, 1 if so else 5, sm_clock_mhz)
         out[mode][f"w{w}"] = dict(ms=ms, bound_ms=bound["bound_ms"],
                                   pct_of_bound=100 * bound["bound_ms"] / ms)
+    del q, qlen, ref, rlen, no_term, term
+
+    # the full mode past the int32 key: the int64-key instantiation
+    w = SW_KEY64_W
+    q, qlen, ref, rlen = sw_batch(dev, SW_KEY64, w, w)
+    no_term = torch.full((SW_KEY64,), -1, dtype=torch.int32, device=dev)
+    kw = dict(match=SW_KEY64_MATCH)
+    best = int(sw_pass(q, qlen, ref, rlen, no_term, **kw)["score"].max())
+    if best < 1 << 21:
+        raise AssertionError(f"the int64-key batch scores {best} < 2^21")
+    check(f"int64 key W=R={w}", q, qlen, ref, rlen, no_term,
+          [(f"match={SW_KEY64_MATCH}", no_term, kw)])
+    out["full"]["key64"] = dict(pairs=SW_KEY64, w=w, best=best)
     out["full"]["max_abs_err"] = err["full"]
     out["score_only"]["max_abs_err"] = err["score_only"]
     return out
+
+
+def query_bound_ms(sectors: int, b: int, lane_bytes: int) -> float:
+    """The least time of a query kernel call: the distinct 32-byte sectors
+    of the index arrays its lanes read (counted from the kernel's sector
+    trace: each read once), and lane_bytes a lane of coalesced inputs and
+    output read or written once, over HBM_BYTES_PER_S."""
+    return (32 * sectors + b * lane_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
+    """One kernel-vs-plain case on the card: kernel() (which passes its
+    keywords, stats and trace, to the wrapper) and plain() on the
+    same CUDA tensors must agree on every lane, and the kernel's stats
+    rounds must equal the plain path's ROUNDS. Returns the kernel's and the
+    plain path's CUDA-event times, the kernel's launches a call, its bound
+    (query_bound_ms over the distinct sectors of its trace), the sectors
+    its lanes touched in all, and the rounds."""
+    import numpy as np
+    import torch
+
+    from sapling_tpu_torch.ops import query, query_cuda
+
+    query.ROUNDS.update(C=0, D=0)
+    want = plain()
+    rounds = dict(query.ROUNDS)
+    query.ROUNDS.update(C=0, D=0)
+    launches = query_cuda.LAUNCHES.copy()
+    got = kernel(stats=True, trace=QK_TRACE)
+    launched = sum(query_cuda.LAUNCHES.values()) - sum(launches.values())
+    st = dict(query_cuda.LAST_STATS)
+    tr = st.pop("trace")
+    distinct = int(torch.unique(tr[tr >= 0]).numel())
+    over = int((st["sectors"] > QK_TRACE).sum())
+    del tr
+    if not np.array_equal(got.cpu().numpy(), want.cpu().numpy()):
+        raise AssertionError(f"query kernel != plain: {name}: "
+                             f"{int((got != want).sum())} of {b} lanes differ")
+    if dict(query.ROUNDS) != rounds:
+        raise AssertionError(f"query kernel rounds {dict(query.ROUNDS)} != "
+                             f"the plain path's {rounds}: {name}")
+    ms = _time_ms(kernel, dev, reps=10, warm=2)
+    bound = query_bound_ms(distinct, b, lane_bytes)
+    return dict(name=name, ms=ms, plain_ms=_time_ms(plain, dev, reps=3,
+                                                     warm=1),
+                launches=launched, bound_ms=bound, pct_of_bound=100 * bound
+                / ms, sectors=int(st["sectors"].sum()), distinct=distinct,
+                over=over, probes=int(st["probes"].sum()), rounds=rounds,
+                max_abs_err=0)
+
+
+def query_kernel_phase(dev, idx21, art: str) -> list[dict]:
+    """Phase 3b: the query kernels against the plain cascade on the card,
+    each case on the same CUDA tensors (_kernel_case): plquery at
+    QK_LENGTHS on the k=21 index as built and without prefix arrays (every
+    probe form); an int64 copy of rev; adaptive bounds; a pred64 moved by
+    up to QK_SHIFT ranks, also with the stride cap QK_STRIDE_CAP; phase
+    8's artifact at SCALE_LENGTHS; and the binary search."""
+    import numpy as np
+    import torch
+
+    from sapling_tpu_torch.ops import query, query_cuda
+    from sapling_tpu_torch.ops.predict import predict_pwl
+    from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
+
+    rows = []
+
+    def plquery_cases(tag, idx, length, codes=None, shift=0, **over):
+        if codes is None:
+            codes, _n_in = query_codes(idx.codes, length)
+        d = idx.device_arrays()
+        x, q3, q_words = idx.query_inputs(codes)
+        t = idx.table
+        kw = dict(n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
+                  most_over=t.most_over, most_under=t.most_under,
+                  max_over=t.max_over, max_under=t.max_under)
+        kw.update(over)
+        if shift:
+            rng = np.random.default_rng(SEED + length)
+            pred = predict_pwl(x, d["xlist"], d["ylist"], 2 * idx.k,
+                               idx.buckets, idx.n)
+            kw["pred64"] = torch.clamp(pred + torch.from_numpy(
+                rng.integers(-shift, shift + 1, len(codes))).to(dev), 0,
+                idx.n - 1)
+        args = (d["packed"], d["rev"], d["xlist"], d["ylist"], q_words, x,
+                d["prefix64"], d["prefix3"], q3, d["bounds"])
+        form = query_cuda.probe_form(length, idx.k, d["prefix64"],
+                                     d["prefix3"], q3)
+        lane_bytes = 16 + (8 if form == "fast3" else 8 * q_words.shape[0]) \
+            + (8 if shift else 0)
+        row = _kernel_case(
+            dev, f"{tag} L={length} {form}",
+            lambda **st: query_cuda.plquery_cuda(*args, **st, **kw),
+            lambda: query.plquery_batch(*args, **kw), lane_bytes,
+            len(codes))
+        rows.append(dict(row, kernel="plquery", length=length, form=form))
+
+    bare = without_prefix(idx21)
+    for length in QK_LENGTHS:
+        codes, _n_in = query_codes(idx21.codes, length)
+        for tag, idx in (("built", idx21), ("no_prefix", bare)):
+            plquery_cases(tag, idx.to(dev), length, codes)
+    rev64 = dataclasses.replace(idx21, rev=idx21.rev.astype(np.int64),
+                                _device={}).to(dev)
+    cap = QK_STRIDE_CAP
+    for length in QK_OPTION_LENGTHS:
+        plquery_cases("int64 rev", rev64, length)
+        plquery_cases("adaptive", idx21.to(dev), length,
+                      adaptive_bounds=True)
+        plquery_cases(f"pred64 +-{QK_SHIFT}", idx21.to(dev), length,
+                      shift=QK_SHIFT)
+        plquery_cases(f"pred64 +-{QK_SHIFT} stride cap {cap}",
+                      idx21.to(dev), length, shift=QK_SHIFT,
+                      max_stride_steps=cap)
+    del rev64
+    big = load_for_queries(art, dev)
+    for length in SCALE_LENGTHS:
+        plquery_cases(f"{big.n} bp", big, length)
+    del big
+
+    didx = idx21.to(dev)
+    d = didx.device_arrays()
+    codes, _n_in = query_codes(idx21.codes)
+    qw = didx.query_words(codes)
+    kw = dict(n=didx.n, length=QUERY_LEN)
+    row = _kernel_case(
+        dev, f"binary search L={QUERY_LEN}",
+        lambda **st: query_cuda.binsearch_cuda(d["packed"], d["rev"], qw,
+                                               **st, **kw),
+        lambda: query.binsearch_batch(d["packed"], d["rev"], qw, **kw),
+        8 + 8 * qw.shape[0], len(codes))
+    rows.append(dict(row, kernel="binsearch", length=QUERY_LEN,
+                     form="packed"))
+    return rows
 
 
 def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
@@ -384,7 +585,8 @@ def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
     for k in sw_cuda.LAUNCHES:
         sw_cuda.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    aligner.align_fastq(fq, sam, cl="chip_smoke")
+    _, qlaunch, _ = counted(lambda: aligner.align_fastq(fq, sam,
+                                                        cl="chip_smoke"))
     dt = time.perf_counter() - t0
     launches = dict(sw_cuda.LAUNCHES)
 
@@ -407,7 +609,8 @@ def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
                              device=dev)
     bare_sam = os.path.join(workdir, "bare.sam")
     t0 = time.perf_counter()
-    bare.align_fastq(fq_head, bare_sam, cl="chip_smoke")
+    _, bare_launch, _ = counted(lambda: bare.align_fastq(
+        fq_head, bare_sam, cl="chip_smoke"))
     bare_s = time.perf_counter() - t0
     with open(bare_sam, "rb") as f:
         bare_lines = f.read().split(b"\n")
@@ -427,7 +630,8 @@ def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
             near += abs(int(rec[3]) - 1 - int(true_pos[i])) <= 10
     return dict(reads_per_s=n_reads / dt, seconds=dt, aligned=aligned,
                 near=near, launches=launches, sam_checked=n_check,
-                phases=dict(aligner.phase_seconds), bare_seconds=bare_s)
+                phases=dict(aligner.phase_seconds), bare_seconds=bare_s,
+                query_launches=qlaunch, bare_query_launches=bare_launch)
 
 
 def query_codes(genome_codes, length: int = QUERY_LEN):
@@ -455,7 +659,8 @@ def query_phase(dev, idx21) -> dict:
     codes, n_in = query_codes(idx21.codes)
     didx = idx21.to(dev)
     inputs = didx.query_inputs(codes)
-    pos = didx.query_device(*inputs, length).cpu().numpy()
+    pos, launches, _ = counted(lambda: didx.query_device(*inputs, length))
+    pos = pos.cpu().numpy()
     ok = didx.verify_hits(codes, pos)
     if not ok[:n_in].all():
         raise AssertionError(
@@ -466,7 +671,7 @@ def query_phase(dev, idx21) -> dict:
             f"{int((pos[:n_check] != want).sum())} positions differ from "
             "the CPU path")
     out = dict(self_check=int(ok[:n_in].sum()), in_genome=n_in,
-               random_found=int(ok[n_in:].sum()), pos=pos)
+               random_found=int(ok[n_in:].sum()), pos=pos, launches=launches)
     ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
                   reps=5, warm=1)
     out.update(ms=ms, qps=N_QUERIES / (ms / 1e3))
@@ -497,7 +702,8 @@ def _probe_form(idx, length: int) -> str:
 def sweep_phase(dev, idx21) -> list[dict]:
     """Phase 6: the length sweep on the k=21 index as built and without
     its prefix arrays; per length and index: probe form, CUDA-event ms,
-    q/s, and the host loop rounds of one call (ops.query.ROUNDS)."""
+    q/s, the kernel's launches a call, and the rounds of one call (the
+    kernel's stats: ops.query.ROUNDS)."""
     import numpy as np
 
     from sapling_tpu_torch.ops import query
@@ -511,15 +717,19 @@ def sweep_phase(dev, idx21) -> list[dict]:
         for name, idx in indexes:
             didx = idx.to(dev)
             inputs = didx.query_inputs(codes)
+            pos, launches, _ = counted(
+                lambda: didx.query_device(*inputs, length))
+            pos = pos.cpu().numpy()
             query.ROUNDS.update(C=0, D=0)
-            pos = didx.query_device(*inputs, length).cpu().numpy()
+            didx.query_device(*inputs, length, stats=True)
             rounds = dict(query.ROUNDS)
             ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
                           reps=3, warm=1)
             row[name] = dict(form=_probe_form(idx, length), ms=ms,
                              qps=N_QUERIES / (ms / 1e3),
                              stride_steps=rounds["C"],
-                             bisect_rounds=rounds["D"])
+                             bisect_rounds=rounds["D"],
+                             launches=launches["plquery"])
             got.append(pos)
         want = idx21.query_positions(codes[:N_QUERY_CHECK])
         ok = idx21.verify_hits(codes, got[0])
@@ -559,11 +769,15 @@ def baseline_phase(dev, idx21, tables) -> dict:
               "fancy": lambda c: idx21.query_positions_fancy(c, *tables)}
     out = {}
     for name, run in baseline_runs(didx, codes, tables).items():
-        pos = run().cpu().numpy()
+        # the pruned search stays torch ops (ROADMAP B3): no kernel
+        pos, launches, _ = counted(
+            run, want="binsearch" if name == "binsearch" else None)
+        pos = pos.cpu().numpy()
         _check(name, pos, didx.verify_hits(codes, pos), n_in,
                on_cpu[name](codes[:N_QUERY_CHECK]))
         ms = _time_ms(run, dev, reps=3, warm=1)
-        out[name] = dict(ms=ms, qps=N_QUERIES / (ms / 1e3))
+        out[name] = dict(ms=ms, qps=N_QUERIES / (ms / 1e3),
+                         launches=launches)
     return out
 
 
@@ -635,7 +849,9 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
         for length in SCALE_LENGTHS:
             codes, n_in = query_codes(didx.codes, length)
             inputs = didx.query_inputs(codes)
-            pos = didx.query_device(*inputs, length).cpu().numpy()
+            pos, launches, _ = counted(
+                lambda: didx.query_device(*inputs, length))
+            pos = pos.cpu().numpy()
             ok = didx.verify_hits(codes, pos)
             tag = f"2^{didx.buckets} L={length}"
             _check(tag, pos, ok, n_in,
@@ -648,7 +864,8 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
                                     length=length, ms=ms,
                                     qps=N_QUERIES / (ms / 1e3),
                                     self_check=int(ok[:n_in].sum()),
-                                    in_genome=n_in))
+                                    in_genome=n_in,
+                                    launches=launches["plquery"]))
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     return out
 
@@ -753,11 +970,13 @@ def nn_phase(dev, idx21) -> dict:
     codes, n_in = query_codes(idx21.codes)
     eng = NNQueryEngine(didx, srv)
     inputs = didx.query_inputs(codes)
+    pos, launches, _ = counted(lambda: eng.query_device(*inputs))
+    pos = pos.cpu().numpy()
     query.ROUNDS.update(C=0, D=0)
-    pos = eng.query_device(*inputs).cpu().numpy()
+    eng.query_device(*inputs, stats=True)
     nn_rounds = query.ROUNDS["D"]
     query.ROUNDS.update(C=0, D=0)
-    didx.query_device(*inputs, QUERY_LEN)
+    didx.query_device(*inputs, QUERY_LEN, stats=True)
     pwl_rounds = query.ROUNDS["D"]
     _check("NN engine", pos, didx.verify_hits(codes, pos), n_in,
            NNQueryEngine(idx21, host).query_positions(codes[:N_QUERY_CHECK]))
@@ -770,7 +989,8 @@ def nn_phase(dev, idx21) -> dict:
     ms, pwl_ms = (float(np.median(times[name])) for name in runs)
     out.update(ms=ms, pwl_ms=pwl_ms, qps=N_QUERIES / (ms / 1e3),
                pwl_qps=N_QUERIES / (pwl_ms / 1e3), nn_rounds=nn_rounds,
-               pwl_rounds=pwl_rounds, ratio=pwl_ms / ms, in_genome=n_in)
+               pwl_rounds=pwl_rounds, ratio=pwl_ms / ms, in_genome=n_in,
+               launches=launches)
     out["train_parity"] = nn_train_parity(dev)
     return out
 
@@ -1143,13 +1363,29 @@ def last_modules_phase(dev, seq, idx21, td, al) -> None:
     log(f"last modules: phase 11 took {time.perf_counter() - t0:.1f} s")
 
 
+def build_kernels() -> dict:
+    """Every kernel source of the port built at once, one nvcc each:
+    {source: seconds}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sapling_tpu_torch.ops import query_cuda, sw_cuda
+
+    def build(src):
+        t0 = time.perf_counter()
+        sw_cuda.build_kernel(src)
+        return time.perf_counter() - t0
+
+    srcs = (sw_cuda.SOURCE, query_cuda.SOURCE)
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        return dict(zip((os.path.relpath(s, ROOT) for s in srcs),
+                        pool.map(build, srcs)))
+
+
 def run_phases(td: str, scale, sm_clock_mhz: float):
     """Phases 2 (after start_scale_build) to 11 in `td`; each logs its
-    line. Returns phase 3's kernel results and phase 4's aligner
-    results, which the kernels line reads."""
+    line. Returns phase 3's and 3b's kernel results, phase 4's aligner
+    results and phases 5 and 7, which the kernels line reads."""
     import torch
-
-    from sapling_tpu_torch.ops import sw_cuda
 
     t0 = time.perf_counter()
     seq, idx16, idx21, tables = build_indexes(GENOME_N)
@@ -1157,9 +1393,10 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         "llcp/rlcp tables on the host "
         f"in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    sw_cuda.build_kernel()
-    log(f"build: SW kernels (nvcc sm_90a) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    built = build_kernels()
+    log(f"build: the kernels (nvcc sm_90a, in parallel) in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{s} {sec:.1f} s" for s, sec in built.items()))
     t0 = time.perf_counter()
     finish_scale_build(scale)
     with open(scale[3]) as f:
@@ -1175,6 +1412,7 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
     kp = kernel_vs_plain(dev, sm_clock_mhz)
     sweep = kp["score_only"][f"b{SW_SWEEP}"]
     tiled = {m: kp[m].pop(f"w{SW_TILED_W}") for m in ("full", "score_only")}
+    key64 = kp["full"].pop("key64")
     log("kernel vs plain: all fields equal (pad16, pad8+second_inclusive, "
         f"terminate; full and score-only) at B={SW_BATCH} W={SW_W} R={SW_R}"
         f" and at B={SW_TILED} W={SW_TILED_W} R={SW_TILED_R} (two row "
@@ -1186,7 +1424,24 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"{sweep['bound_ms']:.4f} ms ({sweep['pct_of_bound']:.1f}%); at "
         f"W={SW_TILED_W} " + ", ".join(
             f"{m} {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-            f"({t['pct_of_bound']:.1f}%)" for m, t in tiled.items()))
+            f"({t['pct_of_bound']:.1f}%)" for m, t in tiled.items())
+        + f"; full mode past the int32 key (int64 key) at B={key64['pairs']}"
+        f" W=R={key64['w']} match={SW_KEY64_MATCH}, best score "
+        f"{key64['best']}: all fields equal")
+
+    # 3b. the query kernels vs the plain cascade on the card
+    t0 = time.perf_counter()
+    qk = query_kernel_phase(dev, idx21, scale[1])
+    log(f"query kernel vs plain: phase 3b took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in qk:
+        log(f"query kernel vs plain: {r['kernel']} {r['name']}: "
+            f"{N_QUERIES} lanes equal, rounds {r['rounds']} equal; kernel "
+            f"{r['ms']:.4f} ms ({r['launches']} launch), plain "
+            f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['distinct']} distinct sectors of 32 B of {r['sectors']} "
+            f"the lanes touched, {r['over']} lanes past {QK_TRACE}; "
+            f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it)")
 
     # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines,
     # 8. scale
@@ -1196,22 +1451,24 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
     log(f"aligner: {N_READS} reads in {al['seconds']:.3f} s = "
         f"{al['reads_per_s']:.1f} reads/s; aligned {al['aligned']}, within "
         f"10 bp of truth {al['near']}; first {al['sam_checked']} reads' SAM "
-        f"byte-identical to the CPU path; launches {al['launches']}; "
-        f"phases {json.dumps({k: round(v, 3) for k, v in al['phases'].items()})}")
+        f"byte-identical to the CPU path; launches {al['launches']}, "
+        f"query kernels {al['query_launches']}; phases "
+        f"{json.dumps({k: round(v, 3) for k, v in al['phases'].items()})}")
     if al["aligned"] < 0.9 * N_READS or al["near"] < 0.8 * al["aligned"]:
         raise AssertionError(f"too few good alignments: {al}")
     log(f"aligner without prefix arrays: first {N_SAM_CHECK} reads in "
-        f"{al['bare_seconds']:.3f} s; SAM byte-identical to phase 4's")
+        f"{al['bare_seconds']:.3f} s; SAM byte-identical to phase 4's; "
+        f"query kernels {al['bare_query_launches']}")
     qr = query_phase(dev, idx21)
     log(f"query: {N_QUERIES} 21-base queries in {qr['ms']:.3f} ms = "
         f"{qr['qps']:.1f} q/s; self-check {qr['self_check']}/"
         f"{qr['in_genome']} in-genome; first {N_QUERY_CHECK} positions "
-        "identical to the CPU path")
+        f"identical to the CPU path; query kernels {qr['launches']}")
     for row in sweep_phase(dev, idx21):
         log(f"sweep L={row['length']}: " + "; ".join(
             f"{name} ({r['form']}) {r['ms']:.3f} ms = {r['qps']:.1f} q/s, "
             f"{r['bisect_rounds']} bisection rounds, {r['stride_steps']} "
-            "stride steps" for name, r in row.items()
+            f"stride steps, {r['launches']} launch" for name, r in row.items()
             if isinstance(r, dict))
             + f"; self-check {row['self_check']}/{row['in_genome']} "
             "in-genome, both indexes agree on every lane, first "
@@ -1222,14 +1479,16 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"llcp/rlcp-pruned {bl['fancy']['ms']:.3f} ms = "
         f"{bl['fancy']['qps']:.1f} q/s, plquery (phase 5) "
         f"{qr['qps']:.1f} q/s; in-genome self-checked, first "
-        f"{N_QUERY_CHECK} identical to the CPU path")
+        f"{N_QUERY_CHECK} identical to the CPU path; query kernels: binary "
+        f"search {bl['binsearch']['launches']}, pruned "
+        f"{bl['fancy']['launches']}")
     sc = scale_phase(dev, scale[1], scale[2])
     for r in sc["rows"]:
         log(f"scale n={sc['n']} 2^{r['buckets']} ({r['table']} table) "
             f"L={r['length']}: {N_QUERIES} queries in {r['ms']:.3f} ms = "
             f"{r['qps']:.1f} q/s; self-check {r['self_check']}/"
             f"{r['in_genome']} in-genome, first {N_QUERY_CHECK} identical "
-            "to the CPU path")
+            f"to the CPU path; {r['launches']} plquery launch")
     log(f"scale: loaded memory-mapped without inv/lcpk, device arrays "
         f"{sc['device_bytes'] / 1e9:.3f} GB sent in {sc['send_s']:.2f} s, "
         f"peak device memory {sc['peak_bytes'] / 1e9:.3f} GB "
@@ -1255,7 +1514,8 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"{nn['pwl_qps']:.1f} q/s, {nn['pwl_rounds']} rounds; NN/PWL = "
         f"{nn['ratio']:.3f}; median of 3 timings each); "
         f"self-check {nn['in_genome']}/{nn['in_genome']} in-genome, first "
-        f"{N_QUERY_CHECK} identical to the CPU path")
+        f"{N_QUERY_CHECK} identical to the CPU path; query kernels "
+        f"{nn['launches']}")
     tp = nn["train_parity"]
     log(f"nn: training card vs CPU (8 kbp, k=11, 4 x 8, 200 epochs): stop "
         f"epochs {tp['stops']} on both, {tp['epochs']} epochs, loss "
@@ -1268,14 +1528,14 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 11. profiling, evalx, the gather microbenchmark
     last_modules_phase(dev, seq, idx21, td, al)
-    return kp, al
+    return kp, qk, al, qr, bl
 
 
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch  # noqa: F401  (fails here on a machine without PyTorch)
 
-    from sapling_tpu_torch.ops import sw_cuda
+    from sapling_tpu_torch.ops import query_cuda, sw_cuda
 
     # 1. the card
     if not torch.cuda.is_available():
@@ -1292,7 +1552,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         scale = start_scale_build(td)
         try:
-            kp, al = run_phases(td, scale, sm_clock_mhz)
+            kp, qk, al, qr, bl = run_phases(td, scale, sm_clock_mhz)
         finally:
             if scale[0].poll() is None:
                 os.killpg(scale[0].pid, signal.SIGKILL)
@@ -1307,6 +1567,23 @@ def main() -> int:
          "replaces": "sapling_tpu/ops/sw_pallas.py:81",
          "launches": al["launches"]["score_only"], **kp["score_only"]},
     ]
+    # the query kernels' rows: phase 3b's case on phase 5's queries (k=21
+    # index as built, fast3) and its binary search; launches of phase 5's
+    # and phase 7's main calls. No PyTorch call computes either cascade.
+    qsrc = os.path.relpath(query_cuda.SOURCE, ROOT)
+    for name, replaces, row, launches in (
+            ("plquery", "sapling_tpu/ops/query.py:1011",
+             next(r for r in qk if r["name"] == f"built L={QUERY_LEN} fast3"),
+             qr["launches"]["plquery"]),
+            ("binsearch", "sapling_tpu/ops/query.py:1370",
+             next(r for r in qk if r["kernel"] == "binsearch"),
+             bl["binsearch"]["launches"]["binsearch"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": qsrc,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": "bytes", "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

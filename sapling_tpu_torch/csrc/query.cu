@@ -1,0 +1,493 @@
+// The query cascade for Hopper (sm_90a): plQuery and the classic
+// suffix-array binary search, one thread a query.
+//
+// Replace the XLA programs of sapling_tpu/ops/query.py::plquery_batch
+// (:1011; with _plquery_fast3 :723, _general_refine :886, make_rank_probe
+// :315, make_rank_probe3 :384, probe_at :143, _masked_binary_search :504,
+// _lane_bounds :581 and ops/predict.py::predict_pwl :231) and
+// ::binsearch_batch (:1370), and compute exactly what the port's plain
+// versions compute (sapling_tpu_torch/ops/query.py plquery_batch,
+// binsearch_batch), bit for bit: the same member of a duplicate run, the
+// same -1s.
+//
+// The plain versions run every lane of a batch through one masked decision
+// sequence and sync with the host once a bisection round and once a stride
+// step. Here one thread runs one query through the reference's sequential
+// cascade (src/sapling_api.h:159-248; src/binarysearch.cpp:38-58,158-165),
+// so a call is one launch and no host sync:
+//
+//   predict    exact int64 rational interpolation between the PWL
+//              checkpoints, round half up, the d == 0 bucket, clipped to
+//              [0, n-1] (or the caller's pred64);
+//   probes     PROBE selects one of three forms with the same outcome:
+//                kFast3     one int64 compare against prefix3[rank] (the
+//                           value is the rank; rev is read once at the end)
+//                kPrefix64  one unsigned 64-bit compare, masked to the
+//                           length, against prefix64[rank], beside rev[rank]
+//                kPacked    rev[rank], then ceil(L/16)+1 genome words,
+//                           funnel-shifted into line, XOR, clz
+//              and finish_probe's off-end rules;
+//   cascade    the prediction probe, the optional bucket probe
+//              (adaptive_bounds), phase A (the 'most' window edge), phase B
+//              (the 'max' window edge), phase C (the stride scan for L > k,
+//              capped by max_stride_steps, with the stuck test) and phase D
+//              (bisection with the hi == lo + 2 base case).
+//
+// What bounds it: bytes, as random 32-byte sectors. A probe reads one
+// sector of prefix3, or a sector of rev and one of prefix64, or a sector of
+// rev and one or two of the packed genome (ceil(L/16)+1 int64 words);
+// prediction reads xlist and ylist (one or two sectors each). A query takes
+// about 10-15 probes, each waiting on the last: each thread issues one
+// probe's loads together and has no more than that in flight, so the
+// card's resident threads (2,048 an SM) are what keep enough sectors in
+// flight. The design therefore keeps a thread small: no shared memory, no
+// warp cooperation, lanes in the caller's order (sorting them bought
+// 1.03-1.04x on a torch gather). The least time of a call is the distinct
+// sectors its lanes touch, times 32 bytes, over HBM's 3.35 TB/s; with
+// `stats` the kernel counts the sectors a lane touches (and can record
+// their numbers, so that the caller counts the distinct ones), and its
+// deepest phase C and phase D step counts, which equal the plain
+// versions' host loop rounds.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kFast3 = 0, kPrefix64 = 1, kPacked = 2;
+constexpr int kBasesPerWord = 16;
+constexpr int kWin = 7;   // query words a probe compares from registers
+
+struct Args {
+  const int64_t* packed;    // [packed_len] 2-bit genome words (< 2^32)
+  const void* rev;          // [n] int32 holding uint32 bits, or int64
+  const int64_t* xlist;     // [2^buckets + 1]
+  const int64_t* ylist;
+  const int64_t* prefix;    // prefix64 as int64 [n], or null
+  const int64_t* prefix3;   // [n], or null
+  const int32_t* bounds;    // [2^buckets] uint32 bits (over << 16 | under)
+  const int64_t* q_words;   // [ceil(L/16), B] word-major, or null (fast3)
+  const int64_t* q3;        // [B] 3-bit packed queries (fast3)
+  const int64_t* x;         // [B] adjusted k-mers
+  const int64_t* pred64;    // [B] the caller's predicted ranks, or null
+  int64_t* out;             // [B] positions, -1 = not found
+  int32_t* lane_stats;      // [2, B] probes, sectors; or null
+  int32_t* depth;           // [2] deepest phase C, phase D steps; or null
+  int64_t* trace;           // [B, trace_cap] sector numbers a lane touched
+                            // (the first trace_cap; -1 past its last); or
+                            // null
+  int64_t B, n, packed_len, most_over, most_under, max_over, max_under,
+      max_stride_steps;
+  int length, k, buckets, adaptive, trace_cap;
+};
+
+struct Probe {
+  int64_t val;     // the rank (fast3) or the text position
+  bool match;      // a full L-base match
+  bool smaller;    // the suffix sorts below the query (off the end too)
+  bool off_end;    // the compare ran off the genome (not on fast3)
+};
+
+// an address as its 32-byte sector's number
+__device__ __forceinline__ int64_t sector(const void* p) {
+  return (int64_t)((uintptr_t)p >> 5);
+}
+
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ int64_t lmax(int64_t a, int64_t b) {
+  return a > b ? a : b;
+}
+
+__device__ __forceinline__ int64_t floor_div(int64_t a, int64_t b) {
+  const int64_t q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+template <typename REV>
+__device__ __forceinline__ int64_t rev_at(const void* rev, int64_t rank) {
+  if constexpr (sizeof(REV) == 4)
+    return (int64_t)(uint32_t)__ldg(static_cast<const int32_t*>(rev) + rank);
+  else
+    return __ldg(static_cast<const int64_t*>(rev) + rank);
+}
+
+// One query's state: its inputs, read once, and its counts.
+template <int PROBE, typename REV>
+struct Lane {
+  const Args& a;
+  int64_t b;
+  uint64_t qword;                 // prefix64: the query's masked 64 bits
+  uint64_t qmask;
+  int64_t q3m, mask3;             // fast3: the masked query and its mask
+  uint32_t qw[kWin];              // packed: the query's first words
+  int wq;
+  int probes = 0, sectors = 0;
+
+  // with stats, count (and with a trace, record) the sectors of [p, last]
+  __device__ void touch(const void* p, const void* last) {
+    if (!a.lane_stats) return;
+    for (int64_t s = sector(p); s <= sector(last); ++s) {
+      if (a.trace && sectors < a.trace_cap)
+        a.trace[b * a.trace_cap + sectors] = s;
+      ++sectors;
+    }
+  }
+  __device__ void touch(const void* p) { touch(p, p); }
+
+  __device__ int64_t rev(int64_t rank) {
+    touch(static_cast<const REV*>(a.rev) + rank);
+    return rev_at<REV>(a.rev, rank);
+  }
+
+  __device__ Lane(const Args& a_, int64_t b_) : a(a_), b(b_) {
+    const int L = a.length;
+    if constexpr (PROBE == kFast3) {
+      mask3 = 0;
+      for (int j = 0; j < L; ++j) mask3 |= (int64_t)7 << (60 - 3 * j);
+      q3m = a.q3[b] & mask3;
+    } else if constexpr (PROBE == kPrefix64) {
+      wq = (L + kBasesPerWord - 1) / kBasesPerWord;
+      qmask = ~0ull << (64 - 2 * L);           // 1 <= L <= 32
+      const uint64_t hi = (uint32_t)a.q_words[b];
+      const uint64_t lo = wq > 1 ? (uint32_t)a.q_words[a.B + b] : 0;
+      qword = ((hi << 32) | lo) & qmask;
+    } else {
+      wq = (L + kBasesPerWord - 1) / kBasesPerWord;
+#pragma unroll
+      for (int j = 0; j < kWin; ++j)
+        if (j < wq) qw[j] = (uint32_t)a.q_words[j * a.B + b];
+    }
+  }
+
+  // the off-end rules (the reference's getLcp, src/sapling_api.h:115-130):
+  // the LCP is capped at the genome's end, and a suffix that runs off the
+  // end before differing sorts below the query
+  __device__ Probe finish(int64_t pos, int64_t lcp_raw, bool q_gt) const {
+    const int64_t L = a.length;
+    const int64_t rem = lmin(a.n - pos, L);
+    const int64_t lcp = lmin(lcp_raw, rem);
+    Probe p;
+    p.val = pos;
+    p.match = lcp == L;
+    p.off_end = !p.match && lcp == rem && rem < L;
+    p.smaller = p.off_end || (!p.match && q_gt);
+    return p;
+  }
+
+  __device__ Probe probe(int64_t rank) {
+    ++probes;
+    if constexpr (PROBE == kFast3) {
+      const int64_t* at = a.prefix3 + rank;
+      touch(at);
+      const int64_t pm = __ldg(at) & mask3;
+      Probe p;
+      p.val = rank;
+      p.match = pm == q3m;
+      p.smaller = !p.match && q3m > pm;   // values < 2^63: signed is unsigned
+      p.off_end = false;
+      return p;
+    } else if constexpr (PROBE == kPrefix64) {
+      const int64_t pos = rev(rank);
+      touch(a.prefix + rank);
+      const uint64_t pw = (uint64_t)__ldg(a.prefix + rank) & qmask;
+      const uint64_t d = pw ^ qword;
+      const int64_t lcp_raw = d ? __clzll((long long)d) >> 1 : a.length;
+      return finish(pos, lcp_raw, qword > pw);
+    } else {
+      return compare_at(rev(rank));
+    }
+  }
+
+  // probe_at: the query against the genome at text position pos, a window
+  // of up to kWin query words at a time (one window up to 112 bases): the
+  // window's kWin + 1 genome words are loaded together, funnel-shifted into
+  // line and XORed with the query's; the first differing word decides.
+  // Word indexes past the padded array are clamped (those bases lie past n,
+  // where the LCP is capped anyway).
+  __device__ Probe compare_at(int64_t pos) {
+    const int sh = (int)(pos & 15) << 1;
+    const int64_t last = a.packed_len - 1;
+    for (int base = 0; base < wq; base += kWin) {
+      const int nw = wq - base < kWin ? wq - base : kWin;
+      const int64_t w0 = (pos >> 4) + base;
+      uint32_t w[kWin + 1];
+#pragma unroll
+      for (int j = 0; j <= kWin; ++j)
+        if (j <= nw) w[j] = (uint32_t)__ldg(a.packed + lmin(w0 + j, last));
+      touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + nw, last));
+#pragma unroll
+      for (int j = 0; j < kWin; ++j) {
+        if (j >= nw) break;
+        const uint32_t q = base == 0 ? qw[j] : query_word(base + j);
+        // sh == 0 takes nothing from the next word (a shift by 32 is
+        // undefined)
+        const uint32_t aligned =
+            sh ? (w[j] << sh) | (w[j + 1] >> (32 - sh)) : w[j];
+        const uint32_t d = aligned ^ q;
+        if (d) {   // the first differing base decides the order
+          const int64_t lcp_raw =
+              (int64_t)(base + j) * kBasesPerWord + (__clz((int)d) >> 1);
+          return finish(pos, lcp_raw, q > aligned);
+        }
+      }
+    }
+    return finish(pos, a.length, false);
+  }
+
+  __device__ uint32_t query_word(int j) const {
+    return (uint32_t)__ldg(a.q_words + (int64_t)j * a.B + b);
+  }
+
+  // the value a hi == lo + 2 base case returns for rank lo + 1, unprobed
+  __device__ int64_t value_at(int64_t rank) {
+    if constexpr (PROBE == kFast3) {
+      return rank;
+    } else {
+      return rev(rank);
+    }
+  }
+
+  // the reference's binarySearch (src/sapling_api.h:133-153) over [lo, hi]:
+  // it returns the matching probe's value, rank lo+1's value at the
+  // hi == lo + 2 base case (without looking at its match), or -1 when the
+  // interval runs out. *steps counts the rounds.
+  __device__ int64_t bisect(int64_t lo, int64_t hi, int* steps) {
+    for (;;) {
+      ++*steps;
+      if (hi == lo + 2) return value_at(lo + 1);
+      const int64_t mid = lo + ((hi - lo) >> 1);
+      const Probe p = probe(mid);
+      if (p.match) return p.val;
+      if (lo + 1 >= hi) return -1;
+      if (p.smaller)
+        lo = mid;
+      else
+        hi = mid;
+    }
+  }
+
+  __device__ void done(int64_t res, int c_steps, int d_steps) {
+    if constexpr (PROBE == kFast3) {
+      if (res >= 0) res = rev(res);
+    }
+    a.out[b] = res;
+    if (a.lane_stats) {
+      if (a.trace)
+        for (int i = sectors; i < a.trace_cap; ++i)
+          a.trace[b * a.trace_cap + i] = -1;
+      a.lane_stats[b] = probes;
+      a.lane_stats[a.B + b] = sectors;
+      if (c_steps) atomicMax(a.depth, c_steps);
+      if (d_steps) atomicMax(a.depth + 1, d_steps);
+    }
+  }
+};
+
+// predict_pwl: round half up of ylo + M*N/D, M = yhi - ylo, N = x - xlo,
+// D = xhi - xlo, with N split in base 2^16 so that no product leaves int64
+template <typename L>
+__device__ int64_t predict(L& lane, int64_t x) {
+  const Args& a = lane.a;
+  const int64_t bucket = x >> (2 * a.k - a.buckets);
+  const int64_t xlo = __ldg(a.xlist + bucket), xhi = __ldg(a.xlist + bucket + 1);
+  const int64_t ylo = __ldg(a.ylist + bucket), yhi = __ldg(a.ylist + bucket + 1);
+  lane.touch(a.xlist + bucket, a.xlist + bucket + 1);
+  lane.touch(a.ylist + bucket, a.ylist + bucket + 1);
+  const int64_t d = xhi - xlo, m = yhi - ylo, nn = x - xlo;
+  const int64_t abs_n = nn < 0 ? -nn : nn;
+  const int64_t nh = abs_n >> 16, nl = abs_n & 0xFFFF;
+  const int64_t ds = d == 0 ? 1 : d;
+  const int64_t q1 = floor_div(m * nh, ds), r1 = m * nh - q1 * ds;
+  const int64_t q2 = floor_div((r1 << 16) + m * nl, ds);
+  const int64_t r = (r1 << 16) + m * nl - q2 * ds;
+  const int64_t q = (q1 << 16) + q2;
+  int64_t pred = nn >= 0 ? ylo + q + (2 * r >= ds ? 1 : 0)
+                         : ylo - q - (2 * r > ds ? 1 : 0);
+  if (d == 0) pred = ylo;
+  return lmin(lmax(pred, 0), a.n - 1);
+}
+
+template <int PROBE, typename REV>
+__global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant__ Args a) {
+  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= a.B) return;
+  Lane<PROBE, REV> lane(a, b);
+  const int64_t n = a.n;
+  const int64_t x = a.x[b];
+  const int64_t pred = a.pred64 ? a.pred64[b] : predict(lane, x);
+  const int64_t e_right = lmin(pred + a.most_over, n - 1);
+  const int64_t e_left = lmax(pred - a.most_under, 0);
+
+  // prediction probe (:161-167): suffix at pred < query -> search right
+  const Probe p0 = lane.probe(pred);
+  if (p0.match) return lane.done(p0.val, 0, 0);
+  const bool right = p0.smaller;
+  int64_t lo, hi;
+  bool need_a = true;
+  int64_t a_right = 0, a_left = 0;
+  if (a.adaptive) {
+    // the bucket's own max-error window, before the 'most' window; a
+    // clipped bucket (0xFFFF) takes the 'most' window
+    const int32_t* at = a.bounds + (x >> (2 * a.k - a.buckets));
+    lane.touch(at);
+    const uint32_t bw = (uint32_t)__ldg(at);
+    a_right = lmin(pred + lmin(bw >> 16, a.most_over), n - 1);
+    a_left = lmax(pred - lmin(bw & 0xFFFF, a.most_under), 0);
+    const Probe p1 = lane.probe(right ? a_right : a_left);
+    if (p1.match) return lane.done(p1.val, 0, 0);
+    need_a = right ? p1.smaller : !p1.smaller;
+    lo = right ? pred : a_left;
+    hi = right ? a_right : pred;
+  } else {
+    lo = right ? pred : e_left;
+    hi = right ? e_right : pred;
+  }
+
+  // phase A: the 'most' window edge (:171-174 right, :209-213 left)
+  bool escalate = false;
+  if (need_a) {
+    const Probe pa = lane.probe(right ? e_right : e_left);
+    if (pa.match) return lane.done(pa.val, 0, 0);
+    // escalation (:175 right-still-smaller, :214/:221 left-still-bigger)
+    escalate = right ? pa.smaller : !pa.smaller;
+    if (a.adaptive) {
+      lo = right ? a_right : e_left;
+      hi = right ? e_right : a_left;
+    }
+  }
+
+  int c_steps = 0;
+  if (escalate) {
+    // phase B: the 'max' window edge (:180-183 right, :225-228 left)
+    const int64_t b_right = lmin(pred + a.max_over + 1, n - 1);
+    const int64_t b_left = lmax(pred - a.max_under - 1, 0);
+    const Probe pb = lane.probe(right ? b_right : b_left);
+    if (pb.match) return lane.done(pb.val, 0, 0);
+    lo = right ? e_right : b_left;
+    hi = right ? b_right : e_left;
+    // phase C: the stride scan, only for queries longer than k (:184-196,
+    // :229-241). The reference's loop is unbounded and can livelock at the
+    // array ends; it is capped, and stops when the edge can't advance.
+    if (a.length > a.k) {
+      bool act = right ? pb.smaller && !pb.off_end : !pb.smaller;
+      while (act && c_steps < a.max_stride_steps) {
+        ++c_steps;
+        const int64_t new_lo = right ? hi : lmax(lo - a.max_under, 0);
+        const int64_t new_hi = right ? lmin(hi + a.max_over, n - 1) : lo;
+        const int64_t at = right ? new_hi : new_lo;
+        const bool stuck = at == (right ? hi : lo);
+        lo = new_lo;
+        hi = new_hi;
+        const Probe pc = lane.probe(at);
+        if (pc.match) return lane.done(pc.val, c_steps, 0);
+        act = !stuck && (right ? pc.smaller && !pc.off_end : !pc.smaller);
+      }
+    }
+  }
+
+  // phase D: bisection (:245-247)
+  int d_steps = 0;
+  const int64_t res = lane.bisect(lo, hi, &d_steps);
+  lane.done(res, c_steps, d_steps);
+}
+
+// bQuery (binarysearch.cpp:158-165): rank 0 and rank n-1 first, then the
+// binary search over [0, n-1]; an absent query resolves to -1.
+template <typename REV>
+__global__ void __launch_bounds__(kThreads) binsearch_kernel(const __grid_constant__ Args a) {
+  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= a.B) return;
+  Lane<kPacked, REV> lane(a, b);
+  const Probe p_lo = lane.probe(0);
+  if (p_lo.match) return lane.done(p_lo.val, 0, 0);
+  const Probe p_hi = lane.probe(a.n - 1);
+  if (p_hi.match) return lane.done(p_hi.val, 0, 0);
+  int d_steps = 0;
+  const int64_t res = lane.bisect(0, a.n - 1, &d_steps);
+  lane.done(res, 0, d_steps);
+}
+
+int blocks_for(int64_t B) { return (int)((B + kThreads - 1) / kThreads); }
+
+template <int PROBE>
+int launch_plquery(const Args& a, int rev64, cudaStream_t stream) {
+  if (rev64)
+    plquery_kernel<PROBE, int64_t><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
+  else
+    plquery_kernel<PROBE, int32_t><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry points (bound with ctypes). Each returns a cudaError_t: 0 =
+// launched. The arrays are SaplingIndex.device_arrays()' (int64 packed
+// words, xlist, ylist and prefix views; rev int32 holding uint32 bits when
+// rev64 is 0, else int64; bounds int32 holding uint32 bits); q_words is
+// int64 [ceil(L/16), B]; x, q3, pred64 and out are int64 [B]. lane_stats
+// (int32 [2, B]), depth (int32 [2], zeroed) and trace (int64 [B,
+// trace_cap]) may be null.
+extern "C" int plquery_launch(
+    const void* packed, long long packed_len, const void* rev, int rev64,
+    const void* xlist, const void* ylist, const void* prefix,
+    const void* prefix3, const void* bounds, const void* q_words,
+    const void* q3, const void* x, const void* pred64, void* out,
+    void* lane_stats, void* depth, void* trace, long long B, long long n,
+    int length, int k, int buckets, long long most_over,
+    long long most_under, long long max_over, long long max_under,
+    long long max_stride_steps, int adaptive, int trace_cap, int probe,
+    void* stream) {
+  if (B <= 0) return 0;
+  const Args a{static_cast<const int64_t*>(packed), rev,
+               static_cast<const int64_t*>(xlist),
+               static_cast<const int64_t*>(ylist),
+               static_cast<const int64_t*>(prefix),
+               static_cast<const int64_t*>(prefix3),
+               static_cast<const int32_t*>(bounds),
+               static_cast<const int64_t*>(q_words),
+               static_cast<const int64_t*>(q3),
+               static_cast<const int64_t*>(x),
+               static_cast<const int64_t*>(pred64),
+               static_cast<int64_t*>(out), static_cast<int32_t*>(lane_stats),
+               static_cast<int32_t*>(depth), static_cast<int64_t*>(trace), B,
+               n, packed_len, most_over, most_under, max_over, max_under,
+               max_stride_steps, length, k, buckets, adaptive, trace_cap};
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (probe) {
+    case kFast3: return launch_plquery<kFast3>(a, rev64, st);
+    case kPrefix64: return launch_plquery<kPrefix64>(a, rev64, st);
+    case kPacked: return launch_plquery<kPacked>(a, rev64, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int binsearch_launch(const void* packed, long long packed_len,
+                                const void* rev, int rev64,
+                                const void* q_words, void* out,
+                                void* lane_stats, void* depth, void* trace,
+                                long long B, long long n, int length,
+                                int trace_cap, void* stream) {
+  if (B <= 0) return 0;
+  Args a{};
+  a.packed = static_cast<const int64_t*>(packed);
+  a.packed_len = packed_len;
+  a.rev = rev;
+  a.q_words = static_cast<const int64_t*>(q_words);
+  a.out = static_cast<int64_t*>(out);
+  a.lane_stats = static_cast<int32_t*>(lane_stats);
+  a.depth = static_cast<int32_t*>(depth);
+  a.trace = static_cast<int64_t*>(trace);
+  a.trace_cap = trace_cap;
+  a.B = B;
+  a.n = n;
+  a.length = length;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (rev64)
+    binsearch_kernel<int64_t><<<blocks_for(B), kThreads, 0, st>>>(a);
+  else
+    binsearch_kernel<int32_t><<<blocks_for(B), kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -61,10 +61,13 @@
 //     hv * 1024 + (1023 - row in the tile), whose max also picks the
 //     smallest row at the max, and the max over the live (real + pad)
 //     rows. Lane G - 1 then holds the column's totals and writes them as
-//     its record, [3, R, B] int32 in a workspace (key, tile, pad max). A
-//     later tile's record replaces the key only when its max is larger, so
-//     on a tie the earlier tile and its smaller row stay. The key needs
-//     H < 2^20; the wrapper refuses inputs whose H could reach it.
+//     its record in a workspace: the key [R, B], then tile and pad max
+//     [2, R, B] int32. A later tile's record replaces the key only when its
+//     max is larger, so on a tie the earlier tile and its smaller row
+//     stay. An int32 key needs H < 2^20 (a row past the real ones keys
+//     below every real row's key by kNeg); a pass whose H could reach it
+//     (a high match score over long pairs) takes the instantiation with an
+//     int64 key, at the one strip shape G = S = 32, in row tiles.
 //   * pad rows in [qlen, ceil(qlen / pad_to) * pad_to) take substitution
 //     0: each row carries its own mismatch constant (-mismatch, or 0) and
 //     key constant, so the substitution stays one select a cell; rows past
@@ -144,7 +147,10 @@ struct Pass {
 
 // G lanes sweep one pair; out is [1, B] (score-only) or [5, B]: score,
 // ref_end, read_end, score2, ref_end2.
-template <int G, int S, bool FULL>
+template <typename Key>
+constexpr Key kKeyNeg = (Key)kNeg * ((Key)1 << (8 * sizeof(Key) - 32));
+
+template <int G, int S, bool FULL, typename Key = int>
 __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
   constexpr int kRows = G * S;   // rows of a tile
   // only the widest strip (G = 32, S = 32) is ever given more rows than
@@ -169,8 +175,10 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
   const int8_t* rf = p.r + (size_t)pair * p.R;
   const int nge = -p.gap_extend;
   const size_t RB = (size_t)p.R * p.B;
-  int32_t* rec = p.ws;                          // [3, R, B]
-  int32_t* bnd = p.ws + (FULL ? 3 * RB : 0);    // [2, 2, R, B]
+  constexpr int kKeyInts = sizeof(Key) / 4;
+  Key* key_rec = reinterpret_cast<Key*>(p.ws);  // [R, B]
+  int32_t* rec = p.ws + kKeyInts * RB;          // tile, pad max [2, R, B]
+  int32_t* bnd = p.ws + (FULL ? (kKeyInts + 2) * RB : 0);  // [2, 2, R, B]
 
   int best = 0;  // score-only: max H over the real rows of every tile
   const int ntile_w = kTiled ? __reduce_max_sync(kFull, ntile) : 1;
@@ -179,7 +187,8 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
     const int rb0 = tile * kRows + row0;  // this lane's first row
     // per row: query code, H and E of the last column, and the running max
     // of H (score-only) or the mismatch, key and live-mask constants (full)
-    int qv[S], h[S], e[S], mx[S], xs[S], kc[S], pc[S];
+    int qv[S], h[S], e[S], mx[S], xs[S], pc[S];
+    Key kc[S];
 #pragma unroll
     for (int t = 0; t < S; ++t) {
       const int j = rb0 + t;
@@ -188,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
       e[t] = kNeg;
       if constexpr (FULL) {
         xs[t] = j < nreal ? -p.mismatch : 0;         // pad rows score 0
-        kc[t] = j < nreal ? kRowMask - (row0 + t) : kNeg;
+        kc[t] = j < nreal ? (Key)(kRowMask - (row0 + t)) : kKeyNeg<Key>;
         pc[t] = j < nrows ? 0 : kNeg;
       } else {
         mx[t] = 0;
@@ -206,8 +215,8 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
     // H of the row above, F into row0, the ref base, and (full) the partial
     // column maxima; and H of the row above in the previous column (this
     // column's diagonal)
-    int h_in = 0, f_in = kNeg, rb_in = kNoRef, diag_top = 0;
-    int key_in = kNeg, pad_in = -1;
+    int h_in = 0, f_in = kNeg, rb_in = kNoRef, diag_top = 0, pad_in = -1;
+    Key key_in = kKeyNeg<Key>;
     // lane 0's inputs of the next step: ref base, and the tile above's
     // bottom H of this column (the next column's diagonal) and F into row 0
     int rb_next = kNoRef, hb_next = 0, fb_next = kNeg;
@@ -222,13 +231,13 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
       for (int k = 0; k < 2; ++k) {
         const int s = s0 + k;
         const int c = s - g;
-        int rb = rb_in, f = f_in, diag = diag_top;
-        int key = key_in, pad = pad_in;
+        int rb = rb_in, f = f_in, diag = diag_top, pad = pad_in;
+        Key key = key_in;
         if (g == 0) {  // row 0 of the tile: its inputs from memory
           rb = rb_next;
           f = fb_next;
           diag = hb_next;
-          key = kNeg;
+          key = kKeyNeg<Key>;
           pad = -1;
           if (s + 1 < tcol) {
             const int v = rf[s + 1];
@@ -257,7 +266,7 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
             f = __viaddmax_s32(f, nge, te);
             e[t] = __viaddmax_s32(e[t], nge, te);
             if constexpr (FULL) {
-              key = max(key, hv * (1 << kRowBits) + kc[t]);
+              key = max(key, (Key)hv * (1 << kRowBits) + kc[t]);
               pad = __viaddmax_s32(hv, pc[t], pad);
             } else if (k == 1) {
               mx[t] = __vimax3_s32(mx[t], h[t], hv);
@@ -268,15 +277,15 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
             const size_t at = (size_t)c * p.B + pair;
             if constexpr (FULL) {  // the column's record
               if (tile == 0) {
-                rec[at] = key;
-                rec[RB + at] = 0;
-                rec[2 * RB + at] = pad;
+                key_rec[at] = key;
+                rec[at] = 0;
+                rec[RB + at] = pad;
               } else {
-                if ((key >> kRowBits) > (rec[at] >> kRowBits)) {
-                  rec[at] = key;
-                  rec[RB + at] = tile;
+                if ((key >> kRowBits) > (key_rec[at] >> kRowBits)) {
+                  key_rec[at] = key;
+                  rec[at] = tile;
                 }
-                rec[2 * RB + at] = max(rec[2 * RB + at], pad);
+                rec[RB + at] = max(rec[RB + at], pad);
               }
             }
             if (below) {
@@ -311,8 +320,9 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
     best = group_max<G>(best);
     if (g == 0 && real) p.out[pair] = best;
   } else {
-    const int32_t* key_rec = rec + pair;
-    const int32_t* pad_rec = rec + 2 * RB + pair;
+    const Key* keys = key_rec + pair;
+    const int32_t* tile_rec = rec + pair;
+    const int32_t* pad_rec = rec + RB + pair;
     // terminate: the first column whose pad max equals term
     const int term = real ? p.tm[pair] : -1;
     int tc = ncol;
@@ -326,9 +336,9 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
     // order, i.e. the earliest column at the max
     int bv = 0, bc = kBig;
     for (int c = g; c < ncomp; c += G) {
-      const int v = key_rec[(size_t)c * p.B] >> kRowBits;  // < 0: no real row
+      const Key v = keys[(size_t)c * p.B] >> kRowBits;  // < 0: no real row
       if (v > bv) {
-        bv = v;
+        bv = (int)v;
         bc = c;
       }
     }
@@ -338,8 +348,8 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
     int read_end = nreal > 0 ? 0 : ql - 1;
     if (ref_end >= 0) {
       const size_t at = (size_t)ref_end * p.B;
-      read_end = key_rec[RB + at] * kRows + kRowMask -
-                 (key_rec[at] & kRowMask);
+      read_end = tile_rec[at] * kRows + kRowMask -
+                 (int)(keys[at] & kRowMask);
     }
     // score2 / ref_end2: the best column max outside [ref_end - mask,
     // ref_end + mask]; columns past tc (and past rlen) count as 0
@@ -370,11 +380,11 @@ __global__ void __launch_bounds__(kThreads) sw_kernel(const Pass p) {
   }
 }
 
-template <int G, int S, bool FULL>
+template <int G, int S, bool FULL, typename Key = int>
 int launch(const Pass& a, cudaStream_t stream) {
   const long long threads = (long long)a.B * G;
   const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  sw_kernel<G, S, FULL><<<blocks, kThreads, 0, stream>>>(a);
+  sw_kernel<G, S, FULL, Key><<<blocks, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -413,7 +423,10 @@ int launch_shape(const Pass& a, cudaStream_t stream) {
 
 // C entry point (bound with ctypes). Returns a cudaError_t: 0 = launched.
 // ws: the workspace the wrapper allocates (ops/sw_cuda.py workspace_ints):
-// 3 * R * B int32 in full mode, plus 4 * R * B past 1,024 padded rows.
+// in full mode 3 * R * B int32 (4 * R * B with the int64 key), plus
+// 4 * R * B past 1,024 padded rows. The full mode takes the int64 key when
+// max(match, -mismatch, -gap_open, -gap_extend, 0) * (padded W + R) >=
+// 2^20 (ops/sw_cuda.py h_bound; an int32 key overflows from H = 2^21).
 extern "C" int sw_pass_launch(const void* q, const void* r, const void* ql,
                               const void* rl, const void* tm, void* out,
                               void* ws, int B, int W, int R, int match,
@@ -431,5 +444,12 @@ extern "C" int sw_pass_launch(const void* q, const void* r, const void* ql,
                B, W, R, (W + pad_to - 1) / pad_to * pad_to, match, mismatch,
                gap_open, gap_extend, mask_len, pad_to, second_inclusive};
   auto st = static_cast<cudaStream_t>(stream);
-  return score_only ? launch_shape<false>(a, st) : launch_shape<true>(a, st);
+  if (score_only) return launch_shape<false>(a, st);
+  int step = match > 0 ? match : 0;   // H's most gain a row or a column
+  if (-mismatch > step) step = -mismatch;
+  if (-gap_open > step) step = -gap_open;
+  if (-gap_extend > step) step = -gap_extend;
+  if ((long long)step * (a.wpad + R) >= (1 << 20))
+    return launch<32, 32, true, long long>(a, st);
+  return launch_shape<true>(a, st);
 }

@@ -3,9 +3,10 @@ dry run (the twins of the JAX package's `__graft_entry__.py`).
 
 entry(device)            -> (fn, example_args): the flagship forward step,
                             a batched PWL suffix-array query (predict ->
-                            escalating error window -> masked binary
-                            search), ops.query.plquery_batch with its
-                            arguments on `device`.
+                            escalating error window -> binary search),
+                            ops.query_cuda.plquery_cuda (the plquery
+                            kernel on the card, one launch a call) with
+                            its arguments on `device`.
 dryrun_multichip(n, dev) -> inside an initialised process group of n
                             ranks: the dp-sharded query step, the
                             index-sharded query step (rank-range shards,
@@ -41,7 +42,7 @@ def entry(device="cuda"):
 
     import torch
 
-    from .ops.query import plquery_batch
+    from .ops.query_cuda import plquery_cuda
 
     length = 21
     idx = _tiny_index(device=device)
@@ -50,7 +51,7 @@ def entry(device="cuda"):
     t = idx.table
     dev = idx.device_arrays()
     fn = functools.partial(
-        plquery_batch,
+        plquery_cuda,
         n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
         most_over=t.most_over, most_under=t.most_under,
         max_over=t.max_over, max_under=t.max_under,

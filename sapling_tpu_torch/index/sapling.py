@@ -24,7 +24,8 @@ from ..config import IndexConfig, QueryConfig
 from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
-from ..ops.query import binsearch_batch, fancy_binsearch_batch, plquery_batch
+from ..ops.query import fancy_binsearch_batch
+from ..ops.query_cuda import binsearch_cuda, plquery_cuda
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -347,23 +348,26 @@ class SaplingIndex:
 
     def query_device(self, x: torch.Tensor, q3: torch.Tensor | None,
                      q_words: torch.Tensor | None, length: int,
-                     qcfg: QueryConfig | None = None) -> torch.Tensor:
+                     qcfg: QueryConfig | None = None,
+                     stats: bool = False) -> torch.Tensor:
         """plQuery over prepared device inputs (query_inputs) -> int64 [B]
-        positions on `self.device`, -1 = not found. Of `qcfg`, the query
-        reads max_stride_steps and adaptive_bounds; the compaction flags
-        change only the batch a lane runs in on the TPU, never a result,
-        and are ignored here."""
+        positions on `self.device`, -1 = not found: the plquery kernel on
+        the card, the plain cascade on the CPU (ops.query_cuda.
+        plquery_cuda; `stats` adds the call's rounds to ops.query.ROUNDS).
+        Of `qcfg`, the query reads max_stride_steps and adaptive_bounds;
+        the compaction flags change only the batch a lane runs in on the
+        TPU, never a result, and are ignored here."""
         qcfg = qcfg or QueryConfig()
         dev = self.device_arrays()
         t = self.table
-        return plquery_batch(
+        return plquery_cuda(
             dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
             x, dev["prefix64"], dev["prefix3"], q3, dev["bounds"],
             n=self.n, length=length, k=self.k, buckets=self.buckets,
             most_over=t.most_over, most_under=t.most_under,
             max_over=t.max_over, max_under=t.max_under,
             max_stride_steps=qcfg.max_stride_steps,
-            adaptive_bounds=qcfg.adaptive_bounds)
+            adaptive_bounds=qcfg.adaptive_bounds, stats=stats)
 
     def query_positions(self, codes2d: np.ndarray,
                         qcfg: QueryConfig | None = None) -> np.ndarray:
@@ -375,16 +379,18 @@ class SaplingIndex:
 
     def binsearch_device(self, q_words: torch.Tensor, length: int,
                          llcp: torch.Tensor | None = None,
-                         rlcp: torch.Tensor | None = None) -> torch.Tensor:
+                         rlcp: torch.Tensor | None = None,
+                         stats: bool = False) -> torch.Tensor:
         """The binary-search baselines over prepared device query words
         (query_words) -> int64 [B] positions on `self.device`, -1 = not
-        found: the classic search (ops.query.binsearch_batch), or with the
-        int32 [n] llcp/rlcp tables on `self.device` the pruned one
-        (ops.query.fancy_binsearch_batch)."""
+        found: the classic search (ops.query_cuda.binsearch_cuda: its
+        kernel on the card; `stats` as in query_device), or with the int32
+        [n] llcp/rlcp tables on `self.device` the pruned one
+        (ops.query.fancy_binsearch_batch, torch ops)."""
         dev = self.device_arrays()
         if llcp is None:
-            return binsearch_batch(dev["packed"], dev["rev"], q_words,
-                                   n=self.n, length=length)
+            return binsearch_cuda(dev["packed"], dev["rev"], q_words,
+                                  n=self.n, length=length, stats=stats)
         return fancy_binsearch_batch(dev["packed"], dev["rev"], llcp, rlcp,
                                      q_words, n=self.n, length=length)
 

@@ -6,7 +6,7 @@ engine never consumes the model (reference: NN/README.md — the learned
 index that SHIPS is the PWL table, src/sapling_api.h:384+). This module
 goes one step further on that research axis: the trained residual model
 (models.residual, the NN/fit.py replication) becomes the rank predictor
-of the real query cascade via ops.query.plquery_batch's `pred64` seam,
+of the real query cascade via ops.query_cuda.plquery_cuda's `pred64` seam,
 with error bounds measured by the SAME audit semantics the PWL table
 uses (index.pwl.error_audit / getError, src/sapling_api.h:309-337).
 
@@ -33,7 +33,7 @@ import torch
 from ..index.pwl import ErrorAudit, error_stats
 from ..index.suffix_array import fwd_runs_from_rank_kmers
 from ..ops import pack as packops
-from ..ops.query import plquery_batch
+from ..ops.query_cuda import plquery_cuda
 from .residual import F64, Trainer, params_from_numpy, prepare_dataset
 
 
@@ -201,20 +201,24 @@ class NNQueryEngine:
         self.srv = serving.to(index.device)
 
     def query_device(self, x: torch.Tensor, q3: torch.Tensor | None,
-                     q_words: torch.Tensor | None) -> torch.Tensor:
+                     q_words: torch.Tensor | None,
+                     stats: bool = False) -> torch.Tensor:
         """plQuery of k-base queries over prepared device inputs
         (SaplingIndex.query_inputs), ranks predicted by the NN -> int64
-        [B] positions on the index's device, -1 = not found."""
+        [B] positions on the index's device, -1 = not found (the plquery
+        kernel on the card, through its pred64 seam; `stats` as in
+        SaplingIndex.query_device)."""
         idx, srv = self.idx, self.srv
         dev = idx.device_arrays()
         with torch.no_grad():
             pred = srv.predict_ranks(x)
-        return plquery_batch(
+        return plquery_cuda(
             dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
             x, dev["prefix64"], dev["prefix3"], q3,
             n=idx.n, length=idx.k, k=idx.k, buckets=idx.buckets,
             most_over=srv.most_over, most_under=srv.most_under,
-            max_over=srv.max_over, max_under=srv.max_under, pred64=pred)
+            max_over=srv.max_over, max_under=srv.max_under, pred64=pred,
+            stats=stats)
 
     def query_positions(self, codes2d: np.ndarray) -> np.ndarray:
         length = int(codes2d.shape[1])

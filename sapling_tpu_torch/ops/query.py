@@ -1,5 +1,12 @@
 """Batched plQuery and the binary-search baselines on PyTorch tensors.
 
+These are the plain versions. On the card every single-device caller runs
+plquery_batch and binsearch_batch as the hand-written kernels of
+ops.query_cuda (csrc/query.cu, one thread a query, one launch a call),
+which return the same bits; these run on the CPU, in the index-sharded
+engine (whose `take` gathers are collectives) and in the pruned binary
+search.
+
 The reference's query (src/sapling_api.h:159-248) walks one query at a
 time. Here every lane of a [B] batch takes the same decision sequence,
 with per-lane state held in int64 tensors and masked updates, on whatever
@@ -52,7 +59,9 @@ _MASK32 = 0xFFFFFFFF
 
 # Host loop rounds since the caller last reset them: "C" stride-scan steps
 # (phase C), "D" bisection rounds (phase D and the plain binary search);
-# each ends in one host sync. Only read by measurement scripts.
+# each ends in one host sync. The kernels of ops.query_cuda add their
+# deepest step counts, the same numbers, when called with stats=True. Only
+# read by measurement scripts.
 ROUNDS = {"C": 0, "D": 0}
 
 

@@ -5,8 +5,8 @@ modes with one template, `sw_kernel<G, S, FULL>`: a row-strip wavefront of
 G lanes a pair, in row tiles of at most 1,024 rows, so there is no cap on W
 or R. The full mode records each column's maxima in a workspace and
 resolves ref_end, read_end, terminate and score2 from the records after
-the sweep. Both return exactly what the plain PyTorch `ops.sw.sw_pass`
-returns.
+the sweep, keyed in int32 or, where H could reach KEY_LIMIT, in int64.
+Both return exactly what the plain PyTorch `ops.sw.sw_pass` returns.
 `sw_pass_cuda` is the one entry point every SW pass of the port goes
 through:
 
@@ -36,8 +36,9 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 TILE_ROWS = 1024                  # rows of a pair a group sweeps at once
-KEY_LIMIT = 1 << 20               # full mode: H below it (a column's max and
-                                  # its row share one int32 key)
+KEY_LIMIT = 1 << 20               # full mode: H below it, or the int64 key
+                                  # (a column's max and its row share a key)
+H_LIMIT = (1 << 31) - 1           # int32 H
 
 # kernel launches per mode, counted where the kernel is launched
 LAUNCHES = {"full": 0, "score_only": 0}
@@ -54,14 +55,16 @@ def _nvcc() -> str:
 
 
 def build_kernel(source: str = SOURCE) -> str:
-    """Compile csrc/sw.cu, or another version of it at `source` (or reuse
-    the build of the same source and flags); returns the shared library's
-    path. nvcc's -Xptxas -v report (registers, spills, shared memory) is
-    kept beside it as a .log."""
+    """Compile csrc/sw.cu, or another CUDA source at `source` (csrc/
+    query.cu, another version of sw.cu), into lib<stem>-<hash>.so (or
+    reuse the build of the same source and flags); returns the shared
+    library's path. nvcc's -Xptxas -v report (registers, spills, shared
+    memory) is kept beside it as a .log."""
     with open(source, "rb") as f:
         src = f.read()
     tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + src).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libsw-{tag}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}-{tag}.so")
     if not os.path.exists(out):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = out + f".tmp{os.getpid()}"
@@ -76,13 +79,21 @@ def build_kernel(source: str = SOURCE) -> str:
     return out
 
 
+def bind_lib(path: str, signatures: dict) -> ctypes.CDLL:
+    """The library at `path` with each C entry point of `signatures`
+    ({name: argtypes}) typed, returning an int (a cudaError_t)."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def bind(path: str) -> ctypes.CDLL:
     """The library at `path` with its C entry point `sw_pass_launch` typed."""
-    lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sw_pass_launch.argtypes = [vp] * 7 + [ci] * 11 + [vp]
-    lib.sw_pass_launch.restype = ci
-    return lib
+    return bind_lib(path, {"sw_pass_launch": [vp] * 7 + [ci] * 11 + [vp]})
 
 
 def _lib() -> ctypes.CDLL:
@@ -93,14 +104,23 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def workspace_ints(b: int, w: int, r: int, pad_to: int,
-                   score_only: bool) -> int:
+def h_bound(w: int, r: int, pad_to: int, match: int, mismatch: int,
+            gap_open: int, gap_extend: int) -> int:
+    """The most H can reach over W x R cells: the largest gain of a cell
+    (match, -mismatch, -gap_open, -gap_extend, 0) a row and a column."""
+    step = max(match, -mismatch, -gap_open, -gap_extend, 0)
+    return step * (-(-w // pad_to) * pad_to + r)
+
+
+def workspace_ints(b: int, w: int, r: int, pad_to: int, score_only: bool,
+                   key64: bool = False) -> int:
     """int32 the kernel needs beside its output: in full mode a record of
-    three a column a pair (its real max key, tile and pad max); past
-    TILE_ROWS padded rows, two alternating tile boundaries of two a column a
-    pair (H and F)."""
+    three a column a pair (its real max key, tile and pad max), four with
+    the int64 key; past TILE_ROWS padded rows, two alternating tile
+    boundaries of two a column a pair (H and F)."""
     tiled = -(-w // pad_to) * pad_to > TILE_ROWS
-    return (0 if score_only else 3 * r * b) + (4 * r * b if tiled else 0)
+    return ((0 if score_only else (4 if key64 else 3) * r * b)
+            + (4 * r * b if tiled else 0))
 
 
 def _check(name, t, dtype, ndim, device):
@@ -120,11 +140,10 @@ def sw_pass_cuda(query, qlen, ref, rlen, terminate, *, match: int = 2,
 
     On the card: query int8 [B, W] and ref int8 [B, R] base codes, qlen /
     rlen / terminate int32 [B], all contiguous on one device, any W and R;
-    in full mode the scores must stay below KEY_LIMIT: max(match,
-    -mismatch, -gap_open, -gap_extend, 0) * (ceil(W / pad_to) * pad_to +
-    R) < 2^20 (H can grow by at most that step a row and a column). pad_to
-    does not change the score-only result (pad rows lie below every real
-    row); it changes only which strip shape the kernel is built for.
+    in full mode H must stay an int32 (h_bound < 2^31); from KEY_LIMIT on
+    the full mode keys a column's max and its row in int64. pad_to does
+    not change the score-only result (pad rows lie below every real row);
+    it changes only which strip shape the kernel is built for.
     """
     if query.device.type == "cpu":
         from .sw import sw_pass
@@ -151,13 +170,14 @@ def sw_pass_cuda(query, qlen, ref, rlen, terminate, *, match: int = 2,
             raise ValueError(f"{name} has {t.shape[0]} rows, query {b}")
     if ref.shape[0] != b:
         raise ValueError(f"ref has {ref.shape[0]} rows, query {b}")
-    step = max(match, -mismatch, -gap_open, -gap_extend, 0)
-    if not score_only and step * (-(-w // pad_to) * pad_to + r) >= KEY_LIMIT:
-        raise ValueError(f"scores up to {step} a cell over {w} x {r} cells "
-                         f"may reach the full mode's key limit {KEY_LIMIT}")
+    hmax = h_bound(w, r, pad_to, match, mismatch, gap_open, gap_extend)
+    if not score_only and hmax > H_LIMIT:
+        raise ValueError(f"scores over {w} x {r} cells may reach {hmax}, "
+                         "past an int32")
     out = torch.empty((1 if score_only else 5, b), dtype=torch.int32,
                       device=dev)
-    ws = torch.empty(workspace_ints(b, w, r, pad_to, score_only),
+    ws = torch.empty(workspace_ints(b, w, r, pad_to, score_only,
+                                    hmax >= KEY_LIMIT),
                      dtype=torch.int32, device=dev)
     if b:
         lib = _lib()

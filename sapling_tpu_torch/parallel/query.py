@@ -5,8 +5,8 @@ single-threaded query loop (reference: src/sapling_example.cpp:133-141):
 every rank holds the whole index on its own device, query lanes shard
 over the mesh's "dp" axis, and each rank runs the same predict -> window
 -> masked-binary-search cascade (ops.query.plquery_batch) on its own
-slice with no collective inside the query: the dp ranks run different
-trip counts. One all_gather over "dp" returns every rank's positions;
+slice with no collective inside the query (ops.query_cuda.plquery_cuda:
+the plquery kernel on the card). One all_gather over "dp" returns every rank's positions;
 the statistics reductions (error histograms) are one all_reduce.
 """
 
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import pack as packops
-from ..ops.query import plquery_batch
+from ..ops.query_cuda import plquery_cuda
 from .mesh import Mesh, all_gather, all_reduce, dp_slice, pad_to_multiple
 
 
@@ -86,7 +86,7 @@ class ShardedQueryEngine:
         idx = self.index
         dev = idx.device_arrays()
         t = idx.table
-        return plquery_batch(
+        return plquery_cuda(
             dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
             x, dev["prefix64"], dev["prefix3"], q3, n=idx.n, length=length,
             k=idx.k, buckets=idx.buckets, most_over=t.most_over,

@@ -15,6 +15,14 @@ so the decision sequence is the single-device engine's and the results
 are bit-identical to it (and hence to the reference); the added cost is
 one [B]-lane all_reduce a gather.
 
+This engine runs the plain torch cascade (ops.query.plquery_batch,
+binsearch_batch) with its `take` hook on the card too, not the
+one-thread-a-query kernels of ops.query_cuda that every single-device
+path takes: a probe's gather here is a collective over the "idx" group,
+between two of the cascade's steps, and a thread of a kernel cannot join
+an all_reduce in the middle of its query. It is a separate engine that
+the caller picks for an index that does not fit one card, not a fallback.
+
 Composes with data parallelism on a 2-D ("dp", "idx") mesh: query lanes
 shard over "dp", every dp row holds one full copy of the index spread
 over its "idx" columns.

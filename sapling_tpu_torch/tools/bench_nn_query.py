@@ -16,10 +16,10 @@ engines' windows are printed, and the seconds of the audit alone (run
 again). Then nq k-base genome substrings (seed 99) are prepared once as
 device inputs (SaplingIndex.query_inputs) and each engine, the PWL table
 first, is timed over them with CUDA events (utils.timing.timed: `iters`
-calls a timing, three timings, median and spread printed), with its
-bisection rounds of one call (ops.query.ROUNDS); the full position vector
-is then taken untimed and a sample of 100,000 is self-checked
-(SaplingIndex.verify_hits): a failure exits non-zero. The NN engine's
+calls a timing, three timings, median and spread printed); the full
+position vector is then taken untimed, with the call's bisection rounds
+(ops.query.ROUNDS, through stats=True), and a sample of 100,000 is
+self-checked (SaplingIndex.verify_hits): a failure exits non-zero. The NN engine's
 prediction (NNServing.predict_ranks) is also timed alone. The JAX tool's
 data-chained loop with a digest was made for a remote TPU and is not
 copied.
@@ -45,15 +45,16 @@ N_CHECK = 100_000
 def time_engine(tag: str, run, idx: SaplingIndex, codes2d: np.ndarray,
                 iters: int, rng) -> float:
     """q/s of run() (one call over every query: median of 3 CUDA-event
-    timings of `iters` calls), its bisection rounds, and a self-check of
-    a random sample; exits non-zero on a failed check."""
+    timings of `iters` calls), the bisection rounds of run(stats=True),
+    and a self-check of a random sample; exits non-zero on a failed
+    check."""
     nq = codes2d.shape[0]
     run()                                       # warm
     times = [timed(run, idx.device, reps=iters)[1] for _ in range(3)]
     dt = float(np.median(times))
     spread = 100.0 * (max(times) - min(times)) / dt
     query.ROUNDS.update(C=0, D=0)
-    pos = run().cpu().numpy()                   # untimed
+    pos = run(stats=True).cpu().numpy()         # untimed
     sample = rng.choice(nq, min(nq, N_CHECK), replace=False)
     ok = int(idx.verify_hits(codes2d[sample], pos[sample]).sum())
     print(f"[{tag}] {nq/dt:,.0f} q/s ({dt*1e3:.3f} ms a call of {nq}; "
@@ -103,10 +104,12 @@ def main(argv):
     codes2d = idx.codes[starts[:, None] + np.arange(K)]
     inputs = idx.query_inputs(codes2d)
     eng = NNQueryEngine(idx, srv)
-    pwl_qps = time_engine("PWL", lambda: idx.query_device(*inputs, K), idx,
-                          codes2d, iters, rng)
-    nn_qps = time_engine("NN", lambda: eng.query_device(*inputs), idx,
-                         codes2d, iters, rng)
+    pwl_qps = time_engine(
+        "PWL", lambda stats=False: idx.query_device(*inputs, K, stats=stats),
+        idx, codes2d, iters, rng)
+    nn_qps = time_engine(
+        "NN", lambda stats=False: eng.query_device(*inputs, stats=stats),
+        idx, codes2d, iters, rng)
     with torch.no_grad():
         pred_s = [timed(lambda: srv.predict_ranks(inputs[0]), idx.device,
                         reps=iters)[1] for _ in range(3)]

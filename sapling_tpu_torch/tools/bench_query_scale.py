@@ -20,8 +20,10 @@ count is only printed). Each length also prints the peak device memory
 of its calls (torch.cuda.max_memory_allocated) and the bytes of the
 index's device arrays (SaplingIndex.device_bytes).
 
-Each length also prints the host loop rounds of one call
-(ops.query.ROUNDS: bisection rounds, stride steps). hitrate=1 first
+Each length also prints the rounds of the untimed call (ops.query.ROUNDS:
+bisection rounds, stride steps; on the card the kernel's deepest phase D
+and phase C step counts, read with stats=True, which equal the plain
+cascade's host loop rounds). hitrate=1 first
 counts the queries whose predicted rank already matches (the prediction
 probe: ops.predict.predict_pwl, then one ops.query.make_rank_probe).
 table= swaps in a retabled PWL table
@@ -163,15 +165,15 @@ def bench_len(idx: SaplingIndex, qlen: int, nq: int, iters: int,
     if idx.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(idx.device)
 
-    def run():
-        return idx.query_device(x, q3, q_words, qlen, qcfg)
+    def run(stats=False):
+        return idx.query_device(x, q3, q_words, qlen, qcfg, stats=stats)
 
     run()                                       # warm
     times = [timed(run, idx.device, reps=iters)[1] for _ in range(3)]
     dt = float(np.median(times))
     spread = 100.0 * (max(times) - min(times)) / dt
     query.ROUNDS.update(C=0, D=0)
-    pos = run().cpu().numpy()                   # untimed
+    pos = run(stats=True).cpu().numpy()         # untimed
     sample = min(nq, N_CHECK)
     ok = int(idx.verify_hits(codes2d[:sample], pos[:sample]).sum())
     print(f"plquery qLen={qlen} fast3={q3 is not None} on {idx.device}: "

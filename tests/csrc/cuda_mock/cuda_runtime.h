@@ -1,6 +1,7 @@
-// A CPU stand-in for the CUDA runtime features sapling_tpu_torch/csrc/sw.cu
-// uses, so that its kernels compile with g++ and run on host memory
-// (tests/test_torch_sw_cu_on_cpu.py). Every thread of a block is a
+// A CPU stand-in for the CUDA runtime features that the sources in
+// sapling_tpu_torch/csrc/ use, so that their kernels compile with g++ and
+// run on host memory (tests/test_torch_sw_cu_on_cpu.py,
+// tests/test_torch_query_cu_on_cpu.py). Every thread of a block is a
 // std::thread; the warp-synchronous intrinsics meet at a std::barrier per
 // warp. Blocks run one after another; a kernel launch returns when it is
 // done. Not a model of the card's speed or memory, only of its semantics.
@@ -19,12 +20,14 @@
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
+#define __grid_constant__
 
 using std::max;
 using std::min;
 
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
+constexpr int cudaErrorInvalidValue = 1;
 
 struct MockDim { int x; };
 inline thread_local MockDim threadIdx, blockIdx, blockDim;
@@ -32,6 +35,7 @@ inline thread_local MockDim threadIdx, blockIdx, blockDim;
 struct MockWarp {
   std::barrier<> bar{32};
   int vals[32];
+  long long wide[32];
 };
 inline thread_local MockWarp* mock_warp;
 inline thread_local int mock_lane;
@@ -44,7 +48,15 @@ inline int mock_exchange(int v, int src, bool own) {
   mock_warp->bar.arrive_and_wait();
   return r;
 }
-inline int __shfl_up_sync(unsigned, int v, int d, int width = 32) {
+inline long long mock_exchange(long long v, int src, bool own) {
+  mock_warp->wide[mock_lane] = v;
+  mock_warp->bar.arrive_and_wait();
+  const long long r = own ? v : mock_warp->wide[src];
+  mock_warp->bar.arrive_and_wait();
+  return r;
+}
+template <typename T>
+inline T __shfl_up_sync(unsigned, T v, int d, int width = 32) {
   const int src = mock_lane - d;
   return mock_exchange(v, src, src < (mock_lane & ~(width - 1)));
 }
@@ -69,9 +81,28 @@ inline int __vimax3_s32_relu(int a, int b, int c) {
 }
 inline int __viaddmax_s32(int a, int b, int c) { return std::max(a + b, c); }
 
+// read-only loads, leading zeros (of 0: the width, as on the card), and an
+// atomic max that the lanes of a block, all running at once, may share
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+inline int __clz(int x) {
+  return x ? __builtin_clz((unsigned)x) : 32;
+}
+inline int __clzll(long long x) {
+  return x ? __builtin_clzll((unsigned long long)x) : 64;
+}
+inline int atomicMax(int* p, int v) {
+  int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+
 // kernel<<<blocks, threads, smem, stream>>>(args) is rewritten by the test
-// into mock_launch(blocks, threads, smem, [=] { kernel(args); }); sw.cu
-// uses no shared memory
+// into mock_launch(blocks, threads, smem, [=] { kernel(args); }); no
+// kernel uses shared memory
 inline void mock_launch(int blocks, int threads, size_t,
                         const std::function<void()>& kernel) {
   for (int b = 0; b < blocks; ++b) {

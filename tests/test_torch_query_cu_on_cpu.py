@@ -1,0 +1,385 @@
+"""The CUDA source of the query kernels, compiled for the CPU and held
+against the plain plquery_batch / binsearch_batch, bit for bit.
+
+sapling_tpu_torch/csrc/query.cu is compiled with g++ against the stand-in
+`cuda_runtime.h` of tests/csrc/cuda_mock/ (one std::thread a lane, __ldg a
+plain load, __clz of 0 giving 32 as on the card, atomicMax a
+compare-and-swap loop), after each `kernel<<<...>>>(args)` launch is
+rewritten into a call of the mock's `mock_launch`. The wrapper's own
+ctypes calls (ops.query_cuda.launch_plquery / launch_binsearch) then run
+the kernels' code on host tensors, so a fault in the cascade, a probe or
+the prediction shows on the CPU: every position must equal the plain
+PyTorch version's on the same tensors (itself held against sapling_tpu by
+tests/test_torch_query*.py, test_torch_binsearch.py), -1s and the member
+of a duplicate run included, and a subset equals sapling_tpu's own
+query_positions. The stats the kernel writes on request must give the
+plain versions' host loop rounds (ops.query.ROUNDS), and its sector trace
+only sectors of the arrays it reads. Speed, registers and
+the card's compiler are tested only on the card
+(tests/test_torch_query_cuda.py, chip_smoke.py).
+"""
+
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from sapling_tpu_torch.config import IndexConfig, QueryConfig
+from sapling_tpu_torch.index.sapling import SaplingIndex
+from sapling_tpu_torch.ops import query, query_cuda
+from sapling_tpu_torch.ops.predict import predict_pwl
+from sapling_tpu_torch.sim.genomes import benchmark_genome, repeat_genome
+
+from .test_torch_query import GRID, _pair, _queries
+from .test_torch_query_variants import _boundary_queries
+
+MOCK_DIR = os.path.join(os.path.dirname(__file__), "csrc", "cuda_mock")
+_LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<([^>]*)>>>\((.*?)\);",
+                     re.S)
+
+
+def _for_the_cpu(src: str) -> str:
+    """query.cu with its kernel launches mocked: two rev types of each
+    kernel template."""
+    def launch(m):
+        grid, block, smem, _stream = (x.strip() for x in m.group(2).split(","))
+        return (f"mock_launch({grid}, {block}, {smem}, "
+                f"[=] {{ {m.group(1)}({m.group(3)}); }});")
+
+    src, n = _LAUNCH.subn(launch, src)
+    assert n == 4, "query.cu should launch its two kernels at two rev types"
+    return src
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source for the CPU")
+    d = tmp_path_factory.mktemp("query_cu_on_cpu")
+    probe = d / "probe.cpp"
+    probe.write_text("#include <barrier>\nstd::barrier<> b(1);\n")
+    if subprocess.run([gxx, "-std=c++20", "-fsyntax-only", str(probe)],
+                      capture_output=True).returncode != 0:
+        pytest.skip("the mock needs a g++ with C++20 <barrier>")
+    cpp, so = d / "query_on_cpu.cpp", d / "libquery_on_cpu.so"
+    with open(query_cuda.SOURCE) as f:
+        cpp.write_text(_for_the_cpu(f.read()))
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+                    "-Wno-unknown-pragmas", "-I", MOCK_DIR, "-o", str(so),
+                    str(cpp)], check=True)
+    return query_cuda.bind(str(so))
+
+
+TRACE = 64   # sector numbers a lane records in the tests
+
+
+def _check_trace(trace, sectors, arrays):
+    """The first min(sectors, TRACE) entries of each lane's trace are the
+    numbers of sectors inside the index arrays the kernel reads, the rest
+    -1."""
+    rec = trace >= 0
+    want = np.minimum(sectors.numpy(), trace.shape[1])
+    np.testing.assert_array_equal(rec.sum(1).numpy(), want)
+    assert (rec == (torch.arange(trace.shape[1]) < torch.from_numpy(
+        want)[:, None])).all()
+    inside = torch.zeros_like(rec)
+    for t in arrays:
+        if t is not None:
+            lo = t.data_ptr() >> 5
+            hi = (t.data_ptr() + t.numel() * t.element_size() - 1) >> 5
+            inside |= (trace >= lo) & (trace <= hi)
+    assert (inside == rec).all()
+
+
+def _kernel_plquery(lib, args, kw):
+    """The kernel on plquery_batch's arguments (host tensors): (positions,
+    int32 [2, B] probes and sectors a lane, [C, D] deepest steps), its
+    sector trace checked."""
+    (packed, rev, xlist, ylist, q_words, x, prefix, prefix3, q3,
+     bounds) = args
+    kw = dict(kw)
+    pred64 = kw.pop("pred64", None)
+    kw.setdefault("max_stride_steps", 1 << 20)
+    kw.setdefault("adaptive_bounds", False)
+    b = x.shape[0]
+    out = torch.full((b,), -777, dtype=torch.int64)
+    lane = torch.full((2, b), -1, dtype=torch.int32)
+    depth = torch.zeros(2, dtype=torch.int32)
+    trace = torch.full((b, TRACE), -5, dtype=torch.int64)
+    form = query_cuda.probe_form(kw["length"], kw["k"], prefix, prefix3, q3)
+    rc = query_cuda.launch_plquery(
+        lib, None, packed, rev, xlist, ylist, q_words, x, prefix, prefix3,
+        q3, bounds, pred64, out, lane, depth, trace, form=form, **kw)
+    assert rc == 0
+    _check_trace(trace, lane[1], (packed, rev, xlist, ylist, prefix, prefix3,
+                                  bounds))
+    return out, lane, depth.tolist()
+
+
+def _check_plquery(lib, args, kw, want_c=None):
+    """Kernel == plquery_batch on every lane, and its stats' deepest steps
+    == the plain path's ROUNDS; returns the positions and the rounds."""
+    query.ROUNDS.update(C=0, D=0)
+    want = query.plquery_batch(*args, **kw)
+    rounds = dict(query.ROUNDS)
+    got, lane, (c, d) = _kernel_plquery(lib, args, kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (c, d) == (rounds["C"], rounds["D"])
+    assert (lane[0] >= 1).all() and (lane[1] >= lane[0]).all()
+    if want_c is not None:
+        assert (c > 0) == want_c, rounds
+    return got.numpy(), rounds
+
+
+def _args(idx, codes, with_bounds=False):
+    dev = idx.device_arrays()
+    x, q3, q_words = idx.query_inputs(codes)
+    return (dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
+            x, dev["prefix64"], dev["prefix3"], q3,
+            dev["bounds"] if with_bounds else None)
+
+
+def _kw(idx, length, qcfg=None, **over):
+    t = idx.table
+    qcfg = qcfg or QueryConfig()
+    kw = dict(n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
+              most_over=t.most_over, most_under=t.most_under,
+              max_over=t.max_over, max_under=t.max_under,
+              max_stride_steps=qcfg.max_stride_steps,
+              adaptive_bounds=qcfg.adaptive_bounds)
+    kw.update(over)
+    return kw
+
+
+def _index(seq, k, buckets, **cfg):
+    return SaplingIndex.build(seq, IndexConfig(k=k, buckets=buckets, **cfg),
+                              device="cpu")
+
+
+def _bare(idx):
+    """idx without prefix64/prefix3: every probe reads the packed genome."""
+    out = SaplingIndex.from_arrays(idx, device="cpu")
+    out.prefix64 = out.prefix3 = None
+    return out
+
+
+def test_prediction_kernel_source_matches_predict_pwl(lib):
+    """The kernel's prediction, read through an index whose every rank
+    matches the query (so the prediction probe answers) and whose rev is
+    the identity (so the position is the predicted rank): equal to
+    ops.predict.predict_pwl on crafted checkpoints, with ties that round
+    half up on both sides of xlo, empty buckets (d == 0), x below its
+    bucket's xlo, and predictions clipped at 0 and n - 1."""
+    k, buckets, n, b = 21, 6, 1 << 16, 4000
+    nb = 1 << buckets
+    rng = np.random.default_rng(17)
+    shift = 2 * k - buckets
+    starts = np.arange(nb + 1, dtype=np.int64) << shift
+    xlist = starts + rng.integers(-(1 << 20), 1 << 20, nb + 1)
+    xlist[5:9] = xlist[4]                     # empty buckets: d == 0
+    # bucket 9: xlo 1,000 past its first k-mer, d == 2, m == 3, so x = xlo
+    # + 1 and x = xlo - 1 fall on halves (3 * 1 / 2)
+    xlist[9] = starts[9] + 1000
+    xlist[10] = xlist[9] + 2
+    ylist = np.sort(rng.integers(-500, n + 500, nb + 1))
+    ylist[10:] += ylist[9] + 3 - ylist[10]
+    x = rng.integers(0, nb << shift, b)
+    x[:80] = xlist[9] + rng.integers(-2, 3, 80)
+    t = {name: torch.from_numpy(np.ascontiguousarray(a, np.int64))
+         for name, a in (("x", x), ("xlist", xlist), ("ylist", ylist))}
+    want = predict_pwl(t["x"], t["xlist"], t["ylist"], 2 * k, buckets, n)
+    q3 = torch.full((b,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
+    prefix3 = torch.full((n,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
+    rev = torch.arange(n, dtype=torch.int32)
+    args = (None, rev, t["xlist"], t["ylist"], None, t["x"], None, prefix3,
+            q3, None)
+    kw = dict(n=n, length=21, k=k, buckets=buckets, most_over=5,
+              most_under=5, max_over=9, max_under=9)
+    got, _, _ = _kernel_plquery(lib, args, kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), query.plquery_batch(*args, **kw).numpy())
+    assert 0 in got and n - 1 in got
+
+
+@pytest.mark.parametrize("gen,k,buckets,length", GRID)
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_plquery_kernel_source_matches_plain(lib, gen, k, buckets, length,
+                                             prefix):
+    """tests/test_torch_query.py's grid, with and without prefix arrays
+    (fast3, prefix64 and packed probes)."""
+    seq = gen()
+    idx = _index(seq, k, buckets, prefix_lookup=prefix)
+    codes = _queries(seq, 2000, length, seed=99)
+    _check_plquery(lib, _args(idx, codes), _kw(idx, length))
+
+
+@pytest.mark.parametrize("gen,k,buckets,length",
+                         [GRID[0], GRID[2], GRID[4], GRID[7]])
+def test_kernel_source_matches_sapling_tpu(lib, gen, k, buckets, length):
+    """A subset of the grid against sapling_tpu's own query_positions: the
+    slice as a whole, held against JAX."""
+    seq = gen()
+    jidx, tidx = _pair(seq, k, buckets)
+    codes = _queries(seq, 1000, length, seed=7)
+    want = np.asarray(jidx.query_positions(codes))
+    for idx in (tidx, _bare(tidx)):
+        got, _ = _check_plquery(lib, _args(idx, codes), _kw(idx, length))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_length_sweep_kernel_source(lib, prefix):
+    """The reference's sweep k-10 ... k+80, and a length past the seven
+    query words a probe holds in registers (a second window)."""
+    seq = repeat_genome(4000, 37, seed=40)
+    k = 12
+    idx = _index(seq, k, 8, prefix_lookup=prefix)
+    for length in (k - 10, k, k + 10, k + 20, k + 30, k + 80, 130):
+        codes = _queries(seq, 800, length, seed=41 + length)
+        got, _ = _check_plquery(lib, _args(idx, codes), _kw(idx, length))
+        assert idx.verify_hits(codes, got)[:800].all(), length
+
+
+@pytest.fixture(scope="module")
+def k21():
+    """One k=21 index with duplications (test_torch_query_variants's)."""
+    seq = np.concatenate([repeat_genome(3000, period=48, seed=83),
+                          benchmark_genome(27_000, seed=84)])
+    return _index(seq, 21, 9)
+
+
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_boundary_queries_kernel_source(lib, k21, prefix):
+    """Poly-A, poly-T, genome-tail and absent queries through every probe
+    form (fast3 11/21, prefix64 31/32, packed 45)."""
+    idx = k21 if prefix else _bare(k21)
+    for length in (11, 21, 31, 32, 45):
+        codes = _boundary_queries(idx, length, 1500, seed=length)
+        _check_plquery(lib, _args(idx, codes), _kw(idx, length))
+
+
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_adaptive_bounds_kernel_source(lib, k21, prefix):
+    idx = k21 if prefix else _bare(k21)
+    assert idx.table.bounds is not None
+    for length in (11, 21, 33, 45):
+        codes = _queries(idx.codes, 1500, length, seed=61 + length)
+        _check_plquery(lib, _args(idx, codes, with_bounds=True),
+                       _kw(idx, length, QueryConfig(adaptive_bounds=True)))
+
+
+def _shifted_pred(idx, codes, shift, seed):
+    """The PWL prediction moved by up to +-shift ranks (seeded)."""
+    x = torch.from_numpy(idx.kmerize_batch(codes))
+    t = idx.table
+    base = predict_pwl(x, torch.from_numpy(t.xlist),
+                       torch.from_numpy(t.ylist), 2 * idx.k, idx.buckets,
+                       idx.n)
+    rng = np.random.default_rng(seed)
+    noise = torch.from_numpy(rng.integers(-shift, shift + 1, len(codes)))
+    return torch.clamp(base + noise, 0, idx.n - 1)
+
+
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_pred64_kernel_source(lib, k21, prefix):
+    """Shifted predictions through the pred64 seam: with the table's own
+    windows, so that lanes escalate to the max window and, past k, run the
+    stride scan; and with windows widened to cover the shift."""
+    idx = k21 if prefix else _bare(k21)
+    t = idx.table
+    wide = dict(most_over=t.most_over + 300, most_under=t.most_under + 300,
+                max_over=t.max_over + 300, max_under=t.max_under + 300)
+    for length in (16, 21, 33, 45):
+        codes = _queries(idx.codes, 1500, length, seed=5 + length)
+        pred = _shifted_pred(idx, codes, 300, seed=length)
+        args = _args(idx, codes)
+        _check_plquery(lib, args, _kw(idx, length, pred64=pred),
+                       want_c=length > idx.k)
+        _check_plquery(lib, args, _kw(idx, length, pred64=pred, **wide))
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_max_stride_steps_kernel_source(lib, k21, steps):
+    """The phase C cap on lanes that scan (shifted predictions)."""
+    for idx in (k21, _bare(k21)):
+        for length in (33, 60):
+            codes = _queries(idx.codes, 1500, length, seed=9 + length)
+            pred = _shifted_pred(idx, codes, 400, seed=3)
+            _, rounds = _check_plquery(
+                lib, _args(idx, codes),
+                _kw(idx, length, max_stride_steps=steps, pred64=pred))
+            assert rounds["C"] == steps
+
+
+@pytest.mark.parametrize("pos_dtype", ["uint32", "int64"])
+def test_rank_storage_kernel_source(lib, pos_dtype):
+    """rev as an int32 view holding uint32 bits, and as int64."""
+    seq = benchmark_genome(30_000, seed=91)
+    idx = _index(seq, 21, 10, pos_dtype=pos_dtype)
+    want_dtype = torch.int64 if pos_dtype == "int64" else torch.int32
+    assert idx.device_arrays()["rev"].dtype == want_dtype
+    for form_idx in (idx, _bare(idx)):
+        for length in (16, 21, 31, 45):
+            codes = _queries(seq, 1000, length, seed=length)
+            _check_plquery(lib, _args(form_idx, codes),
+                           _kw(form_idx, length))
+
+
+def _kernel_binsearch(lib, packed, rev, q_words, n, length):
+    b = q_words.shape[1]
+    out = torch.full((b,), -777, dtype=torch.int64)
+    lane = torch.full((2, b), -1, dtype=torch.int32)
+    depth = torch.zeros(2, dtype=torch.int32)
+    trace = torch.full((b, TRACE), -5, dtype=torch.int64)
+    rc = query_cuda.launch_binsearch(lib, None, packed, rev, q_words, out,
+                                     lane, depth, trace, n=n, length=length)
+    assert rc == 0
+    _check_trace(trace, lane[1], (packed, rev))
+    return out, lane, depth.tolist()
+
+
+@pytest.mark.parametrize("pos_dtype", ["int32", "uint32", "int64"])
+def test_binsearch_kernel_source_matches_plain(lib, pos_dtype):
+    """The classic binary search, absent and boundary queries included, at
+    lengths from below k to past one register window."""
+    seq = np.concatenate([repeat_genome(2000, period=31, seed=5),
+                          benchmark_genome(8000, seed=6)])
+    idx = _index(seq, 16, 8, pos_dtype=pos_dtype)
+    dev = idx.device_arrays()
+    for length in (5, 16, 21, 40, 130):
+        codes = _boundary_queries(idx, length, 1000, seed=length)
+        qw = idx.query_words(codes)
+        query.ROUNDS.update(C=0, D=0)
+        want = query.binsearch_batch(dev["packed"], dev["rev"], qw,
+                                     n=idx.n, length=length)
+        got, lane, (c, d) = _kernel_binsearch(lib, dev["packed"],
+                                              dev["rev"], qw, idx.n, length)
+        np.testing.assert_array_equal(got.numpy(), want.numpy(),
+                                      err_msg=f"L={length}")
+        assert (c, d) == (0, query.ROUNDS["D"])
+        assert (lane[0] >= 1).all() and (lane[1] >= lane[0]).all()
+
+
+def test_wrappers_take_the_plain_path_on_the_cpu(k21):
+    """plquery_cuda / binsearch_cuda on host tensors are the plain
+    versions, and launch nothing."""
+    codes = _queries(k21.codes, 300, 33, seed=1)
+    args, kw = _args(k21, codes), _kw(k21, 33)
+    before = dict(query_cuda.LAUNCHES)
+    np.testing.assert_array_equal(
+        query_cuda.plquery_cuda(*args, stats=True, **kw).numpy(),
+        query.plquery_batch(*args, **kw).numpy())
+    dev = k21.device_arrays()
+    qw = k21.query_words(codes)
+    np.testing.assert_array_equal(
+        query_cuda.binsearch_cuda(dev["packed"], dev["rev"], qw, n=k21.n,
+                                  length=33).numpy(),
+        query.binsearch_batch(dev["packed"], dev["rev"], qw, n=k21.n,
+                              length=33).numpy())
+    assert query_cuda.LAUNCHES == before

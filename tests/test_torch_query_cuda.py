@@ -1,0 +1,180 @@
+"""The CUDA query kernels on the card (skipped without a GPU).
+
+The kernels (sapling_tpu_torch/csrc/query.cu) have no CPU mode, so these
+tests need a CUDA device; here they skip. They import neither jax nor
+sapling_tpu, so they run on a machine without JAX, from the repo root:
+
+    python -m pytest --noconftest tests/test_torch_query_cuda.py -q
+
+The reference is the plain PyTorch cascade on the same CUDA tensors
+(ops.query.plquery_batch / binsearch_batch, held against sapling_tpu by
+tests/test_torch_query*.py and test_torch_binsearch.py): every position
+must be equal, -1s and the member of a duplicate run included, and the
+kernel's stats must give the plain path's rounds. tests/
+test_torch_query_cu_on_cpu.py holds the same source on the CPU.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sapling_tpu_torch.config import IndexConfig, QueryConfig
+from sapling_tpu_torch.index.sapling import SaplingIndex
+from sapling_tpu_torch.ops import pack as packops
+from sapling_tpu_torch.ops import query, query_cuda
+from sapling_tpu_torch.ops.predict import predict_pwl
+from sapling_tpu_torch.sim.genomes import benchmark_genome, repeat_genome
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def _queries(seq, num, length, seed):
+    """In-genome substrings plus 1/8 random (mostly absent) queries."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, len(seq) - length + 1, num)
+    q = seq[pos[:, None] + np.arange(length)]
+    rand = np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, (max(1, num // 8), length))]
+    return packops.encode_bases(np.concatenate([q, rand]))
+
+
+@pytest.fixture(scope="module")
+def seq():
+    return np.concatenate([repeat_genome(20_000, period=48, seed=83),
+                           benchmark_genome(400_000, seed=84)])
+
+
+def _index(seq, dev, prefix=True, pos_dtype="auto"):
+    idx = SaplingIndex.build(seq, IndexConfig(
+        k=21, buckets=14, prefix_lookup=prefix, pos_dtype=pos_dtype),
+        keep_aligner_arrays=False, device="cpu")
+    return idx.to(dev)
+
+
+def _call(fn, idx, codes, qcfg=None, pred64=None, **over):
+    dev = idx.device_arrays()
+    x, q3, q_words = idx.query_inputs(codes)
+    t = idx.table
+    qcfg = qcfg or QueryConfig()
+    kw = dict(n=idx.n, length=codes.shape[1], k=idx.k, buckets=idx.buckets,
+              most_over=t.most_over, most_under=t.most_under,
+              max_over=t.max_over, max_under=t.max_under,
+              max_stride_steps=qcfg.max_stride_steps,
+              adaptive_bounds=qcfg.adaptive_bounds, pred64=pred64)
+    kw.update(over)
+    return fn(dev["packed"], dev["rev"], dev["xlist"], dev["ylist"],
+              q_words, x, dev["prefix64"], dev["prefix3"], q3, dev["bounds"],
+              **kw)
+
+
+def _same(idx, codes, **kw):
+    """Kernel == plain on the card, and the kernel's rounds == the plain
+    path's; one launch a call."""
+    query.ROUNDS.update(C=0, D=0)
+    want = _call(query.plquery_batch, idx, codes, **kw)
+    rounds = dict(query.ROUNDS)
+    query.ROUNDS.update(C=0, D=0)
+    before = query_cuda.LAUNCHES["plquery"]
+    got = _call(query_cuda.plquery_cuda, idx, codes, stats=True, **kw)
+    torch.cuda.synchronize()
+    assert query_cuda.LAUNCHES["plquery"] == before + 1
+    assert torch.equal(got, want), int((got != want).sum())
+    assert dict(query.ROUNDS) == rounds
+    return got, rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_plquery_kernel_matches_plain(dev, seq, prefix):
+    """Every probe form at the reference's lengths, with adaptive bounds,
+    and a shifted pred64 with the stride cap."""
+    idx = _index(seq, dev, prefix)
+    for length in (11, 16, 21, 31, 32, 41, 51, 101, 130):
+        codes = _queries(seq, 20_000, length, seed=length)
+        got, _ = _same(idx, codes)
+        ok = idx.verify_hits(codes, got.cpu().numpy())
+        assert length < idx.k or ok[:20_000].all(), length
+        _same(idx, codes, qcfg=QueryConfig(adaptive_bounds=True))
+        x = torch.from_numpy(idx.kmerize_batch(codes)).to(dev)
+        d = idx.device_arrays()
+        pred = predict_pwl(x, d["xlist"], d["ylist"], 2 * idx.k,
+                           idx.buckets, idx.n)
+        rng = np.random.default_rng(length)
+        pred = torch.clamp(pred + torch.from_numpy(
+            rng.integers(-300, 301, len(codes))).to(dev), 0, idx.n - 1)
+        _, rounds = _same(idx, codes, pred64=pred)
+        assert (rounds["C"] > 0) == (length > idx.k), rounds
+        _same(idx, codes, pred64=pred, max_stride_steps=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_dtype", ["uint32", "int64"])
+def test_plquery_kernel_rank_storage(dev, seq, pos_dtype):
+    idx = _index(seq, dev, pos_dtype=pos_dtype)
+    want = torch.int64 if pos_dtype == "int64" else torch.int32
+    assert idx.device_arrays()["rev"].dtype == want
+    for length in (21, 45):
+        _same(idx, _queries(seq, 20_000, length, seed=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_dtype", ["int32", "int64"])
+def test_binsearch_kernel_matches_plain(dev, seq, pos_dtype):
+    idx = _index(seq, dev, pos_dtype=pos_dtype)
+    d = idx.device_arrays()
+    for length in (11, 21, 101):
+        qw = idx.query_words(_queries(seq, 20_000, length, seed=5))
+        query.ROUNDS.update(C=0, D=0)
+        want = query.binsearch_batch(d["packed"], d["rev"], qw, n=idx.n,
+                                     length=length)
+        rounds = dict(query.ROUNDS)
+        query.ROUNDS.update(C=0, D=0)
+        got = query_cuda.binsearch_cuda(d["packed"], d["rev"], qw, n=idx.n,
+                                        length=length, stats=True)
+        assert torch.equal(got, want)
+        assert dict(query.ROUNDS) == rounds
+        assert idx.binsearch_device(qw, length).equal(want)
+
+
+@pytest.mark.cuda
+def test_entry_points_launch_the_kernels(dev, seq):
+    """SaplingIndex.query_device and binsearch_device launch once a call;
+    an empty batch launches nothing."""
+    idx = _index(seq, dev)
+    codes = _queries(seq, 1000, 21, seed=8)
+    before = dict(query_cuda.LAUNCHES)
+    idx.query_device(*idx.query_inputs(codes), 21)
+    idx.binsearch_device(idx.query_words(codes), 21)
+    idx.query_device(*idx.query_inputs(codes[:0]), 21)
+    torch.cuda.synchronize()
+    assert query_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_what_the_kernel_does_not_take(dev, seq):
+    idx = _index(seq, dev)
+    codes = _queries(seq, 100, 33, seed=2)
+    d = idx.device_arrays()
+    x, _q3, qw = idx.query_inputs(codes)
+    with pytest.raises(ValueError):                      # device
+        _call(query_cuda.plquery_cuda, idx, codes, pred64=torch.zeros(
+            len(codes), dtype=torch.int64))
+    with pytest.raises(ValueError):                      # dtype
+        query_cuda.binsearch_cuda(d["packed"], d["rev"], qw.int(), n=idx.n,
+                                  length=33)
+    with pytest.raises(ValueError):                      # layout
+        query_cuda.binsearch_cuda(d["packed"], d["rev"], qw.t().contiguous()
+                                  .t(), n=idx.n, length=33)
+    with pytest.raises(ValueError):                      # short rev
+        query_cuda.binsearch_cuda(d["packed"], d["rev"][:10], qw, n=idx.n,
+                                  length=33)
+    with pytest.raises(ValueError):                      # no bounds
+        query_cuda.plquery_cuda(
+            d["packed"], d["rev"], d["xlist"], d["ylist"], qw, x, n=idx.n,
+            length=33, k=idx.k, buckets=idx.buckets, most_over=1,
+            most_under=1, max_over=2, max_under=2, adaptive_bounds=True)

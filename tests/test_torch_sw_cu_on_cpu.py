@@ -11,6 +11,8 @@ schedule, hand-offs or masks shows on the CPU. Every field must equal the
 plain PyTorch `ops.sw.sw_pass` (itself held against sapling_tpu by
 tests/test_torch_sw.py). Speed, registers and the card's compiler are
 tested only on the card (tests/test_torch_sw_cuda.py, chip_smoke.py).
+The full mode's int64-key instantiation, which takes passes whose H could
+pass the int32 key's 2^20, is also held against sapling_tpu's sw_pass.
 """
 
 import os
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from sapling_tpu.ops import sw as jsw
 from sapling_tpu_torch.ops import sw, sw_cuda
 
 MOCK_DIR = os.path.join(os.path.dirname(__file__), "csrc", "cuda_mock")
@@ -66,8 +69,10 @@ def launch(tmp_path_factory):
         b, w = q.shape
         r = ref.shape[1]
         out = np.full((1 if score_only else 5, b), -777, np.int32)
-        ws = np.full(max(sw_cuda.workspace_ints(b, w, r, pad_to, score_only),
-                         1), -555, np.int32)
+        key64 = sw_cuda.h_bound(w, r, pad_to, match, mismatch, gap_open,
+                                gap_extend) >= sw_cuda.KEY_LIMIT
+        ws = np.full(max(sw_cuda.workspace_ints(b, w, r, pad_to, score_only,
+                                                key64), 1), -555, np.int32)
         rc = lib.sw_pass_launch(
             q.ctypes.data, ref.ctypes.data, ql.ctypes.data, rl.ctypes.data,
             tm.ctypes.data, out.ctypes.data, ws.ctypes.data, b, w, r, match,
@@ -174,3 +179,42 @@ def test_full_kernel_source_matches_plain(launch, b, w, r, pad_to, scoring,
     for i, k in enumerate(("score", "ref_end", "read_end", "score2",
                            "ref_end2")):
         np.testing.assert_array_equal(got[i], want[k].numpy(), err_msg=k)
+
+
+# (B, W, R, pad_to, scoring, terminate) whose H passes 2^21, where an
+# int32 key H * 1024 + row overflows: match 2,000 over two row tiles, and
+# match 25,000 over one tile at the aligner's width (both take the
+# int64-key instantiation)
+KEY64_CASES = [
+    pytest.param(6, 1100, 1100, 16, dict(match=2000), False, id="tiles2"),
+    pytest.param(6, 1100, 1100, 8, dict(match=2000, mismatch=1400,
+                                        gap_open=1800, gap_extend=600,
+                                        mask_len=40), True,
+                 id="tiles2-pad8-term"),
+    pytest.param(12, 100, 128, 16, dict(match=25000, mismatch=6000), True,
+                 id="w100-term")]
+
+
+@pytest.mark.parametrize("b,w,r,pad_to,scoring,terminate", KEY64_CASES)
+def test_full_kernel_source_past_the_int32_key(launch, b, w, r, pad_to,
+                                               scoring, terminate):
+    """Inputs that the int32 key's limit once refused, where JAX aligns:
+    every field equal to the plain sw_pass and to sapling_tpu's."""
+    kw = dict(scoring, pad_to=pad_to, second_inclusive=pad_to == 8)
+    q, ql, ref, rl = _batch(w + r + b, b, w, r)
+    ln = min(w, r - 2)
+    q[0] %= 4                           # no N: one pair whose H passes 2^20
+    ref[0, 2:2 + ln] = q[0, :ln]
+    ql[0], rl[0] = w, r
+    t = [torch.from_numpy(a) for a in (q, ql, ref, rl)]
+    tm = np.full(b, -1, np.int32)
+    if terminate:
+        tm = sw.sw_pass(*t, torch.from_numpy(tm), **kw)["score"].numpy()
+    got = launch(q, ql, ref, rl, tm, **kw)
+    want = sw.sw_pass(*t, torch.from_numpy(tm), **kw)
+    jax = jsw.sw_pass(q, ql, ref, rl, tm, **kw)
+    assert want["score"].max() >= 1 << 21
+    for i, k in enumerate(("score", "ref_end", "read_end", "score2",
+                           "ref_end2")):
+        np.testing.assert_array_equal(got[i], want[k].numpy(), err_msg=k)
+        np.testing.assert_array_equal(got[i], np.asarray(jax[k]), err_msg=k)

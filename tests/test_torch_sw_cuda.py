@@ -90,8 +90,28 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         sw_cuda.sw_pass_cuda(q, ql.cpu(), ref, rl, tm)          # device
     with pytest.raises(ValueError):
         sw_cuda.sw_pass_cuda(q[:, ::2], ql, ref, rl, tm)        # layout
-    with pytest.raises(ValueError):                             # key range
-        sw_cuda.sw_pass_cuda(q, ql, ref, rl, tm, match=1 << 16)
+    with pytest.raises(ValueError):                             # H range
+        sw_cuda.sw_pass_cuda(q, ql, ref, rl, tm, match=1 << 25)
+
+
+@pytest.mark.cuda
+def test_full_kernel_past_the_int32_key(dev):
+    """Scores past 2^21, where an int32 key H * 1024 + row overflows: the
+    full mode's int64-key instantiation equals the plain sw_pass (the
+    wrapper refused these inputs before)."""
+    rng = np.random.default_rng(4)
+    q, ql, ref, rl = _batch(rng, 8, 1100, 1100, dev)
+    q[0] = q[0] % 4
+    ref[0, :1100] = q[0]
+    ql[0], rl[0] = 1100, 1100
+    tm = torch.full((8,), -1, dtype=torch.int32, device=dev)
+    for kw in (dict(match=1 << 16), dict(match=3000, pad_to=8,
+                                         second_inclusive=True)):
+        got = sw_cuda.sw_pass_cuda(q, ql, ref, rl, tm, **kw)
+        want = sw.sw_pass(q, ql, ref, rl, tm, **kw)
+        assert int(want["score"].max()) >= 1 << 21
+        for k in want:
+            assert torch.equal(got[k], want[k]), (kw, k)
 
 
 @pytest.mark.cuda
