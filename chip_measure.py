@@ -2,6 +2,8 @@
 """Chip measurements of the PyTorch port on one GPU (the numbers in PERF.md).
 
     python3 chip_measure.py [out.json] [--against=path/to/other/sw.cu]
+    python3 chip_measure.py [out.json] --against-query=path/to/query.cu ...
+        [--big=path/to/artifact.stpu.npz]
 
 Run from the root of a checkout on a machine with one NVIDIA GPU, after
 chip_smoke.py has shown the port right there: this script times, it does
@@ -36,6 +38,24 @@ and queries (same seeds) and measures:
   baselines: the plain and the llcp/rlcp-pruned binary search on the
            21-base queries, three timings and one profiled call each.
 
+With --against-query (one or more), it measures only this instead:
+
+  query_ab: each other version of csrc/query.cu (same C entry points,
+           built with the same flags: PR 11's, or another design) timed
+           in turns with this tree's (other, this, this, other, AB_ROUNDS
+           times; CUDA events) on the same CUDA tensors, their positions
+           held equal, in these cases, each in chip_smoke's
+           order and shuffled (chip_smoke.shuffled): the 4.6 Mbp k=21 index
+           fast3 L=21 and packed L=101 without prefix arrays, chip_smoke
+           phase 8's 46 Mbp artifact (no prefix arrays) at L=21 and 101,
+           and the binary search at L=21 on both (--big: another
+           artifact in place of the 46 Mbp one); each case's bound
+           (chip_smoke.query_bound_ms over this build's sector trace) and
+           lane utilisation (chip_smoke.lane_utilisation); and of each
+           build the registers, stack and spills of every kernel (nvcc's
+           -Xptxas -v log) and the CALL instructions in its SASS by target
+           (cuobjdump): the int64 division subroutine's.
+
 Profiled calls also give the device's busy share within their own
 window. Prints one line per measurement and writes all of them, with the
 card's name, power limit and UUID and the host's name, as JSON to
@@ -47,6 +67,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import sys
 import tempfile
 import time
@@ -59,6 +80,7 @@ N_SWEEP = cs.SW_SWEEP      # candidates of one 16,384-read aligner block
 SASS_KERNEL, SASS_CELLS = "sw_kernelILi8ELi14ELb0EE", 28
 ALIGN_SIZES = (20_000, 100_000)
 RUNS = 3
+AB_ROUNDS = 8     # (other, this, this, other) rounds of a query_ab case
 
 
 def log(msg: str) -> None:
@@ -188,6 +210,158 @@ def sw_times(dev, sm_clock_mhz: float, against: str | None = None) -> dict:
         f"instructions for {SASS_CELLS} cells "
         f"({out['sass']['per_cell']:.2f} a cell); "
         + json.dumps(out["sass"]["opcodes"]))
+    return out
+
+
+def build_report(lib_path: str) -> dict:
+    """{kernel: {registers, stack, spill_stores, spill_loads, calls}} of a
+    query library: nvcc's -Xptxas -v log beside it (ops.sw_cuda.
+    build_kernel keeps it) and the CALL instructions of each kernel's SASS
+    by target address (cuobjdump names no target; query.cu calls only the
+    int64 division subroutine, once for each of predict_pwl's two
+    divisions, so `calls` counts those)."""
+    import collections
+    import re
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    def short(mangled):
+        m = re.search(r"(plquery_kernel|binsearch_kernel)I(?:Li(\d+)E)?"
+                      r"([il])E", mangled)
+        if not m:
+            return mangled
+        rev = {"i": "int32", "l": "int64"}[m.group(3)]
+        return f"{m.group(1)}<{m.group(2) + ', ' if m.group(2) else ''}{rev}>"
+
+    out = {}
+    with open(lib_path[:-3] + ".log") as f:
+        log_text = f.read()
+    for m in re.finditer(
+            r"Function properties for (\S+)\s+(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\s+"
+            r"ptxas info\s+: Used (\d+) registers", log_text):
+        out[short(m.group(1))] = dict(
+            stack=int(m.group(2)), spill_stores=int(m.group(3)),
+            spill_loads=int(m.group(4)), registers=int(m.group(5)))
+    sass = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", lib_path],
+        capture_output=True, text=True, check=True).stdout
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = short(func.split("\n", 1)[0].strip())
+        calls = collections.Counter(
+            t.strip() for t in re.findall(r"CALL\.\S*\s+([^;]*);", func))
+        out.setdefault(name, {})["calls"] = dict(calls)
+    return out
+
+
+def with_query_lib(lib, fn):
+    """fn() with query_cuda's launches going to the library `lib`."""
+    from sapling_tpu_torch.ops import query_cuda
+
+    saved, query_cuda._LIB = query_cuda._LIB, lib
+    try:
+        return fn()
+    finally:
+        query_cuda._LIB = saved
+
+
+def query_cases(dev, idx21, big):
+    """The query_ab cases: (name, call(**stats) -> positions, lanes,
+    coalesced bytes a lane), each in chip_smoke's order and shuffled."""
+    from sapling_tpu_torch.ops import query_cuda
+
+    def plquery(tag, idx, length, codes):
+        args, kw, form, lane_bytes = cs.plquery_inputs(idx, length, codes)
+        return (f"{tag} L={length} {form}", lambda **st:
+                query_cuda.plquery_cuda(*args, **st, **kw), len(codes),
+                lane_bytes)
+
+    def binsearch(tag, didx, codes):
+        qw, kw, lane_bytes = cs.binsearch_inputs(didx, codes)
+        d = didx.device_arrays()
+        return (f"{tag} binary search L={codes.shape[1]}", lambda **st:
+                query_cuda.binsearch_cuda(d["packed"], d["rev"], qw, **st,
+                                          **kw), len(codes), lane_bytes)
+
+    cases = []
+    for order in ("smoke", "shuffled"):
+        def codes_of(idx, length):
+            codes, _n_in = cs.query_codes(idx.codes, length)
+            return cs.shuffled(codes) if order == "shuffled" else codes
+
+        didx, bare = idx21.to(dev), cs.without_prefix(idx21).to(dev)
+        tag = f"{idx21.n} bp {order}"
+        cases += [plquery(tag, didx, cs.QUERY_LEN,
+                          codes_of(idx21, cs.QUERY_LEN)),
+                  plquery(tag + " no_prefix", bare, 101,
+                          codes_of(idx21, 101))]
+        tag = f"{big.n} bp {order}"
+        cases += [plquery(tag, big, length, codes_of(big, length))
+                  for length in cs.SCALE_LENGTHS]
+        cases += [binsearch(f"{idx21.n} bp {order}", didx,
+                            codes_of(idx21, cs.QUERY_LEN)),
+                  binsearch(tag, big, codes_of(big, cs.QUERY_LEN))]
+    return cases
+
+
+def query_ab(dev, idx21, art: str, others: list[str]) -> dict:
+    """Each of `others` (query.cu versions) in turns with this tree's on
+    query_cases; their builds' reports (build_report)."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from sapling_tpu_torch.ops import query_cuda, sw_cuda
+    from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
+
+    srcs = [query_cuda.SOURCE, *others]
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        paths = list(pool.map(sw_cuda.build_kernel, srcs))
+    builds = {src: build_report(path) for src, path in zip(srcs, paths)}
+    for src, rep in builds.items():
+        log(f"query_ab build {src}: " + json.dumps(rep))
+    libs = [query_cuda.bind(path) for path in paths]
+    big = load_for_queries(art, dev)
+    out = dict(builds=builds, cases=[])
+    for name, call, b, lane_bytes in query_cases(dev, idx21, big):
+        mine = call()
+        for src, lib in zip(others, libs[1:]):
+            theirs = with_query_lib(lib, call)
+            if not torch.equal(theirs, mine):
+                raise AssertionError(f"{src} disagrees with this tree: {name}")
+        call(stats=True, trace=cs.QK_TRACE)
+        st = query_cuda.LAST_STATS
+        tr = st["trace"]
+        distinct = int(torch.unique(tr[tr >= 0]).numel())
+        probes = st["probes"].cpu()
+        row = dict(name=name, bound_ms=cs.query_bound_ms(distinct, b,
+                                                         lane_bytes),
+                   util=cs.lane_utilisation(probes),
+                   probes=int(probes.sum()), against={})
+        del tr, st
+        query_cuda.LAST_STATS.clear()
+        for src, lib in zip(others, libs[1:]):
+            t_other, t_this = [], []
+            for _ in range(AB_ROUNDS):
+                t_other.append(cs._time_ms(lambda: with_query_lib(lib, call),
+                                           dev))
+                t_this += [cs._time_ms(call, dev), cs._time_ms(call, dev)]
+                t_other.append(cs._time_ms(lambda: with_query_lib(lib, call),
+                                           dev))
+            med_o, med_t = statistics.median(t_other), statistics.median(
+                t_this)
+            row["against"][src] = dict(ms=t_other, this_ms=t_this,
+                                       median=med_o, this_median=med_t)
+            log(f"query_ab {name}: {src} {med_o:.4f} ms (median of "
+                f"{len(t_other)}, {min(t_other):.4f}-{max(t_other):.4f}) in "
+                f"turns with this tree's {med_t:.4f} ms "
+                f"({min(t_this):.4f}-{max(t_this):.4f}): {med_o / med_t:.3f}x;"
+                f" bound {row['bound_ms']:.4f} ms: {100 * row['bound_ms'] / med_t:.1f}%"
+                f" / {100 * row['bound_ms'] / med_o:.1f}% of it; lane "
+                f"utilisation {100 * row['util']:.1f}%")
+        out["cases"].append(row)
     return out
 
 
@@ -404,8 +578,13 @@ def main(argv: list[str]) -> int:
 
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false: no GPU")
-    against = [a.split("=", 1)[1] for a in argv if a.startswith("--against=")]
-    argv = [a for a in argv if not a.startswith("--against=")]
+    def opt(name):
+        return [a.split("=", 1)[1] for a in argv
+                if a.startswith(f"--{name}=")]
+
+    against, against_query, big = (opt("against"), opt("against-query"),
+                                   opt("big"))
+    argv = [a for a in argv if not a.startswith("--")]
     out_path = argv[0] if argv else os.path.join(
         cs.ROOT, "chiprun_out", "measure.json")
     info = cs.card()
@@ -413,18 +592,35 @@ def main(argv: list[str]) -> int:
         f"{info['uuid']} on host {info['host']}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     sm_clock_mhz = float(info["sm_clock_max"].split()[0])
-
-    seq, idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)  # before CUDA
-    sw_cuda.build_kernel()
+    res = dict(card=info, torch=torch.__version__, cuda=torch.version.cuda)
     dev = torch.device("cuda", 0)
-    res = dict(card=info, torch=torch.__version__, cuda=torch.version.cuda,
-               sw=sw_times(dev, sm_clock_mhz,
-                           against[0] if against else None))
-    with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
-        res["aligner"] = aligner_times(dev, seq, idx16, td, sm_clock_mhz)
-    res["query"] = query_times(dev, idx21)
-    res["sweep"] = sweep_times(dev, idx21)
-    res["baselines"] = baseline_times(dev, idx21, tables)
+
+    if against_query and big:
+        _seq, _idx16, idx21, _t = cs.build_indexes(cs.GENOME_N)
+        res["query_ab"] = query_ab(dev, idx21, big[0], against_query)
+    elif against_query:
+        # the 46 Mbp artifact builds in a child beside the 4.6 Mbp index
+        with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
+            scale = cs.start_scale_build(td)
+            try:
+                _seq, _idx16, idx21, _t = cs.build_indexes(cs.GENOME_N)
+                cs.finish_scale_build(scale)
+                res["query_ab"] = query_ab(dev, idx21, scale[1],
+                                           against_query)
+            finally:
+                if scale[0].poll() is None:
+                    os.killpg(scale[0].pid, signal.SIGKILL)
+                    scale[0].wait()
+    else:
+        seq, idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)
+        sw_cuda.build_kernel()       # before CUDA
+        res["sw"] = sw_times(dev, sm_clock_mhz,
+                             against[0] if against else None)
+        with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
+            res["aligner"] = aligner_times(dev, seq, idx16, td, sm_clock_mhz)
+        res["query"] = query_times(dev, idx21)
+        res["sweep"] = sweep_times(dev, idx21)
+        res["baselines"] = baseline_times(dev, idx21, tables)
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(res, f, indent=1)

@@ -37,11 +37,14 @@ failure raises and the script exits non-zero:
      an int64 copy of rev, adaptive bounds, a pred64 moved by up to
      QK_SHIFT ranks, and that with the stride cap QK_STRIDE_CAP, at
      QK_OPTION_LENGTHS; phase 8's artifact at SCALE_LENGTHS; and
-     binsearch_cuda against binsearch_batch on phase 5's queries. Each
+     binsearch_cuda against binsearch_batch on phase 5's queries and on
+     phase 8's artifact; fast3 at L=21, packed at L=101 and the binary
+     searches also in a shuffled order (hits and misses mixed). Each
      case prints the kernel's CUDA-event time, the plain path's, the
-     kernel's launches and its bound (query_bound_ms: the distinct 32-byte
+     kernel's launches, its bound (query_bound_ms: the distinct 32-byte
      sectors its lanes read, from its sector trace, and the coalesced
-     inputs and output, over HBM_BYTES_PER_S);
+     inputs and output, over HBM_BYTES_PER_S) and the lane utilisation
+     of its probe counts (lane_utilisation);
   4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
      SAM on the card; the first 1,000 reads' SAM must be byte-identical to
      the port's CPU path, and both SW kernel modes must have launched;
@@ -434,6 +437,26 @@ def query_bound_ms(sectors: int, b: int, lane_bytes: int) -> float:
     return (32 * sectors + b * lane_bytes) / HBM_BYTES_PER_S * 1e3
 
 
+def shuffled(codes):
+    """codes in a seeded random order. query_codes puts every random
+    (mostly absent) query in the last eighth of the batch; the aligner's
+    seeds mix hits and misses through it."""
+    import numpy as np
+
+    return codes[np.random.default_rng(SEED + 3).permutation(len(codes))]
+
+
+def lane_utilisation(probes) -> float:
+    """The share of a warp's probe slots that do a lane's probe, from the
+    lanes' probe counts (int32 [B], in the batch's order): one thread a
+    lane, so a warp of 32 consecutive lanes runs as long as its deepest."""
+    import numpy as np
+
+    p = np.asarray(probes, np.int64)
+    g = np.pad(p, (0, -len(p) % 32)).reshape(-1, 32)
+    return float(p.sum() / (32 * g.max(1)).sum())
+
+
 def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
     """One kernel-vs-plain case on the card: kernel() (which passes its
     keywords, stats and trace, to the wrapper) and plain() on the
@@ -441,7 +464,8 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
     rounds must equal the plain path's ROUNDS. Returns the kernel's and the
     plain path's CUDA-event times, the kernel's launches a call, its bound
     (query_bound_ms over the distinct sectors of its trace), the sectors
-    its lanes touched in all, and the rounds."""
+    its lanes touched in all, the rounds, and the lane utilisation
+    (lane_utilisation)."""
     import numpy as np
     import torch
 
@@ -472,6 +496,7 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
                 launches=launched, bound_ms=bound, pct_of_bound=100 * bound
                 / ms, sectors=int(st["sectors"].sum()), distinct=distinct,
                 over=over, probes=int(st["probes"].sum()), rounds=rounds,
+                util=lane_utilisation(st["probes"].cpu()),
                 max_abs_err=0)
 
 
@@ -481,51 +506,49 @@ def query_kernel_phase(dev, idx21, art: str) -> list[dict]:
     QK_LENGTHS on the k=21 index as built and without prefix arrays (every
     probe form); an int64 copy of rev; adaptive bounds; a pred64 moved by
     up to QK_SHIFT ranks, also with the stride cap QK_STRIDE_CAP; phase
-    8's artifact at SCALE_LENGTHS; and the binary search."""
+    8's artifact at SCALE_LENGTHS; and the binary search on both indexes.
+    fast3 at QUERY_LEN, packed at the last SCALE_LENGTHS and each binary
+    search also run in a shuffled order."""
     import numpy as np
-    import torch
 
     from sapling_tpu_torch.ops import query, query_cuda
-    from sapling_tpu_torch.ops.predict import predict_pwl
     from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
 
     rows = []
 
-    def plquery_cases(tag, idx, length, codes=None, shift=0, **over):
-        if codes is None:
-            codes, _n_in = query_codes(idx.codes, length)
-        d = idx.device_arrays()
-        x, q3, q_words = idx.query_inputs(codes)
-        t = idx.table
-        kw = dict(n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
-                  most_over=t.most_over, most_under=t.most_under,
-                  max_over=t.max_over, max_under=t.max_under)
-        kw.update(over)
-        if shift:
-            rng = np.random.default_rng(SEED + length)
-            pred = predict_pwl(x, d["xlist"], d["ylist"], 2 * idx.k,
-                               idx.buckets, idx.n)
-            kw["pred64"] = torch.clamp(pred + torch.from_numpy(
-                rng.integers(-shift, shift + 1, len(codes))).to(dev), 0,
-                idx.n - 1)
-        args = (d["packed"], d["rev"], d["xlist"], d["ylist"], q_words, x,
-                d["prefix64"], d["prefix3"], q3, d["bounds"])
-        form = query_cuda.probe_form(length, idx.k, d["prefix64"],
-                                     d["prefix3"], q3)
-        lane_bytes = 16 + (8 if form == "fast3" else 8 * q_words.shape[0]) \
-            + (8 if shift else 0)
+    def plquery_cases(tag, idx, length, codes=None, **over):
+        args, kw, form, lane_bytes = plquery_inputs(idx, length, codes,
+                                                    **over)
         row = _kernel_case(
             dev, f"{tag} L={length} {form}",
             lambda **st: query_cuda.plquery_cuda(*args, **st, **kw),
             lambda: query.plquery_batch(*args, **kw), lane_bytes,
-            len(codes))
+            len(args[5]))
         rows.append(dict(row, kernel="plquery", length=length, form=form))
+
+    def binsearch_case(tag, didx, codes):
+        qw, kw, lane_bytes = binsearch_inputs(didx, codes)
+        d = didx.device_arrays()
+        row = _kernel_case(
+            dev, f"{tag}binary search L={QUERY_LEN}",
+            lambda **st: query_cuda.binsearch_cuda(d["packed"], d["rev"],
+                                                   qw, **st, **kw),
+            lambda: query.binsearch_batch(d["packed"], d["rev"], qw, **kw),
+            lane_bytes, len(codes))
+        rows.append(dict(row, kernel="binsearch", length=QUERY_LEN,
+                         form="packed"))
 
     bare = without_prefix(idx21)
     for length in QK_LENGTHS:
         codes, _n_in = query_codes(idx21.codes, length)
         for tag, idx in (("built", idx21), ("no_prefix", bare)):
             plquery_cases(tag, idx.to(dev), length, codes)
+    # shuffled: the measured cases with hits and misses mixed
+    for tag, idx, length in (("built", idx21, QUERY_LEN),
+                             ("no_prefix", bare, SCALE_LENGTHS[-1])):
+        codes, _n_in = query_codes(idx21.codes, length)
+        plquery_cases(f"{tag} shuffled", idx.to(dev), length,
+                      shuffled(codes))
     rev64 = dataclasses.replace(idx21, rev=idx21.rev.astype(np.int64),
                                 _device={}).to(dev)
     cap = QK_STRIDE_CAP
@@ -539,25 +562,62 @@ def query_kernel_phase(dev, idx21, art: str) -> list[dict]:
                       idx21.to(dev), length, shift=QK_SHIFT,
                       max_stride_steps=cap)
     del rev64
+    codes, _n_in = query_codes(idx21.codes)
+    binsearch_case("", idx21.to(dev), codes)
+    binsearch_case("shuffled ", idx21.to(dev), shuffled(codes))
     big = load_for_queries(art, dev)
     for length in SCALE_LENGTHS:
-        plquery_cases(f"{big.n} bp", big, length)
+        codes, _n_in = query_codes(big.codes, length)
+        plquery_cases(f"{big.n} bp", big, length, codes)
+        plquery_cases(f"{big.n} bp shuffled", big, length, shuffled(codes))
+    codes, _n_in = query_codes(big.codes)
+    binsearch_case(f"{big.n} bp ", big, codes)
+    binsearch_case(f"{big.n} bp shuffled ", big, shuffled(codes))
     del big
-
-    didx = idx21.to(dev)
-    d = didx.device_arrays()
-    codes, _n_in = query_codes(idx21.codes)
-    qw = didx.query_words(codes)
-    kw = dict(n=didx.n, length=QUERY_LEN)
-    row = _kernel_case(
-        dev, f"binary search L={QUERY_LEN}",
-        lambda **st: query_cuda.binsearch_cuda(d["packed"], d["rev"], qw,
-                                               **st, **kw),
-        lambda: query.binsearch_batch(d["packed"], d["rev"], qw, **kw),
-        8 + 8 * qw.shape[0], len(codes))
-    rows.append(dict(row, kernel="binsearch", length=QUERY_LEN,
-                     form="packed"))
     return rows
+
+
+def plquery_inputs(idx, length: int, codes=None, shift: int = 0, **over):
+    """A plquery case on `idx` (on the card): query_codes (or `codes`) as
+    plquery_batch's arguments and keywords (with `shift`, a pred64 moved
+    by up to that many ranks, seeded), the probe form and the coalesced
+    bytes a lane reads and writes: (args, kw, form, lane_bytes)."""
+    import numpy as np
+    import torch
+
+    from sapling_tpu_torch.ops import query_cuda
+    from sapling_tpu_torch.ops.predict import predict_pwl
+
+    if codes is None:
+        codes, _n_in = query_codes(idx.codes, length)
+    d = idx.device_arrays()
+    x, q3, q_words = idx.query_inputs(codes)
+    t = idx.table
+    kw = dict(n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
+              most_over=t.most_over, most_under=t.most_under,
+              max_over=t.max_over, max_under=t.max_under)
+    kw.update(over)
+    if shift:
+        rng = np.random.default_rng(SEED + length)
+        pred = predict_pwl(x, d["xlist"], d["ylist"], 2 * idx.k,
+                           idx.buckets, idx.n)
+        kw["pred64"] = torch.clamp(pred + torch.from_numpy(
+            rng.integers(-shift, shift + 1, len(codes))).to(x.device), 0,
+            idx.n - 1)
+    args = (d["packed"], d["rev"], d["xlist"], d["ylist"], q_words, x,
+            d["prefix64"], d["prefix3"], q3, d["bounds"])
+    form = query_cuda.probe_form(length, idx.k, d["prefix64"],
+                                 d["prefix3"], q3)
+    lane_bytes = 16 + (8 if form == "fast3" else 8 * q_words.shape[0]) \
+        + (8 if shift else 0)
+    return args, kw, form, lane_bytes
+
+
+def binsearch_inputs(didx, codes):
+    """A binary-search case on `didx` (on the card): the query words, the
+    keywords and the coalesced bytes a lane reads and writes."""
+    qw = didx.query_words(codes)
+    return qw, dict(n=didx.n, length=codes.shape[1]), 8 + 8 * qw.shape[0]
 
 
 def aligner_phase(dev, seq, idx16, workdir: str) -> dict:
@@ -1441,7 +1501,8 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
             f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
             f"({r['distinct']} distinct sectors of 32 B of {r['sectors']} "
             f"the lanes touched, {r['over']} lanes past {QK_TRACE}; "
-            f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it)")
+            f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it); lane "
+            f"utilisation {100 * r['util']:.1f}%")
 
     # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines,
     # 8. scale

@@ -26,35 +26,68 @@
 //                           length, against prefix64[rank], beside rev[rank]
 //                kPacked    rev[rank], then ceil(L/16)+1 genome words,
 //                           funnel-shifted into line, XOR, clz
-//              and finish_probe's off-end rules;
+//              and finish's off-end rules;
 //   cascade    the prediction probe, the optional bucket probe
 //              (adaptive_bounds), phase A (the 'most' window edge), phase B
 //              (the 'max' window edge), phase C (the stride scan for L > k,
 //              capped by max_stride_steps, with the stuck test) and phase D
 //              (bisection with the hi == lo + 2 base case).
 //
-// What bounds it: bytes, as random 32-byte sectors. A probe reads one
+// What bounds them: bytes, as random 32-byte sectors. A probe reads one
 // sector of prefix3, or a sector of rev and one of prefix64, or a sector of
-// rev and one or two of the packed genome (ceil(L/16)+1 int64 words);
-// prediction reads xlist and ylist (one or two sectors each). A query takes
-// about 10-15 probes, each waiting on the last: each thread issues one
-// probe's loads together and has no more than that in flight, so the
-// card's resident threads (2,048 an SM) are what keep enough sectors in
-// flight. The design therefore keeps a thread small: no shared memory, no
-// warp cooperation, lanes in the caller's order (sorting them bought
-// 1.03-1.04x on a torch gather). The least time of a call is the distinct
+// rev and one or two of the packed genome; prediction reads xlist and ylist
+// (one or two sectors each). The least time of a call is the distinct
 // sectors its lanes touch, times 32 bytes, over HBM's 3.35 TB/s; with
-// `stats` the kernel counts the sectors a lane touches (and can record
-// their numbers, so that the caller counts the distinct ones), and its
-// deepest phase C and phase D step counts, which equal the plain
-// versions' host loop rounds.
+// `stats` the kernels count the sectors a lane touches (and can record
+// their numbers, so that the caller counts the distinct ones), and their
+// deepest phase C and phase D step counts, which equal the plain versions'
+// host loop rounds. Each probe waits on the last, so what the card reaches
+// is set by the loads in flight: the resident threads an SM, which the
+// registers a thread decide.
+//
+// What the designs do about it:
+//
+//   plquery_kernel   One thread a query, kept small: no shared memory, no
+//                    warp cooperation, lanes in the caller's order (sorting
+//                    them bought 1.03-1.04x on a torch gather). A query
+//                    takes 2.4 probes on average (61% resolve at the
+//                    prediction probe, the deepest 10), and a warp runs as
+//                    long as its deepest lane: 40-46% of its probe slots do
+//                    a lane's probe. A front stage with a per-warp queue in
+//                    shared memory raised that to 72-78% but needed 52-78
+//                    registers a thread against 40-72 here, and ran
+//                    1.10-1.15x slower on an H100 (PERF.md): this kernel
+//                    already reads its distinct sectors at about the rate a
+//                    torch gather reaches for random sectors.
+//   binsearch_kernel Every lane's bisection over [0, n-1] starts with the
+//                    same midpoints, so the first kTreeLevels levels (and
+//                    the pre-probes of ranks 0 and n-1) are one table: each
+//                    persistent block fills it in shared memory once, with
+//                    rev[mid] and the suffix's first 32 bases beside it, and
+//                    a lane walks it without touching device memory unless
+//                    its first 32 bases tie with a node's (then it reads the
+//                    genome as a probe does). That takes 12 of a lane's
+//                    ~22 dependent probes off device memory: 1.07-1.11x at
+//                    4.6 and 46 Mbp on an H100. At 230 Mbp, where the
+//                    bisection has 28 levels and its first ones were L1 and
+//                    L2 hits anyway, the gain is gone (0.97-0.98x).
+//
+// The binary search keeps each lane's decision sequence and its probe and
+// sector counts (a probe answered from shared memory records the sectors
+// it would have read), so the bound does not move with the design.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // plquery's threads a block
+// the binary search: the levels of its shared table, threads a block
+constexpr int kTreeLevels = 12;
+constexpr int kTreeNodes = 1 << kTreeLevels;  // nodes 1 .. kTreeNodes - 1
+constexpr int kSearchThreads = 512;
 constexpr int kFast3 = 0, kPrefix64 = 1, kPacked = 2;
 constexpr int kBasesPerWord = 16;
 constexpr int kWin = 7;   // query words a probe compares from registers
@@ -89,6 +122,12 @@ struct Probe {
   bool off_end;    // the compare ran off the genome (not on fast3)
 };
 
+// the dynamic shared memory of a block
+__device__ __forceinline__ unsigned char* shared_bytes() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return smem;
+}
+
 // an address as its 32-byte sector's number
 __device__ __forceinline__ int64_t sector(const void* p) {
   return (int64_t)((uintptr_t)p >> 5);
@@ -112,6 +151,20 @@ __device__ __forceinline__ int64_t rev_at(const void* rev, int64_t rank) {
     return (int64_t)(uint32_t)__ldg(static_cast<const int32_t*>(rev) + rank);
   else
     return __ldg(static_cast<const int64_t*>(rev) + rank);
+}
+
+// compare_at's first two aligned genome words at text position pos, as one
+// key: the suffix's first 32 bases (word indexes clamped as there)
+__device__ __forceinline__ uint64_t genome_key(const Args& a, int64_t pos) {
+  const int sh = (int)(pos & 15) << 1;
+  const int64_t last = a.packed_len - 1, w0 = pos >> 4;
+  uint32_t w[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    w[j] = (uint32_t)__ldg(a.packed + lmin(w0 + j, last));
+  const uint32_t hi = sh ? (w[0] << sh) | (w[1] >> (32 - sh)) : w[0];
+  const uint32_t lo = sh ? (w[1] << sh) | (w[2] >> (32 - sh)) : w[1];
+  return (uint64_t)hi << 32 | lo;
 }
 
 // One query's state: its inputs, read once, and its counts.
@@ -199,6 +252,24 @@ struct Lane {
     } else {
       return compare_at(rev(rank));
     }
+  }
+
+  // probe(rank) of the packed form with rev[rank] and genome_key(rev[rank])
+  // already known (the binary search's shared table): the first min(L, 32)
+  // bases decide unless they all agree and L > 32, where compare_at reads
+  // the genome. Counts the probe and records the sectors probe(rank) reads.
+  __device__ Probe probe_known(int64_t rank, int64_t pos, uint64_t key) {
+    ++probes;
+    touch(static_cast<const REV*>(a.rev) + rank);
+    const uint64_t q = (uint64_t)qw[0] << 32 | (wq > 1 ? qw[1] : 0u);
+    const uint64_t mask = wq > 1 ? ~0ull : ~0ull << 32;
+    const uint64_t d = (q ^ key) & mask;
+    if (!d && wq > 2) return compare_at(pos);
+    const int64_t last = a.packed_len - 1, w0 = pos >> 4;   // its first window
+    touch(a.packed + lmin(w0, last),
+          a.packed + lmin(w0 + (wq < kWin ? wq : kWin), last));
+    return finish(pos, d ? __clzll((long long)d) >> 1 : a.length,
+                  (q & mask) > (key & mask));
   }
 
   // probe_at: the query against the genome at text position pos, a window
@@ -394,20 +465,91 @@ __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant
   lane.done(res, c_steps, d_steps);
 }
 
-// bQuery (binarysearch.cpp:158-165): rank 0 and rank n-1 first, then the
-// binary search over [0, n-1]; an absent query resolves to -1.
+// The binary search's shared table: node i (root 1, children 2i and 2i+1,
+// the smaller-than-query side 2i+1) holds rev[mid] and genome_key of it
+// for the interval the bisection reaches it with; slot 0 holds rank 0 and
+// slot kTreeNodes rank n-1 (bQuery's pre-probes). Nodes no lane reaches
+// are left unwritten.
+struct Node {
+  uint64_t key;
+  int64_t pos;
+};
+
+constexpr size_t kTreeBytes = (size_t)(kTreeNodes + 1) * sizeof(Node);
+
 template <typename REV>
-__global__ void __launch_bounds__(kThreads) binsearch_kernel(const __grid_constant__ Args a) {
-  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (b >= a.B) return;
+__device__ void fill_tree(const Args& a, Node* tree) {
+  for (int i = threadIdx.x; i <= kTreeNodes; i += blockDim.x) {
+    int64_t rank = i == 0 ? 0 : a.n - 1;
+    bool reached = true;
+    if (i > 0 && i < kTreeNodes) {
+      int64_t lo = 0, hi = a.n - 1;
+      for (int l = 30 - __clz(i); l >= 0; --l) {
+        // the bisection probes this interval and goes on below it
+        if (hi == lo + 2 || lo + 1 >= hi) {
+          reached = false;
+          break;
+        }
+        const int64_t mid = lo + ((hi - lo) >> 1);
+        if ((i >> l) & 1)
+          lo = mid;
+        else
+          hi = mid;
+      }
+      rank = lo + ((hi - lo) >> 1);   // lo + 1 at a hi == lo + 2 node
+    }
+    if (reached) {
+      const int64_t pos = rev_at<REV>(a.rev, rank);
+      tree[i] = Node{genome_key(a, pos), pos};
+    }
+  }
+}
+
+// bQuery (binarysearch.cpp:158-165): rank 0 and rank n-1 first, then the
+// binary search over [0, n-1]; an absent query resolves to -1. The first
+// kTreeLevels rounds read the shared table.
+template <typename REV>
+__device__ void binsearch_lane(const Args& a, const Node* tree, int64_t b) {
   Lane<kPacked, REV> lane(a, b);
-  const Probe p_lo = lane.probe(0);
+  const Probe p_lo = lane.probe_known(0, tree[0].pos, tree[0].key);
   if (p_lo.match) return lane.done(p_lo.val, 0, 0);
-  const Probe p_hi = lane.probe(a.n - 1);
+  const Node& last = tree[kTreeNodes];
+  const Probe p_hi = lane.probe_known(a.n - 1, last.pos, last.key);
   if (p_hi.match) return lane.done(p_hi.val, 0, 0);
-  int d_steps = 0;
-  const int64_t res = lane.bisect(0, a.n - 1, &d_steps);
-  lane.done(res, 0, d_steps);
+  int64_t lo = 0, hi = a.n - 1;
+  int steps = 0, node = 1;
+  for (int level = 0; level < kTreeLevels; ++level) {
+    ++steps;
+    const Node& nd = tree[node];
+    if (hi == lo + 2) {   // value_at(lo + 1), from the table
+      lane.touch(static_cast<const REV*>(a.rev) + lo + 1);
+      return lane.done(nd.pos, 0, steps);
+    }
+    const int64_t mid = lo + ((hi - lo) >> 1);
+    const Probe p = lane.probe_known(mid, nd.pos, nd.key);
+    if (p.match) return lane.done(p.val, 0, steps);
+    if (lo + 1 >= hi) return lane.done(-1, 0, steps);
+    if (p.smaller) {
+      lo = mid;
+      node = 2 * node + 1;
+    } else {
+      hi = mid;
+      node = 2 * node;
+    }
+  }
+  const int64_t res = lane.bisect(lo, hi, &steps);
+  lane.done(res, 0, steps);
+}
+
+template <typename REV>
+__global__ void __launch_bounds__(kSearchThreads)
+    binsearch_kernel(const __grid_constant__ Args a) {
+  Node* tree = reinterpret_cast<Node*>(shared_bytes());
+  fill_tree<REV>(a, tree);
+  __syncthreads();
+  for (int64_t b = (int64_t)blockIdx.x * kSearchThreads + threadIdx.x;
+       b < a.B; b += (int64_t)gridDim.x * kSearchThreads)
+    binsearch_lane<REV>(a, tree, b);
 }
 
 int blocks_for(int64_t B) { return (int)((B + kThreads - 1) / kThreads); }
@@ -418,6 +560,39 @@ int launch_plquery(const Args& a, int rev64, cudaStream_t stream) {
     plquery_kernel<PROBE, int64_t><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
   else
     plquery_kernel<PROBE, int32_t><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// binsearch_kernel<REV> on no more blocks than fit on the card at once
+// (each fills its table once and loops over the lanes). The count is found
+// on a device's first call, where the kernel is also allowed the table's
+// shared memory, and kept.
+template <typename REV>
+int launch_binsearch(const Args& a, cudaStream_t stream) {
+  static std::atomic<int> resident[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidValue;
+  int grid = resident[dev].load(std::memory_order_relaxed);
+  if (!grid) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(binsearch_kernel<REV>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kTreeBytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, binsearch_kernel<REV>, kSearchThreads, kTreeBytes);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    grid = per_sm * sms;
+    resident[dev].store(grid, std::memory_order_relaxed);
+  }
+  const int64_t needed = (a.B + kSearchThreads - 1) / kSearchThreads;
+  if (needed < grid) grid = (int)needed;
+  binsearch_kernel<REV><<<grid, kSearchThreads, kTreeBytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -485,9 +660,6 @@ extern "C" int binsearch_launch(const void* packed, long long packed_len,
   a.n = n;
   a.length = length;
   auto st = static_cast<cudaStream_t>(stream);
-  if (rev64)
-    binsearch_kernel<int64_t><<<blocks_for(B), kThreads, 0, st>>>(a);
-  else
-    binsearch_kernel<int32_t><<<blocks_for(B), kThreads, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  return rev64 ? launch_binsearch<int64_t>(a, st)
+               : launch_binsearch<int32_t>(a, st);
 }

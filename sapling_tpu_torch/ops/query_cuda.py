@@ -2,8 +2,9 @@
 
 `plquery_kernel` runs `ops.query.plquery_batch` (predict, the prediction
 probe, the optional bucket probe, phases A-D) and `binsearch_kernel` runs
-`ops.query.binsearch_batch`, one thread a query, one launch a call and no
-host sync, with exactly the plain versions' results. They replace
+`ops.query.binsearch_batch` (the bisection's first levels from a table in
+shared memory), one thread a query, one launch a call and no host sync,
+with exactly the plain versions' results. They replace
 `sapling_tpu/ops/query.py::plquery_batch` (:1011) and `::binsearch_batch`
 (:1370), XLA programs in the JAX package.
 

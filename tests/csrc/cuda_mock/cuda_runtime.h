@@ -3,8 +3,10 @@
 // run on host memory (tests/test_torch_sw_cu_on_cpu.py,
 // tests/test_torch_query_cu_on_cpu.py). Every thread of a block is a
 // std::thread; the warp-synchronous intrinsics meet at a std::barrier per
-// warp. Blocks run one after another; a kernel launch returns when it is
-// done. Not a model of the card's speed or memory, only of its semantics.
+// warp, __syncthreads at one per block. Blocks run one after another, so
+// shared memory is one buffer that each block takes over in turn; a kernel
+// launch returns when it is done. Not a model of the card's speed or
+// memory, only of its semantics.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -19,18 +21,52 @@
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __grid_constant__
 
 using std::max;
 using std::min;
 
 typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
+typedef int cudaError_t;
+constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaErrorInvalidConfiguration = 9;
+inline int cudaGetLastError() { return 0; }
+
+// the device: MOCK_SMS multiprocessors that hold one block each, so a
+// persistent grid is MOCK_SMS blocks and its loops wrap
+constexpr int MOCK_SMS = 2;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = MOCK_SMS;
+  return cudaSuccess;
+}
+template <typename F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <typename F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, F, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 struct MockDim { int x; };
-inline thread_local MockDim threadIdx, blockIdx, blockDim;
+inline thread_local MockDim threadIdx, blockIdx, blockDim, gridDim;
+
+// the dynamic shared memory of the running block: the test rewrites each
+// `extern __shared__ T name[];` into a pointer to it
+inline std::vector<unsigned char> mock_smem;
+inline unsigned char* mock_dynamic_smem() { return mock_smem.data(); }
+inline thread_local std::barrier<>* mock_block;
+inline void __syncthreads() { mock_block->arrive_and_wait(); }
 
 struct MockWarp {
   std::barrier<> bar{32};
@@ -101,20 +137,23 @@ inline int atomicMax(int* p, int v) {
 }
 
 // kernel<<<blocks, threads, smem, stream>>>(args) is rewritten by the test
-// into mock_launch(blocks, threads, smem, [=] { kernel(args); }); no
-// kernel uses shared memory
-inline void mock_launch(int blocks, int threads, size_t,
+// into mock_launch(blocks, threads, smem, [=] { kernel(args); })
+inline void mock_launch(int blocks, int threads, size_t smem,
                         const std::function<void()>& kernel) {
+  mock_smem.assign(smem, 0xA5);   // not zero: the card does not clear it
   for (int b = 0; b < blocks; ++b) {
     std::vector<std::unique_ptr<MockWarp>> warps;
     for (int w = 0; w < threads / 32; ++w)
       warps.push_back(std::make_unique<MockWarp>());
+    std::barrier<> block(threads);
     std::vector<std::thread> lanes;
     for (int t = 0; t < threads; ++t)
       lanes.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = b;
         blockDim.x = threads;
+        gridDim.x = blocks;
+        mock_block = &block;
         mock_warp = warps[t / 32].get();
         mock_lane = t % 32;
         kernel();

@@ -19,6 +19,7 @@ the card's compiler are tested only on the card
 (tests/test_torch_query_cuda.py, chip_smoke.py).
 """
 
+import math
 import os
 import re
 import shutil
@@ -30,6 +31,8 @@ import torch
 
 from sapling_tpu_torch.config import IndexConfig, QueryConfig
 from sapling_tpu_torch.index.sapling import SaplingIndex
+from sapling_tpu_torch.index.suffix_array import build_suffix_data
+from sapling_tpu_torch.ops import pack as packops
 from sapling_tpu_torch.ops import query, query_cuda
 from sapling_tpu_torch.ops.predict import predict_pwl
 from sapling_tpu_torch.sim.genomes import benchmark_genome, repeat_genome
@@ -40,18 +43,26 @@ from .test_torch_query_variants import _boundary_queries
 MOCK_DIR = os.path.join(os.path.dirname(__file__), "csrc", "cuda_mock")
 _LAUNCH = re.compile(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<([^>]*)>>>\((.*?)\);",
                      re.S)
+_DYNAMIC_SMEM = re.compile(
+    r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\];")
 
 
 def _for_the_cpu(src: str) -> str:
-    """query.cu with its kernel launches mocked: two rev types of each
-    kernel template."""
+    """query.cu with its kernel launches mocked (plquery at two rev types,
+    the binary search in one launcher) and its dynamic shared memory the
+    mock's."""
     def launch(m):
         grid, block, smem, _stream = (x.strip() for x in m.group(2).split(","))
         return (f"mock_launch({grid}, {block}, {smem}, "
                 f"[=] {{ {m.group(1)}({m.group(3)}); }});")
 
     src, n = _LAUNCH.subn(launch, src)
-    assert n == 4, "query.cu should launch its two kernels at two rev types"
+    assert n == 3, "query.cu should launch plquery at two rev types and " \
+        "the binary search from one launcher"
+    src, n = _DYNAMIC_SMEM.subn(
+        lambda m: f"{m.group(1)}* {m.group(2)} = "
+        f"reinterpret_cast<{m.group(1)}*>(mock_dynamic_smem());", src)
+    assert n == 1, "query.cu should declare its dynamic shared memory once"
     return src
 
 
@@ -205,6 +216,76 @@ def test_prediction_kernel_source_matches_predict_pwl(lib):
     np.testing.assert_array_equal(
         got.numpy(), query.plquery_batch(*args, **kw).numpy())
     assert 0 in got and n - 1 in got
+
+
+def test_prediction_wide_products_kernel_source(lib):
+    """The kernel's prediction (read as above) where M*N passes 2^53 (an
+    fp64 product is no longer exact) and 2^61, with exact ties, x - xlo =
+    +-D/2 (D even, M odd), and x at every checkpoint and +-1 beside it, an
+    empty bucket (d == 0) among them: equal to predict_pwl on every lane."""
+    k, buckets = 21, 4
+    nb, shift, n = 1 << buckets, 2 * k - buckets, 1 << 22
+    rng = np.random.default_rng(29)
+    # even checkpoints, alternately 2^37 and 2^35 (plus up to 2^20) into
+    # their bucket, so that x - xlo = -D/2 and +D/2 both fall inside some
+    # buckets
+    small = 2 * rng.integers(1 << 18, 1 << 19, nb + 1)
+    xlist = ((np.arange(nb + 1, dtype=np.int64) << shift) + small
+             + np.where(np.arange(nb + 1) % 2 == 0, 1 << 37, 1 << 35))
+    xlist[nb] = (nb << shift) - 2                 # the last checkpoint < 4^k
+    m = 2 * rng.integers(1 << 15, 1 << 16, nb) + 1          # odd, ~2^17
+    xlist[6] = xlist[7]                           # bucket 6 empty: d == 0
+    d = np.diff(xlist)
+    # M*N ~ 2^60, with M prime to D (remainders 1 and 2 reachable below);
+    # M*N past 2^61 (clipped)
+    m[nb - 2] = next(v for v in range((1 << 23) + 1, 1 << 24, 2)
+                     if math.gcd(v, int(d[nb - 2])) == 1)
+    m[nb - 1] = (1 << 24) + 1
+    ylist = np.concatenate([[-7], -7 + np.cumsum(m)])
+    lo = np.arange(nb, dtype=np.int64) << shift
+    x = [lo + 1, lo + (1 << shift) - 1]
+    for t in (-1, 0, 1):
+        x += [xlist[:nb] + t, xlist[:nb] + d // 2 + t, xlist[:nb] - d // 2 + t]
+    # remainders 1, 2, d - 2 and d - 1, where an fp64 estimate of the
+    # quotient may miss the floor
+    for i in range(nb):
+        dd, mm = int(d[i]), int(m[i])
+        if dd and math.gcd(mm, dd) == 1:
+            inv = pow(mm, -1, dd)
+            for r in (1, 2, dd - 2, dd - 1):
+                cand = np.array([xlist[i] + sign * (r * inv % dd + j * dd)
+                                 for sign in (1, -1) for j in (0, 1)])
+                x.append(cand[(cand >> shift) == i])
+    x = np.concatenate(x + [rng.integers(0, nb << shift, 3000)])
+    x = x[(x >= lo[0]) & (x < nb << shift)]
+    b = len(x)
+    # the cases the test is for are there
+    bucket = x >> shift
+    nn = x - xlist[bucket]
+    prod = [int(a) * abs(int(c)) for a, c in zip(np.diff(ylist)[bucket], nn)]
+    assert max(prod) > 1 << 61 and sum(p > 1 << 53 for p in prod) > 100
+    ties = np.array([dd > 0 and 2 * (p % int(dd)) == dd
+                     for p, dd in zip(prod, d[bucket])])
+    assert ties[nn > 0].sum() >= nb // 2 and ties[nn < 0].sum() >= nb // 4
+    # the float64 estimate M*|N|/D (as g++ rounds it) misses the floor on
+    # some lanes, so that a correction runs
+    exact = [p // int(dd) if dd else 0 for p, dd in zip(prod, d[bucket])]
+    est = (np.diff(ylist)[bucket].astype(np.float64)
+           * np.abs(nn).astype(np.float64) / np.maximum(d[bucket], 1))
+    off = est.astype(np.int64) - np.array(exact)
+    assert (off[est < 2.0 ** 50] != 0).any()
+    t = {name: torch.from_numpy(np.ascontiguousarray(a, np.int64))
+         for name, a in (("x", x), ("xlist", xlist), ("ylist", ylist))}
+    want = predict_pwl(t["x"], t["xlist"], t["ylist"], 2 * k, buckets, n)
+    assert ((want > 0) & (want < n - 1)).sum() > b // 2
+    q3 = torch.full((b,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
+    prefix3 = torch.full((n,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
+    args = (None, torch.arange(n, dtype=torch.int32), t["xlist"], t["ylist"],
+            None, t["x"], None, prefix3, q3, None)
+    kw = dict(n=n, length=21, k=k, buckets=buckets, most_over=5,
+              most_under=5, max_over=9, max_under=9)
+    got, _, _ = _kernel_plquery(lib, args, kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("gen,k,buckets,length", GRID)
@@ -364,6 +445,79 @@ def test_binsearch_kernel_source_matches_plain(lib, pos_dtype):
                                       err_msg=f"L={length}")
         assert (c, d) == (0, query.ROUNDS["D"])
         assert (lane[0] >= 1).all() and (lane[1] >= lane[0]).all()
+
+
+def _mixed_codes(codes, b, length, seed, absent=0.25):
+    """b queries in a seeded shuffled order: substrings of the genome and a
+    share of random (mostly absent) ones."""
+    rng = np.random.default_rng(seed)
+    n_abs = int(b * absent)
+    starts = rng.integers(0, len(codes) - length + 1, b - n_abs)
+    q = np.concatenate([codes[starts[:, None] + np.arange(length)],
+                        rng.integers(0, 4, (n_abs, length)).astype(np.uint8)])
+    return q[rng.permutation(b)]
+
+
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_queued_lanes_kernel_source(lib, k21, prefix):
+    """A shuffled batch of hits and misses over 33 blocks, whose first four
+    warps miss their prediction probe on every lane and whose last block
+    is partial; every probe form, as built, with adaptive bounds and with a
+    shifted pred64."""
+    idx = k21 if prefix else _bare(k21)
+    b = 32 * 256 + 77
+    rng = np.random.default_rng(23)
+    for length in (21, 31, 45):
+        codes = _mixed_codes(idx.codes, b, length, seed=length)
+        codes[:128] = rng.integers(0, 4, (128, length))
+        args = _args(idx, codes, with_bounds=True)
+        _check_plquery(lib, args, _kw(idx, length))
+        _check_plquery(lib, args, _kw(idx, length,
+                                      QueryConfig(adaptive_bounds=True)))
+        pred = _shifted_pred(idx, codes, 300, seed=length)
+        _check_plquery(lib, args, _kw(idx, length, pred64=pred),
+                       want_c=length > idx.k)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7, 8, 33, 100, 1000, 4094,
+                               4095, 4096, 4097, 6000])
+def test_binsearch_tree_kernel_source(lib, n):
+    """binsearch_kernel's shared table at genome lengths whose bisection
+    has fewer levels than the table, about as many, and more: periodic
+    genomes (duplicate runs, suffixes that tie on the table's 32-base key)
+    at L <= 32 (the key decides), L = 33 (a tie reads the genome) and
+    L = 101, with in-genome, genome-tail, poly-A / poly-T and random
+    queries; int32 and int64 rev."""
+    seq = repeat_genome(n, period=min(7, n), seed=n)
+    codes = packops.encode_bases(seq)
+    sa = build_suffix_data(seq, np.int32).sa
+    packed = torch.from_numpy(
+        packops.pack_codes(codes, pad_words=16).astype(np.int64))
+    rng = np.random.default_rng(n)
+    for length in (1, 5, 16, 32, 33, 101):
+        tiled = np.tile(codes, -(-(length + n) // n))
+        starts = rng.integers(0, n, 200)
+        q = np.concatenate([
+            tiled[starts[:, None] + np.arange(length)],     # wraps: absent
+            rng.integers(0, 4, (60, length)).astype(np.uint8),
+            np.zeros((5, length), np.uint8), np.full((5, length), 3,
+                                                     np.uint8)])
+        if length <= n:
+            q[:100] = codes[rng.integers(0, n - length + 1, 100)[:, None]
+                            + np.arange(length)]
+            q[100] = codes[n - length:]
+        qw = torch.from_numpy(packops.pack_queries(q).astype(np.int64))
+        for rev in (torch.from_numpy(sa.astype(np.int32)),
+                    torch.from_numpy(sa.astype(np.int64))):
+            query.ROUNDS.update(C=0, D=0)
+            want = query.binsearch_batch(packed, rev, qw, n=n,
+                                         length=length)
+            got, lane, (c, d) = _kernel_binsearch(lib, packed, rev, qw, n,
+                                                  length)
+            np.testing.assert_array_equal(got.numpy(), want.numpy(),
+                                          err_msg=f"n={n} L={length}")
+            assert (c, d) == (0, query.ROUNDS["D"])
+            assert (lane[0] >= 1).all() and (lane[1] >= lane[0]).all()
 
 
 def test_wrappers_take_the_plain_path_on_the_cpu(k21):

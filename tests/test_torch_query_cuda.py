@@ -142,6 +142,59 @@ def test_binsearch_kernel_matches_plain(dev, seq, pos_dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_kernels_on_shuffled_batches(dev, seq, prefix):
+    """Hits and misses in a seeded random order over many of plquery's
+    warp chunks (112,500 lanes: the last chunk partial), at every probe
+    form, as built and with adaptive bounds, and the binary search with its
+    shared table: every lane equal to the plain cascade."""
+    idx = _index(seq, dev, prefix)
+    d = idx.device_arrays()
+    rng = np.random.default_rng(31)
+    for length in (21, 31, 101):
+        codes = _queries(seq, 100_000, length, seed=length)
+        codes = codes[rng.permutation(len(codes))]
+        _same(idx, codes)
+        _same(idx, codes, qcfg=QueryConfig(adaptive_bounds=True))
+        qw = idx.query_words(codes)
+        query.ROUNDS.update(C=0, D=0)
+        want = query.binsearch_batch(d["packed"], d["rev"], qw, n=idx.n,
+                                     length=length)
+        rounds = dict(query.ROUNDS)
+        query.ROUNDS.update(C=0, D=0)
+        got = query_cuda.binsearch_cuda(d["packed"], d["rev"], qw, n=idx.n,
+                                        length=length, stats=True)
+        assert torch.equal(got, want), int((got != want).sum())
+        assert dict(query.ROUNDS) == rounds
+
+
+@pytest.mark.cuda
+def test_binsearch_kernel_small_genomes(dev):
+    """The binary search's shared table at genome lengths whose bisection
+    has fewer levels than the table, about as many, and more (periodic
+    genomes: duplicate runs, ties on the table's 32-base key)."""
+    from sapling_tpu_torch.index.suffix_array import build_suffix_data
+
+    for n in (2, 5, 33, 1000, 4095, 4097, 9000):
+        seq = repeat_genome(n, period=min(7, n), seed=n)
+        codes = packops.encode_bases(seq)
+        rev = torch.from_numpy(build_suffix_data(seq, np.int32).sa).to(dev)
+        packed = torch.from_numpy(packops.pack_codes(
+            codes, pad_words=16).astype(np.int64)).to(dev)
+        rng = np.random.default_rng(n)
+        for length in (5, 32, 33, 101):
+            tiled = np.tile(codes, -(-(length + n) // n))
+            q = tiled[rng.integers(0, n, 3000)[:, None] + np.arange(length)]
+            q[:500] = rng.integers(0, 4, (500, length))
+            qw = torch.from_numpy(
+                packops.pack_queries(q).astype(np.int64)).to(dev)
+            want = query.binsearch_batch(packed, rev, qw, n=n, length=length)
+            got = query_cuda.binsearch_cuda(packed, rev, qw, n=n,
+                                            length=length)
+            assert torch.equal(got, want), (n, length)
+
+
+@pytest.mark.cuda
 def test_entry_points_launch_the_kernels(dev, seq):
     """SaplingIndex.query_device and binsearch_device launch once a call;
     an empty batch launches nothing."""
