@@ -4,6 +4,7 @@
     python3 chip_measure.py [out.json] [--against=path/to/other/sw.cu]
     python3 chip_measure.py [out.json] --against-query=path/to/query.cu ...
         [--big=path/to/artifact.stpu.npz]
+    python3 chip_measure.py [out.json] --against-nn=path/to/nn_predict.cu ...
 
 Run from the root of a checkout on a machine with one NVIDIA GPU, after
 chip_smoke.py has shown the port right there: this script times, it does
@@ -48,13 +49,27 @@ With --against-query (one or more), it measures only this instead:
            order and shuffled (chip_smoke.shuffled): the 4.6 Mbp k=21 index
            fast3 L=21 and packed L=101 without prefix arrays, chip_smoke
            phase 8's 46 Mbp artifact (no prefix arrays) at L=21 and 101,
-           and the binary search at L=21 on both (--big: another
-           artifact in place of the 46 Mbp one); each case's bound
+           and the binary search at L=21 on both, and the llcp/rlcp-pruned
+           search at L=21 with and without prefix64 on the 4.6 Mbp index
+           (--big: another artifact in place of the 46 Mbp one); each
+           case's bound
            (chip_smoke.query_bound_ms over this build's sector trace) and
            lane utilisation (chip_smoke.lane_utilisation); and of each
            build the registers, stack and spills of every kernel (nvcc's
            -Xptxas -v log) and the CALL instructions in its SASS by target
            (cuobjdump): the int64 division subroutine's.
+
+With --against-nn (one or more), it measures only this instead:
+
+  nn_ab:   each other version of csrc/nn_predict.cu (same C entry point)
+           timed in turns with this tree's (other, this, this, other,
+           AB_ROUNDS times; CUDA events around wrapper calls, and the
+           kernel's own device time, chip_smoke.kernel_device_ms) on
+           chip_smoke's
+           untrained model at phase 9's width (chip_smoke.nn_untrained),
+           on phase 5's 1M x and on every genome k-mer, their ranks held
+           equal; the plain nn_predict's time; the bound
+           (chip_smoke.nn_bound_ms); each build's registers and spills.
 
 Profiled calls also give the device's busy share within their own
 window. Prints one line per measurement and writes all of them, with the
@@ -227,8 +242,11 @@ def build_report(lib_path: str) -> dict:
     from torch.utils.cpp_extension import CUDA_HOME
 
     def short(mangled):
-        m = re.search(r"(plquery_kernel|binsearch_kernel)I(?:Li(\d+)E)?"
-                      r"([il])E", mangled)
+        m = re.search(r"nn_predict_kernelILb([01])E", mangled)
+        if m:
+            return f"nn_predict_kernel<{'true' if m.group(1) == '1' else 'false'}>"
+        m = re.search(r"(plquery_kernel|fancy_binsearch_kernel|"
+                      r"binsearch_kernel)I(?:Li(\d+)E)?([il])E", mangled)
         if not m:
             return mangled
         rev = {"i": "int32", "l": "int64"}[m.group(3)]
@@ -266,10 +284,14 @@ def with_query_lib(lib, fn):
         query_cuda._LIB = saved
 
 
-def query_cases(dev, idx21, big):
+def query_cases(dev, idx21, big, tables):
     """The query_ab cases: (name, call(**stats) -> positions, lanes,
     coalesced bytes a lane), each in chip_smoke's order and shuffled."""
+    import torch
+
     from sapling_tpu_torch.ops import query_cuda
+
+    lr = [torch.from_numpy(a).to(dev) for a in tables]
 
     def plquery(tag, idx, length, codes):
         args, kw, form, lane_bytes = cs.plquery_inputs(idx, length, codes)
@@ -283,6 +305,14 @@ def query_cases(dev, idx21, big):
         return (f"{tag} binary search L={codes.shape[1]}", lambda **st:
                 query_cuda.binsearch_cuda(d["packed"], d["rev"], qw, **st,
                                           **kw), len(codes), lane_bytes)
+
+    def fancy(tag, didx, codes):
+        qw, kw, lane_bytes = cs.binsearch_inputs(didx, codes)
+        d = didx.device_arrays()
+        return (f"{tag} pruned binary search L={codes.shape[1]}",
+                lambda **st: query_cuda.fancy_binsearch_cuda(
+                    d["packed"], d["rev"], *lr, qw, prefix=d["prefix64"],
+                    **st, **kw), len(codes), lane_bytes)
 
     cases = []
     for order in ("smoke", "shuffled"):
@@ -301,11 +331,15 @@ def query_cases(dev, idx21, big):
                   for length in cs.SCALE_LENGTHS]
         cases += [binsearch(f"{idx21.n} bp {order}", didx,
                             codes_of(idx21, cs.QUERY_LEN)),
-                  binsearch(tag, big, codes_of(big, cs.QUERY_LEN))]
+                  binsearch(tag, big, codes_of(big, cs.QUERY_LEN)),
+                  fancy(f"{idx21.n} bp {order}", didx,
+                        codes_of(idx21, cs.QUERY_LEN)),
+                  fancy(f"{idx21.n} bp {order} no_prefix", bare,
+                        codes_of(idx21, cs.QUERY_LEN))]
     return cases
 
 
-def query_ab(dev, idx21, art: str, others: list[str]) -> dict:
+def query_ab(dev, idx21, art: str, others: list[str], tables) -> dict:
     """Each of `others` (query.cu versions) in turns with this tree's on
     query_cases; their builds' reports (build_report)."""
     import statistics
@@ -325,7 +359,7 @@ def query_ab(dev, idx21, art: str, others: list[str]) -> dict:
     libs = [query_cuda.bind(path) for path in paths]
     big = load_for_queries(art, dev)
     out = dict(builds=builds, cases=[])
-    for name, call, b, lane_bytes in query_cases(dev, idx21, big):
+    for name, call, b, lane_bytes in query_cases(dev, idx21, big, tables):
         mine = call()
         for src, lib in zip(others, libs[1:]):
             theirs = with_query_lib(lib, call)
@@ -361,6 +395,78 @@ def query_ab(dev, idx21, art: str, others: list[str]) -> dict:
                 f" bound {row['bound_ms']:.4f} ms: {100 * row['bound_ms'] / med_t:.1f}%"
                 f" / {100 * row['bound_ms'] / med_o:.1f}% of it; lane "
                 f"utilisation {100 * row['util']:.1f}%")
+        out["cases"].append(row)
+    return out
+
+
+def with_nn_lib(lib, fn):
+    """fn() with nn_predict_cuda's launches going to the library `lib`."""
+    from sapling_tpu_torch.ops import nn_predict_cuda
+
+    saved, nn_predict_cuda._LIB = nn_predict_cuda._LIB, lib
+    try:
+        return fn()
+    finally:
+        nn_predict_cuda._LIB = saved
+
+
+def nn_ab(dev, idx21, others: list[str], sm_clock_mhz: float) -> dict:
+    """Each of `others` (nn_predict.cu versions) in turns with this tree's
+    on chip_smoke.nn_untrained's model; their builds' reports."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from sapling_tpu_torch.ops import nn_predict_cuda, sw_cuda
+
+    srcs = [nn_predict_cuda.SOURCE, *others]
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        paths = list(pool.map(sw_cuda.build_kernel, srcs))
+    builds = {src: build_report(path) for src, path in zip(srcs, paths)}
+    for src, rep in builds.items():
+        log(f"nn_ab build {src}: " + json.dumps(rep))
+    libs = [nn_predict_cuda.bind(path) for path in paths]
+    srv, kmers = cs.nn_untrained(dev, idx21)
+    args, kw = cs.nn_model_args(srv)
+    codes, _n_in = cs.query_codes(idx21.codes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = dict(builds=builds, cases=[])
+    for name, x in (("phase 5 x", idx21.to(dev).query_inputs(codes)[0]),
+                    ("every k-mer", torch.from_numpy(kmers).to(dev))):
+        def call():
+            return nn_predict_cuda.nn_predict_cuda(x, *args, **kw)
+
+        mine = call()
+        row = dict(name=name, lanes=len(x), against={},
+                   plain_ms=cs._time_ms(lambda: nn_predict_cuda.nn_predict(
+                       x, *args, **kw), dev, reps=3, warm=1),
+                   **cs.nn_bound_ms(len(x), srv.xb.shape[0], cs.NN_UNITS,
+                                    sm_clock_mhz, sms))
+        for src, lib in zip(others, libs[1:]):
+            if not torch.equal(with_nn_lib(lib, call), mine):
+                raise AssertionError(f"{src} disagrees with this tree: {name}")
+            t = {"other": [], "this": [], "other_dev": [], "this_dev": []}
+
+            def other():
+                return with_nn_lib(lib, call)
+
+            for _ in range(AB_ROUNDS):
+                for who, fn in (("other", other), ("this", call),
+                                ("this", call), ("other", other)):
+                    t[who].append(cs._time_ms(fn, dev))
+                    t[who + "_dev"].append(cs.kernel_device_ms(fn, dev))
+            med = {k: statistics.median(v) for k, v in t.items()}
+            row["against"][src] = dict(times=t, medians=med)
+            log(f"nn_ab {name} ({len(x)} lanes): {src} on the card "
+                f"{med['other_dev']:.4f} ms, a call {med['other']:.4f} ms; "
+                f"this tree's {med['this_dev']:.4f} ms, a call "
+                f"{med['this']:.4f} ms (medians of {len(t['this'])}, in "
+                f"turns): {med['other_dev'] / med['this_dev']:.3f}x on the "
+                f"card; bound {row['bound_ms']:.4f} ms by {row['bound_by']}:"
+                f" {100 * row['bound_ms'] / med['this_dev']:.1f}% / "
+                f"{100 * row['bound_ms'] / med['other_dev']:.1f}% of it; "
+                f"plain {row['plain_ms']:.3f} ms")
         out["cases"].append(row)
     return out
 
@@ -582,8 +688,8 @@ def main(argv: list[str]) -> int:
         return [a.split("=", 1)[1] for a in argv
                 if a.startswith(f"--{name}=")]
 
-    against, against_query, big = (opt("against"), opt("against-query"),
-                                   opt("big"))
+    against, against_query, big, against_nn = (
+        opt("against"), opt("against-query"), opt("big"), opt("against-nn"))
     argv = [a for a in argv if not a.startswith("--")]
     out_path = argv[0] if argv else os.path.join(
         cs.ROOT, "chiprun_out", "measure.json")
@@ -595,18 +701,22 @@ def main(argv: list[str]) -> int:
     res = dict(card=info, torch=torch.__version__, cuda=torch.version.cuda)
     dev = torch.device("cuda", 0)
 
-    if against_query and big:
+    if against_nn:
         _seq, _idx16, idx21, _t = cs.build_indexes(cs.GENOME_N)
-        res["query_ab"] = query_ab(dev, idx21, big[0], against_query)
+        res["nn_ab"] = nn_ab(dev, idx21, against_nn, sm_clock_mhz)
+    elif against_query and big:
+        _seq, _idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)
+        res["query_ab"] = query_ab(dev, idx21, big[0], against_query,
+                                   tables)
     elif against_query:
         # the 46 Mbp artifact builds in a child beside the 4.6 Mbp index
         with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
             scale = cs.start_scale_build(td)
             try:
-                _seq, _idx16, idx21, _t = cs.build_indexes(cs.GENOME_N)
+                _seq, _idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)
                 cs.finish_scale_build(scale)
                 res["query_ab"] = query_ab(dev, idx21, scale[1],
-                                           against_query)
+                                           against_query, tables)
             finally:
                 if scale[0].poll() is None:
                     os.killpg(scale[0].pid, signal.SIGKILL)

@@ -14,8 +14,8 @@ failure raises and the script exits non-zero:
   2. build: a 4.6 Mbp benchmark genome (15% duplications and tandem
      repeats), ONE suffix array, a k=16 aligner index and a k=21 query
      index on the host (before CUDA starts: the host build may fork), then
-     the kernels, csrc/sw.cu and csrc/query.cu (one nvcc each, sm_90a, at
-     once); beside them, in a child process started
+     the kernels, csrc/sw.cu, csrc/query.cu and csrc/nn_predict.cu (one
+     nvcc each, sm_90a, at once); beside them, in a child process started
      first, phase 8's artifact: the port's build_big_index at SCALE_N
      bases (k=21, 2^SCALE_NB buckets, bounds, no prefix arrays, no stage
      cache) into a temporary directory, then its retable_index to
@@ -38,13 +38,20 @@ failure raises and the script exits non-zero:
      QK_SHIFT ranks, and that with the stride cap QK_STRIDE_CAP, at
      QK_OPTION_LENGTHS; phase 8's artifact at SCALE_LENGTHS; and
      binsearch_cuda against binsearch_batch on phase 5's queries and on
-     phase 8's artifact; fast3 at L=21, packed at L=101 and the binary
-     searches also in a shuffled order (hits and misses mixed). Each
-     case prints the kernel's CUDA-event time, the plain path's, the
-     kernel's launches, its bound (query_bound_ms: the distinct 32-byte
-     sectors its lanes read, from its sector trace, and the coalesced
-     inputs and output, over HBM_BYTES_PER_S) and the lane utilisation
-     of its probe counts (lane_utilisation);
+     phase 8's artifact; fancy_binsearch_cuda against
+     fancy_binsearch_batch on phase 5's queries with prefix64, without,
+     at L=101 (packed) and shuffled; fast3 at L=21, packed at L=101 and
+     the binary searches also in a shuffled order (hits and misses
+     mixed). Each case prints the kernel's CUDA-event time, the plain
+     path's, the kernel's launches, its bound (query_bound_ms: the
+     distinct 32-byte sectors its lanes read, from its sector trace, and
+     the coalesced inputs and output, over HBM_BYTES_PER_S) and the lane
+     utilisation of its probe counts (lane_utilisation). Then
+     nn_predict_cuda against the plain nn_predict on the card, every rank
+     equal, for a seeded untrained model at phase 9's width (NN_CHUNKS x
+     NN_UNITS, the k=21 index's dataset scaling), on phase 5's 1M x and on
+     every genome k-mer; its time, the plain version's and its bound
+     (nn_bound_ms);
   4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
      SAM on the card; the first 1,000 reads' SAM must be byte-identical to
      the port's CPU path, and both SW kernel modes must have launched;
@@ -65,9 +72,10 @@ failure raises and the script exits non-zero:
      CPU path's;
      CUDA-event times, phase D bisection rounds and phase C stride steps
      (the kernel's stats);
-  7. baselines: the plain and the llcp/rlcp-pruned binary search on phase
-     5's queries; in-genome queries must self-check and the first 100,000
-     positions must equal the CPU path's.
+  7. baselines: the plain and the llcp/rlcp-pruned binary search (the
+     binsearch and fancy kernels) on phase 5's queries; in-genome queries
+     must self-check and the first 100,000 positions must equal the CPU
+     path's.
   8. scale: phase 2's artifact loaded memory-mapped without inv and the
      aligner's run arrays (SaplingIndex.load(skip, mmap), codes copied
      into RAM), 1,000,000 queries of 21 and of 101 bases (7/8 from the
@@ -84,10 +92,12 @@ failure raises and the script exits non-zero:
      and every audit error must lie inside the max windows; NNQueryEngine
      on phase 5's queries: every in-genome query must self-check and the
      first 100,000 positions must equal the CPU path's with the same
-     model; CUDA-event time and bisection rounds, timed in turns with the
-     PWL engine on the same inputs; then test_models.py's small corpus fitted on the card and on
-     the CPU from one set of initial parameters: equal stop epochs, loss
-     histories within NN_TRAIN_RTOL;
+     model; one nn_predict and one plquery launch a call; CUDA-event time
+     and bisection rounds, timed in turns with the PWL engine on the same
+     inputs, and predict_ranks alone (the kernel) in turns with the plain
+     nn_predict on the card; then test_models.py's small corpus fitted
+     on the card and on the CPU from one set of initial parameters: equal
+     stop epochs, loss histories within NN_TRAIN_RTOL;
  10. sharded serving (parallel/, torch.distributed): ranks in child
      processes started with spawn, which load what the phases above saved
      to the temporary directory (the k=16 and k=21 artifacts, phase 5's and
@@ -119,9 +129,10 @@ failure raises and the script exits non-zero:
      sorted at GATHER_GB GB, then randref again at each of
      GATHER_SWEEP_LANES lanes.
 
-Phases 4 to 9 each count the query kernels' launches over their main call
-(`counted`): each must launch its kernel (the pruned binary search has
-none), and no plain cascade may run a host round there.
+Phases 4 to 9 each count the kernels' launches over their main call
+(`counted`): each must launch its kernel (phase 7's pruned search the
+fancy kernel, phase 9's engine nn_predict and plquery), and no plain
+cascade may run a host round there.
 
 The line before the last is a JSON object describing each kernel; the last
 is {"ok": true, "device": {...}}.
@@ -194,10 +205,11 @@ QK_TRACE = 128
 # windows as long, match SW_KEY64_MATCH
 SW_KEY64, SW_KEY64_W, SW_KEY64_MATCH = 6, 1_100, 3_000
 # the card's rates for the bound, an SM a clock (Hopper): int32 ALU lanes,
-# and instructions issued (4 schedulers x 32 lanes, over the ALU and FMA
-# pipes together); HBM bytes/s
+# instructions issued (4 schedulers x 32 lanes, over the ALU and FMA pipes
+# together) and fp64 lanes; HBM bytes/s
 INT32_LANES_PER_SM = 64
 ISSUE_LANES_PER_SM = 128
+FP64_LANES_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 # int32 instructions a DP cell needs: the substitution as one byte-permute
 # lookup, max(diag + sub, E, 0) and the max with F for H, H - gapO, an
@@ -246,19 +258,22 @@ def without_prefix(idx):
 
 
 def counted(fn, want: str | None = "plquery"):
-    """fn() with the query kernels' launch counts (ops.query_cuda.LAUNCHES)
-    and the plain cascade's host loop rounds (ops.query.ROUNDS) set to 0
-    just before it and read just after: (result, launches, rounds). With
-    `want`, fail unless that kernel launched and no plain cascade looped
-    (a plain plquery or binary search of a real batch runs host rounds;
-    the kernels add to ROUNDS only when asked for stats)."""
-    from sapling_tpu_torch.ops import query, query_cuda
+    """fn() with the query and NN kernels' launch counts (ops.query_cuda
+    and ops.nn_predict_cuda LAUNCHES) and the plain cascade's host loop
+    rounds (ops.query.ROUNDS) set to 0 just before it and read just after:
+    (result, launches, rounds). With `want`, fail unless that kernel
+    launched and no plain cascade looped (a plain plquery or binary search
+    of a real batch runs host rounds; the kernels add to ROUNDS only when
+    asked for stats)."""
+    from sapling_tpu_torch.ops import nn_predict_cuda, query, query_cuda
 
-    for k in query_cuda.LAUNCHES:
-        query_cuda.LAUNCHES[k] = 0
+    for counts in (query_cuda.LAUNCHES, nn_predict_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     query.ROUNDS.update(C=0, D=0)
     out = fn()
-    launches, rounds = dict(query_cuda.LAUNCHES), dict(query.ROUNDS)
+    launches = {**query_cuda.LAUNCHES, **nn_predict_cuda.LAUNCHES}
+    rounds = dict(query.ROUNDS)
     if want and (launches[want] == 0 or any(rounds.values())):
         raise AssertionError(f"{want} kernel not on the path: launches "
                              f"{launches}, plain rounds {rounds}")
@@ -500,16 +515,19 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
                 max_abs_err=0)
 
 
-def query_kernel_phase(dev, idx21, art: str) -> list[dict]:
+def query_kernel_phase(dev, idx21, art: str, tables) -> list[dict]:
     """Phase 3b: the query kernels against the plain cascade on the card,
     each case on the same CUDA tensors (_kernel_case): plquery at
     QK_LENGTHS on the k=21 index as built and without prefix arrays (every
     probe form); an int64 copy of rev; adaptive bounds; a pred64 moved by
     up to QK_SHIFT ranks, also with the stride cap QK_STRIDE_CAP; phase
-    8's artifact at SCALE_LENGTHS; and the binary search on both indexes.
-    fast3 at QUERY_LEN, packed at the last SCALE_LENGTHS and each binary
-    search also run in a shuffled order."""
+    8's artifact at SCALE_LENGTHS; the binary search on both indexes; the
+    pruned search (with `tables`, the host llcp / rlcp) at QUERY_LEN with
+    and without prefix64 and at the last SCALE_LENGTHS. fast3 at
+    QUERY_LEN, packed at the last SCALE_LENGTHS, each binary search and
+    the pruned one with prefix64 also run in a shuffled order."""
     import numpy as np
+    import torch
 
     from sapling_tpu_torch.ops import query, query_cuda
     from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
@@ -538,6 +556,21 @@ def query_kernel_phase(dev, idx21, art: str) -> list[dict]:
         rows.append(dict(row, kernel="binsearch", length=QUERY_LEN,
                          form="packed"))
 
+    def fancy_case(tag, didx, codes):
+        qw, kw, lane_bytes = binsearch_inputs(didx, codes)
+        d = didx.device_arrays()
+        args = (d["packed"], d["rev"], *lr, qw)
+        kw["prefix"] = d["prefix64"]
+        form = ("prefix64" if d["prefix64"] is not None
+                and kw["length"] <= 32 else "packed")
+        row = _kernel_case(
+            dev, f"{tag}pruned binary search L={kw['length']} {form}",
+            lambda **st: query_cuda.fancy_binsearch_cuda(*args, **st, **kw),
+            lambda: query.fancy_binsearch_batch(*args, **kw), lane_bytes,
+            len(codes))
+        rows.append(dict(row, kernel="fancy", length=kw["length"],
+                         form=form))
+
     bare = without_prefix(idx21)
     for length in QK_LENGTHS:
         codes, _n_in = query_codes(idx21.codes, length)
@@ -565,6 +598,13 @@ def query_kernel_phase(dev, idx21, art: str) -> list[dict]:
     codes, _n_in = query_codes(idx21.codes)
     binsearch_case("", idx21.to(dev), codes)
     binsearch_case("shuffled ", idx21.to(dev), shuffled(codes))
+    lr = [torch.from_numpy(a).to(dev) for a in tables]
+    fancy_case("", idx21.to(dev), codes)
+    fancy_case("no_prefix ", bare.to(dev), codes)
+    fancy_case("shuffled ", idx21.to(dev), shuffled(codes))
+    codes, _n_in = query_codes(idx21.codes, SCALE_LENGTHS[-1])
+    fancy_case("", idx21.to(dev), codes)
+    del lr
     big = load_for_queries(art, dev)
     for length in SCALE_LENGTHS:
         codes, _n_in = query_codes(big.codes, length)
@@ -575,6 +615,132 @@ def query_kernel_phase(dev, idx21, art: str) -> list[dict]:
     binsearch_case(f"{big.n} bp shuffled ", big, shuffled(codes))
     del big
     return rows
+
+
+def nn_bound_ms(b: int, c: int, s: int, sm_clock_mhz: float,
+                sms: int) -> dict:
+    """The least time of an nn_predict call over b lanes with c chunks of s
+    units on this card: the larger of its fp64 operations and its bytes.
+    Operations a lane, as nn_predict.cu issues them on the fp64 pipe: the
+    int64 -> fp64 conversion, the division, the rounding to float32 and
+    back, for each unit a multiply, an add and a ReLU, a multiply and
+    (but the first) an add for the sum, the b2 add, two multiplies, two
+    adds and a subtract for the un-scaling, the rounding, two clamp
+    compares and the conversion to int64: 5 s + 13, on FP64_LANES_PER_SM
+    lanes an SM a clock at the SM clock. Bytes: x read and the rank
+    written once (16 a lane) and the parameters once, over
+    HBM_BYTES_PER_S."""
+    ops = b * (5 * s + 13)
+    ops_ms = ops / (sms * FP64_LANES_PER_SM * sm_clock_mhz * 1e6) * 1e3
+    nbytes = 16 * b + 4 * c + 8 * c * (3 * s + 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                bytes_ms=bytes_ms,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def nn_model_args(srv):
+    """A NNServing's nn_predict arguments: (args, keywords)."""
+    return ((srv.xb, srv.params[0]["w"], srv.params[0]["b"],
+             srv.params[1]["w"], srv.params[1]["b"]),
+            dict(x_max=srv.x_max, line_m=srv.line_m, line_c=srv.line_c,
+                 res_ptp=srv.res_ptp, res_min=srv.res_min, n=srv.n))
+
+
+def nn_untrained(dev, idx21):
+    """A seeded untrained model at phase 9's width on `dev`: init_params
+    (NN_CHUNKS x NN_UNITS, seed SEED) with the chunk boundaries and
+    scaling of the k=21 index's dataset. Returns (NNServing, the genome's
+    k-mers on the host)."""
+    import numpy as np
+    import torch
+
+    from sapling_tpu_torch.models.residual import (init_params,
+                                                   prepare_dataset)
+    from sapling_tpu_torch.models.serve import NNServing
+    from sapling_tpu_torch.ops.pack import kmers_scan
+
+    kmers = kmers_scan(idx21.codes, idx21.k)
+    ds = prepare_dataset(kmers, np.asarray(idx21.inv[:len(kmers)],
+                                           np.int64), NN_CHUNKS)
+    srv = NNServing(
+        params=init_params(torch.Generator().manual_seed(SEED),
+                           ds.x.shape[0], NN_UNITS, device=dev),
+        xb=torch.from_numpy(np.ascontiguousarray(
+            ds.x[:, 0, 0], dtype=np.float32)).to(dev),
+        x_max=ds.x_max, res_min=ds.res_min, res_ptp=ds.res_ptp,
+        line_m=ds.line_m, line_c=ds.line_c, n=idx21.n, k=idx21.k)
+    return srv, kmers
+
+
+def kernel_device_ms(fn, dev, reps: int = 20) -> float:
+    """The card's own milliseconds a call of fn(), whose host work may take
+    longer than its kernels: the card sleeps (torch.cuda._sleep) while the
+    host enqueues reps calls between two CUDA events, so that the events
+    time the calls' kernels back to back and none of the host's work. The
+    sleep grows until it outlasts the enqueueing (host clock)."""
+    import torch
+
+    fn()
+    cycles = 1 << 22
+    for _ in range(6):
+        torch.cuda.synchronize(dev)
+        slept, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        t0 = time.perf_counter()
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if slept.elapsed_time(start) > host_ms:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("the card's sleep never outlasted the host's "
+                         f"enqueueing of {reps} calls")
+
+
+def nn_kernel_phase(dev, idx21, sm_clock_mhz: float) -> dict:
+    """Phase 3b's NN check on nn_untrained's model: nn_predict_cuda against
+    the plain nn_predict on the same CUDA tensors, on phase 5's 1M x and on
+    every genome k-mer: every rank equal. Returns, on phase 5's x, the
+    kernel's device time a launch (kernel_device_ms), the CUDA-event time
+    of a wrapper call and of the plain version, the kernel's launches a
+    call and its bound (nn_bound_ms)."""
+    import torch
+
+    from sapling_tpu_torch.ops import nn_predict_cuda
+
+    srv, kmers = nn_untrained(dev, idx21)
+    c = srv.xb.shape[0]
+    args, kw = nn_model_args(srv)
+    codes, _n_in = query_codes(idx21.codes)
+    x5 = idx21.to(dev).query_inputs(codes)[0]
+    out = dict(chunks=c, units=NN_UNITS, lanes=0)
+    for x in (x5, torch.from_numpy(kmers).to(dev)):
+        before = nn_predict_cuda.LAUNCHES["nn_predict"]
+        got = nn_predict_cuda.nn_predict_cuda(x, *args, **kw)
+        launched = nn_predict_cuda.LAUNCHES["nn_predict"] - before
+        want = nn_predict_cuda.nn_predict(x, *args, **kw)
+        if not torch.equal(got, want) or launched != 1:
+            raise AssertionError(
+                f"nn_predict kernel != plain: {int((got != want).sum())} of "
+                f"{len(x)} ranks differ, {launched} launches")
+        out["lanes"] += len(x)
+    out["kmers"] = len(kmers)
+    out["ms"] = kernel_device_ms(lambda: nn_predict_cuda.nn_predict_cuda(
+        x5, *args, **kw), dev)
+    out["call_ms"] = _time_ms(lambda: nn_predict_cuda.nn_predict_cuda(
+        x5, *args, **kw), dev)
+    out["plain_ms"] = _time_ms(lambda: nn_predict_cuda.nn_predict(
+        x5, *args, **kw), dev, reps=3, warm=1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out.update(nn_bound_ms(len(x5), c, NN_UNITS, sm_clock_mhz, sms))
+    out["pct_of_bound"] = 100 * out["bound_ms"] / out["ms"]
+    return out
 
 
 def plquery_inputs(idx, length: int, codes=None, shift: int = 0, **over):
@@ -829,9 +995,7 @@ def baseline_phase(dev, idx21, tables) -> dict:
               "fancy": lambda c: idx21.query_positions_fancy(c, *tables)}
     out = {}
     for name, run in baseline_runs(didx, codes, tables).items():
-        # the pruned search stays torch ops (ROADMAP B3): no kernel
-        pos, launches, _ = counted(
-            run, want="binsearch" if name == "binsearch" else None)
+        pos, launches, _ = counted(run, want=name)
         pos = pos.cpu().numpy()
         _check(name, pos, didx.verify_hits(codes, pos), n_in,
                on_cpu[name](codes[:N_QUERY_CHECK]))
@@ -987,15 +1151,18 @@ def nn_phase(dev, idx21) -> dict:
     predicted rank must equal the same model's on the CPU and the audit's
     errors must lie inside the windows; NNQueryEngine answers phase 5's
     queries (every in-genome one self-checks, the first N_QUERY_CHECK
-    equal the CPU path's with the same model) and is timed in turns with
-    the PWL engine on the same inputs (NN then PWL, three times; the
-    median of each engine's three timings); then the training check of
+    equal the CPU path's with the same model) from one nn_predict and one
+    plquery launch, and is timed in turns with the PWL engine on the same
+    inputs (NN then PWL, three times; the median of each engine's three
+    timings), and predict_ranks alone (the kernel) in turns with the
+    plain nn_predict on the card; then the training check of
     nn_train_parity."""
     import numpy as np
 
     from sapling_tpu_torch.models.serve import (NNQueryEngine, audit_serving,
                                                 train_serving)
     from sapling_tpu_torch.ops import query
+    from sapling_tpu_torch.ops.nn_predict_cuda import nn_predict
     from sapling_tpu_torch.ops.pack import kmers_scan
 
     didx = idx21.to(dev)
@@ -1031,6 +1198,9 @@ def nn_phase(dev, idx21) -> dict:
     eng = NNQueryEngine(didx, srv)
     inputs = didx.query_inputs(codes)
     pos, launches, _ = counted(lambda: eng.query_device(*inputs))
+    if (launches["nn_predict"], launches["plquery"]) != (1, 1):
+        raise AssertionError(f"NN engine call launched {launches}, not one "
+                             "nn_predict and one plquery")
     pos = pos.cpu().numpy()
     query.ROUNDS.update(C=0, D=0)
     eng.query_device(*inputs, stats=True)
@@ -1047,6 +1217,16 @@ def nn_phase(dev, idx21) -> dict:
         for name, fn in runs.items():
             times[name].append(_time_ms(fn, dev, reps=5, warm=1))
     ms, pwl_ms = (float(np.median(times[name])) for name in runs)
+    # predict_ranks alone: the kernel in turns with the plain version
+    args, kw = nn_model_args(srv)
+    runs = {"kernel": lambda: srv.predict_ranks(inputs[0]),
+            "plain": lambda: nn_predict(inputs[0], *args, **kw)}
+    ptimes = {name: [] for name in runs}
+    for _ in range(3):
+        for name, fn in runs.items():
+            ptimes[name].append(_time_ms(fn, dev, reps=5, warm=1))
+    out.update(predict_ms=float(np.median(ptimes["kernel"])),
+               predict_plain_ms=float(np.median(ptimes["plain"])))
     out.update(ms=ms, pwl_ms=pwl_ms, qps=N_QUERIES / (ms / 1e3),
                pwl_qps=N_QUERIES / (pwl_ms / 1e3), nn_rounds=nn_rounds,
                pwl_rounds=pwl_rounds, ratio=pwl_ms / ms, in_genome=n_in,
@@ -1428,14 +1608,14 @@ def build_kernels() -> dict:
     {source: seconds}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from sapling_tpu_torch.ops import query_cuda, sw_cuda
+    from sapling_tpu_torch.ops import nn_predict_cuda, query_cuda, sw_cuda
 
     def build(src):
         t0 = time.perf_counter()
         sw_cuda.build_kernel(src)
         return time.perf_counter() - t0
 
-    srcs = (sw_cuda.SOURCE, query_cuda.SOURCE)
+    srcs = (sw_cuda.SOURCE, query_cuda.SOURCE, nn_predict_cuda.SOURCE)
     with ThreadPoolExecutor(len(srcs)) as pool:
         return dict(zip((os.path.relpath(s, ROOT) for s in srcs),
                         pool.map(build, srcs)))
@@ -1444,7 +1624,7 @@ def build_kernels() -> dict:
 def run_phases(td: str, scale, sm_clock_mhz: float):
     """Phases 2 (after start_scale_build) to 11 in `td`; each logs its
     line. Returns phase 3's and 3b's kernel results, phase 4's aligner
-    results and phases 5 and 7, which the kernels line reads."""
+    results and phases 5, 7 and 9, which the kernels line reads."""
     import torch
 
     t0 = time.perf_counter()
@@ -1491,7 +1671,8 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 3b. the query kernels vs the plain cascade on the card
     t0 = time.perf_counter()
-    qk = query_kernel_phase(dev, idx21, scale[1])
+    qk = query_kernel_phase(dev, idx21, scale[1], tables)
+    nk = nn_kernel_phase(dev, idx21, sm_clock_mhz)
     log(f"query kernel vs plain: phase 3b took "
         f"{time.perf_counter() - t0:.1f} s")
     for r in qk:
@@ -1503,6 +1684,15 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
             f"the lanes touched, {r['over']} lanes past {QK_TRACE}; "
             f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it); lane "
             f"utilisation {100 * r['util']:.1f}%")
+    log(f"nn kernel vs plain: nn_predict, an untrained model of "
+        f"{nk['chunks']} chunks x {nk['units']} units (seed {SEED}): "
+        f"{nk['lanes']} ranks equal (phase 5's {N_QUERIES} x and all "
+        f"{nk['kmers']} genome k-mers), 1 launch a call; kernel "
+        f"{nk['ms']:.4f} ms on the card (kernel_device_ms), a wrapper call "
+        f"{nk['call_ms']:.4f} ms (CUDA events), plain {nk['plain_ms']:.3f} "
+        f"ms on {N_QUERIES} lanes; bound {nk['bound_ms']:.4f} ms by {nk['bound_by']} (fp64 "
+        f"operations {nk['ops_ms']:.4f} ms, bytes {nk['bytes_ms']:.4f} ms; "
+        f"{nk['pct_of_bound']:.1f}% of it)")
 
     # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines,
     # 8. scale
@@ -1540,7 +1730,7 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"llcp/rlcp-pruned {bl['fancy']['ms']:.3f} ms = "
         f"{bl['fancy']['qps']:.1f} q/s, plquery (phase 5) "
         f"{qr['qps']:.1f} q/s; in-genome self-checked, first "
-        f"{N_QUERY_CHECK} identical to the CPU path; query kernels: binary "
+        f"{N_QUERY_CHECK} identical to the CPU path; kernels: binary "
         f"search {bl['binsearch']['launches']}, pruned "
         f"{bl['fancy']['launches']}")
     sc = scale_phase(dev, scale[1], scale[2])
@@ -1575,8 +1765,10 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"{nn['pwl_qps']:.1f} q/s, {nn['pwl_rounds']} rounds; NN/PWL = "
         f"{nn['ratio']:.3f}; median of 3 timings each); "
         f"self-check {nn['in_genome']}/{nn['in_genome']} in-genome, first "
-        f"{N_QUERY_CHECK} identical to the CPU path; query kernels "
-        f"{nn['launches']}")
+        f"{N_QUERY_CHECK} identical to the CPU path; kernels "
+        f"{nn['launches']}; predict_ranks alone (kernel) "
+        f"{nn['predict_ms']:.4f} ms, the plain nn_predict in turns "
+        f"{nn['predict_plain_ms']:.3f} ms")
     tp = nn["train_parity"]
     log(f"nn: training card vs CPU (8 kbp, k=11, 4 x 8, 200 epochs): stop "
         f"epochs {tp['stops']} on both, {tp['epochs']} epochs, loss "
@@ -1589,14 +1781,14 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 11. profiling, evalx, the gather microbenchmark
     last_modules_phase(dev, seq, idx21, td, al)
-    return kp, qk, al, qr, bl
+    return kp, qk, nk, al, qr, bl, nn
 
 
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch  # noqa: F401  (fails here on a machine without PyTorch)
 
-    from sapling_tpu_torch.ops import query_cuda, sw_cuda
+    from sapling_tpu_torch.ops import nn_predict_cuda, query_cuda, sw_cuda
 
     # 1. the card
     if not torch.cuda.is_available():
@@ -1613,7 +1805,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         scale = start_scale_build(td)
         try:
-            kp, qk, al, qr, bl = run_phases(td, scale, sm_clock_mhz)
+            kp, qk, nk, al, qr, bl, nn = run_phases(td, scale,
+                                                    sm_clock_mhz)
         finally:
             if scale[0].poll() is None:
                 os.killpg(scale[0].pid, signal.SIGKILL)
@@ -1629,8 +1822,9 @@ def main() -> int:
          "launches": al["launches"]["score_only"], **kp["score_only"]},
     ]
     # the query kernels' rows: phase 3b's case on phase 5's queries (k=21
-    # index as built, fast3) and its binary search; launches of phase 5's
-    # and phase 7's main calls. No PyTorch call computes either cascade.
+    # index as built: fast3, the binary search, the pruned search with
+    # prefix64); launches of phase 5's and phase 7's main calls. No PyTorch
+    # call computes any of the three.
     qsrc = os.path.relpath(query_cuda.SOURCE, ROOT)
     for name, replaces, row, launches in (
             ("plquery", "sapling_tpu/ops/query.py:1011",
@@ -1638,13 +1832,26 @@ def main() -> int:
              qr["launches"]["plquery"]),
             ("binsearch", "sapling_tpu/ops/query.py:1370",
              next(r for r in qk if r["kernel"] == "binsearch"),
-             bl["binsearch"]["launches"]["binsearch"])):
+             bl["binsearch"]["launches"]["binsearch"]),
+            ("fancy_binsearch", "sapling_tpu/ops/query.py:1404",
+             next(r for r in qk if r["kernel"] == "fancy"),
+             bl["fancy"]["launches"]["fancy"])):
         kernels.append({
             "name": name, "route": "cuda", "source": qsrc,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
+    # the NN rank prediction: phase 3b's untrained model on phase 5's x;
+    # launches of phase 9's engine call. No PyTorch call computes it.
+    kernels.append({
+        "name": "nn_predict", "route": "cuda",
+        "source": os.path.relpath(nn_predict_cuda.SOURCE, ROOT),
+        "replaces": "sapling_tpu/models/serve.py:63",
+        "launches": nn["launches"]["nn_predict"], "max_abs_err": 0,
+        "ms": nk["ms"], "plain_ms": nk["plain_ms"],
+        "bound_ms": nk["bound_ms"], "bound_by": nk["bound_by"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

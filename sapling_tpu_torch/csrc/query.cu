@@ -1,14 +1,15 @@
-// The query cascade for Hopper (sm_90a): plQuery and the classic
-// suffix-array binary search, one thread a query.
+// The query cascade for Hopper (sm_90a): plQuery, the classic suffix-array
+// binary search and its llcp/rlcp-pruned variant, one thread a query.
 //
 // Replace the XLA programs of sapling_tpu/ops/query.py::plquery_batch
 // (:1011; with _plquery_fast3 :723, _general_refine :886, make_rank_probe
 // :315, make_rank_probe3 :384, probe_at :143, _masked_binary_search :504,
-// _lane_bounds :581 and ops/predict.py::predict_pwl :231) and
-// ::binsearch_batch (:1370), and compute exactly what the port's plain
-// versions compute (sapling_tpu_torch/ops/query.py plquery_batch,
-// binsearch_batch), bit for bit: the same member of a duplicate run, the
-// same -1s.
+// _lane_bounds :581 and ops/predict.py::predict_pwl :231),
+// ::binsearch_batch (:1370) and ::fancy_binsearch_batch (:1404), and
+// compute exactly what the port's plain versions compute
+// (sapling_tpu_torch/ops/query.py plquery_batch, binsearch_batch,
+// fancy_binsearch_batch), bit for bit: the same member of a duplicate run,
+// the same -1s.
 //
 // The plain versions run every lane of a batch through one masked decision
 // sequence and sync with the host once a bisection round and once a stride
@@ -71,6 +72,22 @@
 //                    4.6 and 46 Mbp on an H100. At 230 Mbp, where the
 //                    bisection has 28 levels and its first ones were L1 and
 //                    L2 hits anyway, the gain is gone (0.97-0.98x).
+//   fancy_binsearch_kernel
+//                    The Manber-Myers search, one thread a query: a round
+//                    reads the one table entry its test needs (llcp[mid]
+//                    when loLcp >= hiLcp, else rlcp[mid]) and probes the
+//                    genome only when that entry equals the boundary LCP,
+//                    so a lane reads rev and the genome on its probing
+//                    rounds alone (the plain version gathers both tables
+//                    and probes rank 0 for every other lane). A lane stops
+//                    when it is decided. The probe's LCP is the capped one
+//                    (finish), as the plain version feeds it back. A shared
+//                    table of the top 11 levels, as the binary search's
+//                    (llcp, rlcp, rev and the first 32 bases a node), ran
+//                    0.86x at prefix64 L=21 and 1.04x on packed probes on
+//                    an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): its
+//                    registers cut the resident threads, and the top
+//                    levels were cache hits already.
 //
 // The binary search keeps each lane's decision sequence and its probe and
 // sector counts (a probe answered from shared memory records the sectors
@@ -113,6 +130,8 @@ struct Args {
   int64_t B, n, packed_len, most_over, most_under, max_over, max_under,
       max_stride_steps;
   int length, k, buckets, adaptive, trace_cap;
+  const int32_t* llcp = nullptr;   // the pruned search's [n] tables
+  const int32_t* rlcp = nullptr;
 };
 
 struct Probe {
@@ -120,6 +139,8 @@ struct Probe {
   bool match;      // a full L-base match
   bool smaller;    // the suffix sorts below the query (off the end too)
   bool off_end;    // the compare ran off the genome (not on fast3)
+  int64_t lcp;     // LCP(query, suffix) capped at the genome's end (not
+                   // on fast3)
 };
 
 // the dynamic shared memory of a block
@@ -227,6 +248,7 @@ struct Lane {
     p.match = lcp == L;
     p.off_end = !p.match && lcp == rem && rem < L;
     p.smaller = p.off_end || (!p.match && q_gt);
+    p.lcp = lcp;
     return p;
   }
 
@@ -241,6 +263,7 @@ struct Lane {
       p.match = pm == q3m;
       p.smaller = !p.match && q3m > pm;   // values < 2^63: signed is unsigned
       p.off_end = false;
+      p.lcp = 0;
       return p;
     } else if constexpr (PROBE == kPrefix64) {
       const int64_t pos = rev(rank);
@@ -552,7 +575,82 @@ __global__ void __launch_bounds__(kSearchThreads)
     binsearch_lane<REV>(a, tree, b);
 }
 
+// The llcp/rlcp-pruned search (the port's fancy_binsearch_batch; the
+// reference's unused fancyBinarySearch, src/binarysearch.cpp:90-153):
+// bQuery's pre-probes of ranks 0 and n-1 seed loLcp and hiLcp, then each
+// round over [lo, hi] takes hi == lo + 1 as -1 and hi == lo + 2 as rank
+// lo+1's value, unverified, or moves lo or hi to mid, on the table entry
+// alone where it differs from the boundary LCP, else on a probe. At most
+// bit_length(n - 1) + 2 rounds, as in the plain version (a lane is decided
+// within them). Stats count probes and sectors; there are no host rounds
+// to match, so depth stays 0.
+template <int PROBE, typename REV>
+__global__ void __launch_bounds__(kThreads)
+    fancy_binsearch_kernel(const __grid_constant__ Args a) {
+  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= a.B) return;
+  Lane<PROBE, REV> lane(a, b);
+  const Probe p0 = lane.probe(0);
+  if (p0.match) return lane.done(p0.val, 0, 0);
+  const Probe p1 = lane.probe(a.n - 1);
+  if (p1.match) return lane.done(p1.val, 0, 0);
+  int64_t lo = 0, hi = a.n - 1, lo_lcp = p0.lcp, hi_lcp = p1.lcp;
+  int trips = 2;
+  while (trips < 64 && ((a.n - 1) >> (trips - 2)) != 0) ++trips;
+  for (int t = 0; t < trips; ++t) {
+    if (hi == lo + 1) break;
+    if (hi == lo + 2) return lane.done(lane.value_at(lo + 1), 0, 0);
+    const int64_t mid = lo + ((hi - lo) >> 1);
+    if (lo_lcp >= hi_lcp) {
+      lane.touch(a.llcp + mid);
+      const int64_t ll = __ldg(a.llcp + mid);
+      if (ll > lo_lcp) {
+        lo = mid;
+        continue;
+      }
+      if (ll < lo_lcp) {
+        hi = mid;
+        hi_lcp = ll;
+        continue;
+      }
+    } else {
+      lane.touch(a.rlcp + mid);
+      const int64_t rl = __ldg(a.rlcp + mid);
+      if (rl < hi_lcp) {
+        lo = mid;
+        lo_lcp = rl;
+        continue;
+      }
+      if (rl > hi_lcp) {
+        hi = mid;
+        continue;
+      }
+    }
+    const Probe p = lane.probe(mid);   // the entry equals the boundary LCP
+    if (p.match) return lane.done(p.val, 0, 0);
+    if (p.smaller) {
+      lo = mid;
+      lo_lcp = p.lcp;
+    } else {
+      hi = mid;
+      hi_lcp = p.lcp;
+    }
+  }
+  lane.done(-1, 0, 0);
+}
+
 int blocks_for(int64_t B) { return (int)((B + kThreads - 1) / kThreads); }
+
+template <int PROBE>
+int launch_fancy(const Args& a, int rev64, cudaStream_t stream) {
+  if (rev64)
+    fancy_binsearch_kernel<PROBE, int64_t><<<blocks_for(a.B), kThreads, 0,
+                                             stream>>>(a);
+  else
+    fancy_binsearch_kernel<PROBE, int32_t><<<blocks_for(a.B), kThreads, 0,
+                                             stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 template <int PROBE>
 int launch_plquery(const Args& a, int rev64, cudaStream_t stream) {
@@ -662,4 +760,35 @@ extern "C" int binsearch_launch(const void* packed, long long packed_len,
   auto st = static_cast<cudaStream_t>(stream);
   return rev64 ? launch_binsearch<int64_t>(a, st)
                : launch_binsearch<int32_t>(a, st);
+}
+
+extern "C" int fancy_binsearch_launch(
+    const void* packed, long long packed_len, const void* rev, int rev64,
+    const void* llcp, const void* rlcp, const void* prefix,
+    const void* q_words, void* out, void* lane_stats, void* depth,
+    void* trace, long long B, long long n, int length, int trace_cap,
+    int probe, void* stream) {
+  if (B <= 0) return 0;
+  Args a{};
+  a.packed = static_cast<const int64_t*>(packed);
+  a.packed_len = packed_len;
+  a.rev = rev;
+  a.llcp = static_cast<const int32_t*>(llcp);
+  a.rlcp = static_cast<const int32_t*>(rlcp);
+  a.prefix = static_cast<const int64_t*>(prefix);
+  a.q_words = static_cast<const int64_t*>(q_words);
+  a.out = static_cast<int64_t*>(out);
+  a.lane_stats = static_cast<int32_t*>(lane_stats);
+  a.depth = static_cast<int32_t*>(depth);
+  a.trace = static_cast<int64_t*>(trace);
+  a.trace_cap = trace_cap;
+  a.B = B;
+  a.n = n;
+  a.length = length;
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (probe) {
+    case kPrefix64: return launch_fancy<kPrefix64>(a, rev64, st);
+    case kPacked: return launch_fancy<kPacked>(a, rev64, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -24,8 +24,8 @@ from ..config import IndexConfig, QueryConfig
 from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
-from ..ops.query import fancy_binsearch_batch
-from ..ops.query_cuda import binsearch_cuda, plquery_cuda
+from ..ops.query_cuda import (binsearch_cuda, fancy_binsearch_cuda,
+                              plquery_cuda)
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -383,16 +383,18 @@ class SaplingIndex:
                          stats: bool = False) -> torch.Tensor:
         """The binary-search baselines over prepared device query words
         (query_words) -> int64 [B] positions on `self.device`, -1 = not
-        found: the classic search (ops.query_cuda.binsearch_cuda: its
-        kernel on the card; `stats` as in query_device), or with the int32
-        [n] llcp/rlcp tables on `self.device` the pruned one
-        (ops.query.fancy_binsearch_batch, torch ops)."""
+        found: the classic search (ops.query_cuda.binsearch_cuda), or with
+        the int32 [n] llcp/rlcp tables on `self.device` the pruned one
+        (ops.query_cuda.fancy_binsearch_cuda, with the index's prefix64
+        when it has one); each its kernel on the card, `stats` as in
+        query_device."""
         dev = self.device_arrays()
         if llcp is None:
             return binsearch_cuda(dev["packed"], dev["rev"], q_words,
                                   n=self.n, length=length, stats=stats)
-        return fancy_binsearch_batch(dev["packed"], dev["rev"], llcp, rlcp,
-                                     q_words, n=self.n, length=length)
+        return fancy_binsearch_cuda(dev["packed"], dev["rev"], llcp, rlcp,
+                                    q_words, n=self.n, length=length,
+                                    prefix=dev["prefix64"], stats=stats)
 
     def query_positions_binsearch(self, codes2d: np.ndarray) -> np.ndarray:
         """Classic binary-search baseline over the same device arrays."""

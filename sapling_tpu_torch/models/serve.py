@@ -33,8 +33,9 @@ import torch
 from ..index.pwl import ErrorAudit, error_stats
 from ..index.suffix_array import fwd_runs_from_rank_kmers
 from ..ops import pack as packops
+from ..ops.nn_predict_cuda import nn_predict_cuda
 from ..ops.query_cuda import plquery_cuda
-from .residual import F64, Trainer, params_from_numpy, prepare_dataset
+from .residual import Trainer, params_from_numpy, prepare_dataset
 
 
 @dataclass
@@ -76,37 +77,18 @@ class NNServing:
 
     def predict_ranks(self, x: torch.Tensor) -> torch.Tensor:
         """[B] int64 adjusted k-mer values -> [B] int64 predicted ranks, on
-        the model's device.
-
-        As in the JAX package: x / x_max in float64, routed (a searchsorted
-        over the C chunk boundaries) and run through the chunk's 1 -> s -> 1
-        MLP as float32 scaled values promoted to float64 (the precision of
-        training and of the audit), un-scaled in float64, rounded half to
-        even and clipped to [0, n-1]. Two choices make every device round
-        alike: x_max is a tensor on x's device (PyTorch's CUDA division by
-        a Python number multiplies by its reciprocal), and the s hidden
-        units are summed one after the other, separate multiplies and adds,
-        not by one sum(dim=1), whose order is the device's."""
+        the model's device: ops.nn_predict_cuda.nn_predict, whose kernel
+        computes them on the card in one launch (the plain torch version on
+        the CPU), bit for bit alike."""
         if len(self.params) != 2:
             raise NotImplementedError(
                 "serving supports the reference default architecture "
                 "(hidden_layers == 1) only")
-        w1, b1 = self.params[0]["w"], self.params[0]["b"]   # [C,1,s],[C,s]
-        w2, b2 = self.params[1]["w"], self.params[1]["b"]   # [C,s,1],[C,1]
-        xs64 = x.to(F64) / torch.full((), self.x_max, dtype=F64,
-                                      device=x.device)
-        xs = xs64.to(torch.float32)
-        c = torch.clamp(torch.searchsorted(self.xb, xs, right=True) - 1,
-                        0, self.xb.shape[0] - 1)
-        h = torch.relu(xs.to(F64)[:, None] * w1[c, 0, :] + b1[c])   # [B, s]
-        prod = h * w2[c, :, 0]
-        res = prod[:, 0]
-        for j in range(1, prod.shape[1]):
-            res = res + prod[:, j]
-        res = res + b2[c, 0]
-        rows = (xs64 * self.line_m + self.line_c) - (
-            res * self.res_ptp + self.res_min)
-        return torch.clamp(torch.round(rows), 0, self.n - 1).to(torch.int64)
+        return nn_predict_cuda(
+            x, self.xb, self.params[0]["w"], self.params[0]["b"],
+            self.params[1]["w"], self.params[1]["b"], x_max=self.x_max,
+            line_m=self.line_m, line_c=self.line_c, res_ptp=self.res_ptp,
+            res_min=self.res_min, n=self.n)
 
 
 def serving_from_numpy(srv, device="cuda") -> NNServing:
@@ -205,8 +187,9 @@ class NNQueryEngine:
                      stats: bool = False) -> torch.Tensor:
         """plQuery of k-base queries over prepared device inputs
         (SaplingIndex.query_inputs), ranks predicted by the NN -> int64
-        [B] positions on the index's device, -1 = not found (the plquery
-        kernel on the card, through its pred64 seam; `stats` as in
+        [B] positions on the index's device, -1 = not found (on the card
+        two launches: the nn_predict kernel, then the plquery kernel
+        through its pred64 seam; `stats` as in
         SaplingIndex.query_device)."""
         idx, srv = self.idx, self.srv
         dev = idx.device_arrays()

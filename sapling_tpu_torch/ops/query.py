@@ -1,11 +1,11 @@
 """Batched plQuery and the binary-search baselines on PyTorch tensors.
 
 These are the plain versions. On the card every single-device caller runs
-plquery_batch and binsearch_batch as the hand-written kernels of
-ops.query_cuda (csrc/query.cu, one thread a query, one launch a call),
-which return the same bits; these run on the CPU, in the index-sharded
-engine (whose `take` gathers are collectives) and in the pruned binary
-search.
+plquery_batch, binsearch_batch and fancy_binsearch_batch as the
+hand-written kernels of ops.query_cuda (csrc/query.cu, one thread a
+query, one launch a call), which return the same bits; these run on the
+CPU and in the index-sharded engine (whose `take` gathers are
+collectives).
 
 The reference's query (src/sapling_api.h:159-248) walks one query at a
 time. Here every lane of a [B] batch takes the same decision sequence,
@@ -453,7 +453,7 @@ def binsearch_batch(packed, rev, q_words, *, n: int, length: int,
 
 
 def fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words, *, n: int,
-                          length: int):
+                          length: int, prefix=None):
     """Manber-Myers llcp/rlcp-pruned binary search, batched.
 
     The reference ships it as `fancyBinarySearch` (src/binarysearch.cpp:
@@ -465,11 +465,13 @@ def fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words, *, n: int,
     Per round every lane gathers its llcp/rlcp entries and probes the
     genome only when they equal its boundary LCP. The trip count is fixed,
     log2(n) + 2, as every branch halves the interval, so the loop needs no
-    host sync. Returns int64 [B] positions, bit-identical to
-    `sapling_tpu`'s."""
+    host sync. `prefix` (the int64 view of prefix64) gives the prefix64
+    probe at length <= 32, with the packed probe's outcome and LCP.
+    Returns int64 [B] positions, bit-identical to `sapling_tpu`'s."""
     zero = torch.zeros(q_words.shape[1], dtype=torch.int64,
                        device=q_words.device)
-    probe = make_rank_probe(packed, rev, None, q_words, n=n, length=length)
+    probe = make_rank_probe(packed, rev, prefix, q_words, n=n,
+                            length=length)
     # bQuery's pre-probes of rank 0 / n-1 (binarysearch.cpp:158-163); their
     # LCPs seed loLcp/hiLcp
     pos0, p0 = probe(zero)

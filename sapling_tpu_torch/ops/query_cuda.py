@@ -1,17 +1,19 @@
 """Wrapper of the hand-written CUDA query kernels (csrc/query.cu).
 
 `plquery_kernel` runs `ops.query.plquery_batch` (predict, the prediction
-probe, the optional bucket probe, phases A-D) and `binsearch_kernel` runs
+probe, the optional bucket probe, phases A-D), `binsearch_kernel` runs
 `ops.query.binsearch_batch` (the bisection's first levels from a table in
-shared memory), one thread a query, one launch a call and no host sync,
-with exactly the plain versions' results. They replace
-`sapling_tpu/ops/query.py::plquery_batch` (:1011) and `::binsearch_batch`
-(:1370), XLA programs in the JAX package.
+shared memory) and `fancy_binsearch_kernel` runs
+`ops.query.fancy_binsearch_batch` (the llcp/rlcp-pruned search), one
+thread a query, one launch a call and no host sync, with exactly the plain
+versions' results. They replace `sapling_tpu/ops/query.py::plquery_batch`
+(:1011), `::binsearch_batch` (:1370) and `::fancy_binsearch_batch`
+(:1404), XLA programs in the JAX package.
 
-`plquery_cuda` and `binsearch_cuda` take the plain functions' arguments
-(without the `take` hook: a kernel cannot run the index-sharded engine's
-collective gathers mid-query, so parallel.sharded_index keeps the plain
-versions):
+`plquery_cuda`, `binsearch_cuda` and `fancy_binsearch_cuda` take the plain
+functions' arguments (without the `take` hook: a kernel cannot run the
+index-sharded engine's collective gathers mid-query, so
+parallel.sharded_index keeps the plain versions):
 
   * tensors on the CPU take the plain version (there is no CUDA there);
   * tensors on the card launch a kernel, or raise: there is no fallback.
@@ -45,7 +47,7 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 PROBES = {"fast3": 0, "prefix64": 1, "packed": 2}   # query.cu's kFast3...
 
 # kernel launches, counted where each kernel is launched
-LAUNCHES = {"plquery": 0, "binsearch": 0}
+LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0}
 # the last stats=True call on the card: int32 [B] probes and sectors a
 # lane, the deepest phase C / phase D step counts, and with trace=K the
 # int64 [B, K] sector numbers
@@ -59,6 +61,8 @@ SIGNATURES = {
     + [_LL] * 5 + [_I, _I, _I, _P],
     "binsearch_launch": [_P, _LL, _P, _I] + [_P] * 5 + [_LL, _LL, _I, _I,
                                                          _P],
+    "fancy_binsearch_launch": [_P, _LL, _P, _I] + [_P] * 8
+    + [_LL, _LL, _I, _I, _I, _P],
 }
 
 
@@ -269,6 +273,67 @@ def binsearch_cuda(packed, rev, q_words, *, n: int, length: int,
                 f"binsearch kernel launch failed: cudaError {rc}")
         with _LOCK:
             LAUNCHES["binsearch"] += 1
+    if stats:
+        _read_stats(lane, depth, tr)
+    return out
+
+
+def launch_fancy(lib, stream, packed, rev, llcp, rlcp, prefix, q_words, out,
+                 lane, depth, trace, *, n: int, length: int,
+                 form: str) -> int:
+    """fancy_binsearch_launch of `lib` on checked tensors (prefix None on
+    the packed form), on `stream`; returns its cudaError_t."""
+    return lib.fancy_binsearch_launch(
+        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
+        int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
+        _ptr(prefix) if form == "prefix64" else None, q_words.data_ptr(),
+        out.data_ptr(), _ptr(lane), _ptr(depth), _ptr(trace),
+        q_words.shape[1], n, length, 0 if trace is None else trace.shape[1],
+        PROBES[form], stream)
+
+
+def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
+                         length: int, prefix=None, stats: bool = False,
+                         trace: int = 0):
+    """ops.query.fancy_binsearch_batch with the same arguments and results,
+    on fancy_binsearch_kernel for tensors on the card: packed int64, rev
+    int32 (uint32 bits) or int64, llcp / rlcp int32 [n], prefix int64 or
+    None (its probe answers at length <= 32), q_words int64 [ceil(L/16),
+    B], all contiguous on one device; n < 2^31 (the tables are indexed
+    flat). The kernel adds no rounds (the plain version has none). Returns
+    int64 [B] positions, -1 = not found."""
+    if q_words.device.type == "cpu":
+        return query.fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words,
+                                           n=n, length=length, prefix=prefix)
+    dev = q_words.device
+    if dev.type != "cuda":
+        raise ValueError(f"fancy_binsearch_cuda: unsupported device {dev}")
+    if length < 1:
+        raise ValueError(f"query length {length} < 1")
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"the pruned search needs 1 <= n < 2^31, got {n}")
+    b = q_words.shape[1]
+    form = "prefix64" if prefix is not None and length <= 32 else "packed"
+    _check("q_words", q_words, _I64, (-(-length // BASES_PER_WORD), b), dev)
+    _check("packed", packed, _I64, (1,), dev, at_least=True)
+    _check("rev", rev, _REV, (n,), dev, at_least=True)
+    _check("llcp", llcp, (torch.int32,), (n,), dev, at_least=True)
+    _check("rlcp", rlcp, (torch.int32,), (n,), dev, at_least=True)
+    if form == "prefix64":
+        _check("prefix", prefix, _I64, (n,), dev, at_least=True)
+    out = torch.empty(b, dtype=torch.int64, device=dev)
+    lane, depth, tr = stats_buffers(b, dev, stats, trace)
+    if b:
+        with torch.cuda.device(dev):
+            rc = launch_fancy(
+                _lib(), torch.cuda.current_stream(dev).cuda_stream, packed,
+                rev, llcp, rlcp, prefix, q_words, out, lane, depth, tr, n=n,
+                length=length, form=form)
+        if rc != 0:
+            raise RuntimeError(
+                f"fancy binsearch kernel launch failed: cudaError {rc}")
+        with _LOCK:
+            LAUNCHES["fancy"] += 1
     if stats:
         _read_stats(lane, depth, tr)
     return out

@@ -1,7 +1,8 @@
 // A CPU stand-in for the CUDA runtime features that the sources in
 // sapling_tpu_torch/csrc/ use, so that their kernels compile with g++ and
 // run on host memory (tests/test_torch_sw_cu_on_cpu.py,
-// tests/test_torch_query_cu_on_cpu.py). Every thread of a block is a
+// tests/test_torch_query_cu_on_cpu.py,
+// tests/test_torch_nn_predict_cu_on_cpu.py). Every thread of a block is a
 // std::thread; the warp-synchronous intrinsics meet at a std::barrier per
 // warp, __syncthreads at one per block. Blocks run one after another, so
 // shared memory is one buffer that each block takes over in turn; a kernel
@@ -135,6 +136,15 @@ inline int atomicMax(int* p, int v) {
   }
   return old;
 }
+
+// fp64 arithmetic rounded to nearest, one IEEE operation each, and the
+// rounding to float32 (the tests build a source that uses them with
+// -ffp-contract=off, so that g++ fuses no multiply and add either)
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __double2float_rn(double a) { return (float)a; }
 
 // kernel<<<blocks, threads, smem, stream>>>(args) is rewritten by the test
 // into mock_launch(blocks, threads, smem, [=] { kernel(args); })

@@ -94,3 +94,36 @@ def test_fancy_binsearch_matches_jax_and_scalar(genome):
         np.testing.assert_array_equal(
             tidx.query_positions_fancy(codes, llcp, rlcp), got)
         assert tidx.verify_hits(codes[:300], got[:300]).all()
+
+
+@pytest.mark.parametrize("length", [13, 21, 33])
+def test_fancy_binsearch_prefix_matches_jax(genome, length):
+    """`prefix=`: the prefix64 probe (L <= 32; L = 33 falls back to the
+    packed one) gives the positions of JAX's fancy_binsearch_batch with
+    and without prefix64, and of the scalar replica."""
+    jidx = JaxIndex.build(genome, IndexConfig(k=13, buckets=8))
+    assert jidx.prefix64 is not None
+    tidx = SaplingIndex.from_arrays(jidx, device="cpu")
+    suffix = build_suffix_data(genome)
+    llcp, rlcp = build_llcp_rlcp(np.asarray(suffix.lcp, np.int64), tidx.n)
+    dev = tidx.device_arrays()
+    rev = np.asarray(tidx.rev, np.int64)
+    codes = _codes(tidx, 300, length, seed=80 + length)
+    qw = packops.pack_queries(codes)
+    want = np.asarray(jax_fancy(jidx.packed, jidx.rev, llcp, rlcp, qw,
+                                n=jidx.n, length=length,
+                                prefix=jidx.prefix64))
+    np.testing.assert_array_equal(
+        want, np.asarray(jax_fancy(jidx.packed, jidx.rev, llcp, rlcp, qw,
+                                   n=jidx.n, length=length)))
+    for prefix in (dev["prefix64"], None):
+        got = fancy_binsearch_batch(
+            dev["packed"], dev["rev"], torch.from_numpy(llcp),
+            torch.from_numpy(rlcp), torch.from_numpy(qw.astype(np.int64)),
+            n=tidx.n, length=length, prefix=prefix).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"L={length}")
+    for i in range(0, codes.shape[0], 5):
+        assert want[i] == _scalar_fancy(tidx.codes, rev, llcp, rlcp,
+                                        codes[i], tidx.n), (length, i)
+    np.testing.assert_array_equal(
+        tidx.query_positions_fancy(codes, llcp, rlcp), want)

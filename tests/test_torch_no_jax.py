@@ -31,6 +31,7 @@ assert {f"sapling_tpu_torch.tools.{t}" for t in tools} | {
     "sapling_tpu_torch.utils.profiling",
     "sapling_tpu_torch.models.residual",
     "sapling_tpu_torch.models.serve", "sapling_tpu_torch.graft_entry",
+    "sapling_tpu_torch.ops.query_cuda", "sapling_tpu_torch.ops.nn_predict_cuda",
     "sapling_tpu_torch.parallel.mesh", "sapling_tpu_torch.parallel.query",
     "sapling_tpu_torch.parallel.sharded_index",
     "sapling_tpu_torch.parallel.multihost"} <= set(names), names

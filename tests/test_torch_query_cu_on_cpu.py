@@ -1,12 +1,14 @@
 """The CUDA source of the query kernels, compiled for the CPU and held
-against the plain plquery_batch / binsearch_batch, bit for bit.
+against the plain plquery_batch / binsearch_batch / fancy_binsearch_batch,
+bit for bit.
 
 sapling_tpu_torch/csrc/query.cu is compiled with g++ against the stand-in
 `cuda_runtime.h` of tests/csrc/cuda_mock/ (one std::thread a lane, __ldg a
 plain load, __clz of 0 giving 32 as on the card, atomicMax a
 compare-and-swap loop), after each `kernel<<<...>>>(args)` launch is
 rewritten into a call of the mock's `mock_launch`. The wrapper's own
-ctypes calls (ops.query_cuda.launch_plquery / launch_binsearch) then run
+ctypes calls (ops.query_cuda.launch_plquery / launch_binsearch /
+launch_fancy) then run
 the kernels' code on host tensors, so a fault in the cascade, a probe or
 the prediction shows on the CPU: every position must equal the plain
 PyTorch version's on the same tensors (itself held against sapling_tpu by
@@ -31,7 +33,8 @@ import torch
 
 from sapling_tpu_torch.config import IndexConfig, QueryConfig
 from sapling_tpu_torch.index.sapling import SaplingIndex
-from sapling_tpu_torch.index.suffix_array import build_suffix_data
+from sapling_tpu_torch.index.suffix_array import (build_llcp_rlcp,
+                                                  build_suffix_data)
 from sapling_tpu_torch.ops import pack as packops
 from sapling_tpu_torch.ops import query, query_cuda
 from sapling_tpu_torch.ops.predict import predict_pwl
@@ -47,22 +50,21 @@ _DYNAMIC_SMEM = re.compile(
     r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\];")
 
 
-def _for_the_cpu(src: str) -> str:
-    """query.cu with its kernel launches mocked (plquery at two rev types,
-    the binary search in one launcher) and its dynamic shared memory the
-    mock's."""
+def mock_source(src: str, launches: int) -> str:
+    """A CUDA source with its `launches` kernel launch sites rewritten into
+    the mock's mock_launch and its one dynamic shared memory declaration
+    into the mock's buffer."""
     def launch(m):
         grid, block, smem, _stream = (x.strip() for x in m.group(2).split(","))
         return (f"mock_launch({grid}, {block}, {smem}, "
                 f"[=] {{ {m.group(1)}({m.group(3)}); }});")
 
     src, n = _LAUNCH.subn(launch, src)
-    assert n == 3, "query.cu should launch plquery at two rev types and " \
-        "the binary search from one launcher"
+    assert n == launches, f"{n} launch sites, not {launches}"
     src, n = _DYNAMIC_SMEM.subn(
         lambda m: f"{m.group(1)}* {m.group(2)} = "
         f"reinterpret_cast<{m.group(1)}*>(mock_dynamic_smem());", src)
-    assert n == 1, "query.cu should declare its dynamic shared memory once"
+    assert n == 1, "the source should declare its dynamic shared memory once"
     return src
 
 
@@ -79,7 +81,9 @@ def lib(tmp_path_factory):
         pytest.skip("the mock needs a g++ with C++20 <barrier>")
     cpp, so = d / "query_on_cpu.cpp", d / "libquery_on_cpu.so"
     with open(query_cuda.SOURCE) as f:
-        cpp.write_text(_for_the_cpu(f.read()))
+        # plquery and the pruned search launch at two rev types each, the
+        # binary search from one launcher
+        cpp.write_text(mock_source(f.read(), 5))
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     "-Wno-unknown-pragmas", "-I", MOCK_DIR, "-o", str(so),
                     str(cpp)], check=True)
@@ -536,4 +540,229 @@ def test_wrappers_take_the_plain_path_on_the_cpu(k21):
                                   length=33).numpy(),
         query.binsearch_batch(dev["packed"], dev["rev"], qw, n=k21.n,
                               length=33).numpy())
+    seq = k21.codes
+    llcp, rlcp = _tables(packops.decode_bases(seq))
+    np.testing.assert_array_equal(
+        query_cuda.fancy_binsearch_cuda(
+            dev["packed"], dev["rev"], llcp, rlcp, qw, n=k21.n, length=33,
+            prefix=dev["prefix64"]).numpy(),
+        query.fancy_binsearch_batch(dev["packed"], dev["rev"], llcp, rlcp,
+                                    qw, n=k21.n, length=33).numpy())
     assert query_cuda.LAUNCHES == before
+
+
+# --- the llcp/rlcp-pruned binary search --------------------------------
+
+FANCY_TRACE = 160   # every sector of a lane at these sizes
+
+
+def _tables(seq):
+    """The int32 [n] llcp / rlcp tensors of a genome (ASCII bases)."""
+    lcp = build_suffix_data(seq).lcp
+    return tuple(torch.from_numpy(a) for a in build_llcp_rlcp(
+        np.asarray(lcp, np.int64), len(seq)))
+
+
+def _fancy_replica(codes, rev, llcp, rlcp, q, n):
+    """tests/test_fancy.py's scalar fancyBinarySearch, also counting the
+    lane's probes and whether it ended on the hi == lo + 2 base case:
+    (position, probes, base)."""
+    length = len(q)
+    probes = 0
+
+    def probe(rank):
+        nonlocal probes
+        probes += 1
+        idx = int(rev[rank])
+        lcp = 0
+        while idx + lcp < n and lcp < length and codes[idx + lcp] == q[lcp]:
+            lcp += 1
+        smaller = lcp + idx == n or (lcp < length and idx + lcp < n
+                                     and q[lcp] > codes[idx + lcp])
+        return idx, lcp, smaller
+
+    idx, lo_lcp, _ = probe(0)
+    if lo_lcp == length:
+        return idx, probes, False
+    idx, hi_lcp, _ = probe(n - 1)
+    if hi_lcp == length:
+        return idx, probes, False
+    lo, hi = 0, n - 1
+    while True:
+        if hi == lo + 1:
+            return -1, probes, False
+        if hi == lo + 2:
+            return int(rev[lo + 1]), probes, True
+        mid = (lo + hi) >> 1
+        if lo_lcp >= hi_lcp:
+            if llcp[mid] > lo_lcp:
+                lo = mid
+                continue
+            if llcp[mid] < lo_lcp:
+                hi, hi_lcp = mid, int(llcp[mid])
+                continue
+        else:
+            if rlcp[mid] > hi_lcp:
+                hi = mid
+                continue
+            if rlcp[mid] < hi_lcp:
+                lo, lo_lcp = mid, int(rlcp[mid])
+                continue
+        idx, lcp, smaller = probe(mid)
+        if lcp == length:
+            return idx, probes, False
+        if smaller:
+            lo, lo_lcp = mid, lcp
+        else:
+            hi, hi_lcp = mid, lcp
+
+
+def _fancy_queries(codes, length, num, seed):
+    """In-genome queries with random (mostly absent) ones, poly-A, poly-T,
+    genome-tail matches and queries that run off the genome's end: its
+    last m < length bases, then pad bases (code 0, as the packed genome's
+    and prefix64's padding) or random ones."""
+    n = len(codes)
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, max(n - length, 0) + 1, num)
+    tiled = np.tile(codes, -(-(length + n) // n))
+    q = tiled[starts[:, None] + np.arange(length)].copy()
+    q[:40] = rng.integers(0, 4, (40, length))
+    q[40:45] = 0
+    q[45:50] = 3
+    for j, m in enumerate(range(1, min(length, n + 1))):
+        if 50 + 2 * j + 1 >= num:
+            break
+        tail = codes[n - m:]
+        q[50 + 2 * j] = np.concatenate([tail, np.zeros(length - m,
+                                                       np.uint8)])
+        q[51 + 2 * j] = np.concatenate([tail, rng.integers(
+            0, 4, length - m).astype(np.uint8)])
+    return q
+
+
+def _kernel_fancy(lib, packed, rev, llcp, rlcp, prefix, q_words, n, length):
+    """The kernel through launch_fancy on host tensors: (positions, int32
+    [2, B] probes and sectors a lane, the sector trace), the trace checked
+    to hold only sectors of the arrays the pruned search reads."""
+    b = q_words.shape[1]
+    form = "prefix64" if prefix is not None and length <= 32 else "packed"
+    out = torch.full((b,), -777, dtype=torch.int64)
+    lane = torch.full((2, b), -1, dtype=torch.int32)
+    depth = torch.zeros(2, dtype=torch.int32)
+    trace = torch.full((b, FANCY_TRACE), -5, dtype=torch.int64)
+    rc = query_cuda.launch_fancy(lib, None, packed, rev, llcp, rlcp, prefix,
+                                 q_words, out, lane, depth, trace, n=n,
+                                 length=length, form=form)
+    assert rc == 0
+    assert depth.tolist() == [0, 0]
+    assert (lane[1] <= FANCY_TRACE).all()
+    _check_trace(trace, lane[1], (packed, rev, llcp, rlcp,
+                                  prefix if form == "prefix64" else None))
+    return out, lane, trace
+
+
+def _sectors_in(trace, t):
+    """Each lane's trace entries inside tensor t's bytes."""
+    lo = t.data_ptr() >> 5
+    hi = (t.data_ptr() + t.numel() * t.element_size() - 1) >> 5
+    return ((trace >= lo) & (trace <= hi)).sum(1)
+
+
+def _check_fancy(lib, seq, packed, rev, prefix, codes, length,
+                 replica=True):
+    """Kernel == fancy_binsearch_batch (with the same prefix) on every
+    lane; with `replica`, also == the scalar replica's positions and probe
+    counts, with one rev sector a probe (and one more on the base case),
+    and on the prefix64 form one prefix64 sector a probe and no genome
+    read: a round the tables decide reads neither rev nor the genome.
+    Returns the positions."""
+    n = len(seq)
+    llcp, rlcp = _tables(seq)
+    qw = torch.from_numpy(packops.pack_queries(codes).astype(np.int64))
+    want = query.fancy_binsearch_batch(packed, rev, llcp, rlcp, qw, n=n,
+                                       length=length, prefix=prefix)
+    got, lane, trace = _kernel_fancy(lib, packed, rev, llcp, rlcp, prefix,
+                                     qw, n, length)
+    np.testing.assert_array_equal(got.numpy(), want.numpy(),
+                                  err_msg=f"n={n} L={length}")
+    if replica:
+        gcodes = packops.encode_bases(seq)
+        r64 = rev.long().numpy() & 0xFFFFFFFF
+        ll, rl = llcp.numpy(), rlcp.numpy()
+        rep = [_fancy_replica(gcodes, r64, ll, rl, q, n) for q in codes]
+        pos, probes, base = (np.array(v) for v in zip(*rep))
+        np.testing.assert_array_equal(got.numpy(), pos)
+        np.testing.assert_array_equal(lane[0].numpy(), probes)
+        np.testing.assert_array_equal(_sectors_in(trace, rev).numpy(),
+                                      probes + base)
+        if prefix is not None and length <= 32:
+            np.testing.assert_array_equal(
+                _sectors_in(trace, prefix).numpy(), probes)
+            assert (_sectors_in(trace, packed) == 0).all()
+    return got.numpy()
+
+
+@pytest.fixture(scope="module")
+def dup_genome():
+    """A genome with duplications (runs of equal suffixes)."""
+    return np.concatenate([repeat_genome(1500, period=37, seed=71),
+                           benchmark_genome(6500, seed=72)])
+
+
+@pytest.mark.parametrize("rev64", [False, True], ids=["rev32", "rev64"])
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_fancy_kernel_source_matches_plain(lib, dup_genome, prefix, rev64):
+    """Both probe forms (L = 33 takes the packed one with prefix64 too),
+    both rev widths, L = 5, 13, 21, 33: absent, poly-A / poly-T, genome-
+    tail and off-the-end queries, against the plain version, the scalar
+    replica and its probe counts."""
+    idx = _index(dup_genome, 13, 8, prefix_lookup=prefix)
+    dev = idx.device_arrays()
+    rev = dev["rev"].long() if rev64 else dev["rev"]
+    for length in (5, 13, 21, 33):
+        codes = _fancy_queries(idx.codes, length, 700, seed=length)
+        _check_fancy(lib, dup_genome, dev["packed"], rev, dev["prefix64"],
+                     codes, length)
+
+
+def test_fancy_kernel_source_matches_sapling_tpu(lib, dup_genome):
+    """A subset against sapling_tpu's fancy_binsearch_batch, with and
+    without prefix64 (the slice held against JAX)."""
+    from sapling_tpu.config import IndexConfig as JaxIndexConfig
+    from sapling_tpu.index.sapling import SaplingIndex as JaxIndex
+    from sapling_tpu.ops.query import fancy_binsearch_batch as jax_fancy
+
+    jidx = JaxIndex.build(dup_genome, JaxIndexConfig(k=13, buckets=8))
+    tidx = SaplingIndex.from_arrays(jidx, device="cpu")
+    dev = tidx.device_arrays()
+    llcp, rlcp = _tables(dup_genome)
+    for length in (13, 21, 33):
+        codes = _fancy_queries(tidx.codes, length, 400, seed=90 + length)
+        qw = packops.pack_queries(codes)
+        want = np.asarray(jax_fancy(jidx.packed, jidx.rev, llcp.numpy(),
+                                    rlcp.numpy(), qw, n=jidx.n,
+                                    length=length, prefix=jidx.prefix64))
+        for prefix in (dev["prefix64"], None):
+            got = _check_fancy(lib, dup_genome, dev["packed"], dev["rev"],
+                               prefix, codes, length, replica=False)
+            np.testing.assert_array_equal(got, want, err_msg=f"L={length}")
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 7, 9, 33, 101, 1001])
+def test_fancy_kernel_source_small_genomes(lib, n):
+    """Small and odd genome lengths, where the hi == lo + 1 and hi == lo + 2
+    base cases fire within a few rounds; periodic genomes (duplicate runs)
+    with queries that run off the end; both forms, both rev widths."""
+    seq = repeat_genome(n, period=min(5, n), seed=n)
+    codes = packops.encode_bases(seq)
+    sa = build_suffix_data(seq, np.int32).sa
+    packed = torch.from_numpy(
+        packops.pack_codes(codes, pad_words=16).astype(np.int64))
+    prefix = torch.from_numpy(packops.rank_prefix64(codes, sa).view(np.int64))
+    for length in (1, 5, 16, 33):
+        q = _fancy_queries(codes, length, 120, seed=n + length)
+        for rev in (torch.from_numpy(sa.astype(np.int32)),
+                    torch.from_numpy(sa.astype(np.int64))):
+            for pre in (prefix, None):
+                _check_fancy(lib, seq, packed, rev, pre, q, length)

@@ -7,11 +7,12 @@ sapling_tpu, so they run on a machine without JAX, from the repo root:
     python -m pytest --noconftest tests/test_torch_query_cuda.py -q
 
 The reference is the plain PyTorch cascade on the same CUDA tensors
-(ops.query.plquery_batch / binsearch_batch, held against sapling_tpu by
-tests/test_torch_query*.py and test_torch_binsearch.py): every position
-must be equal, -1s and the member of a duplicate run included, and the
-kernel's stats must give the plain path's rounds. tests/
-test_torch_query_cu_on_cpu.py holds the same source on the CPU.
+(ops.query.plquery_batch / binsearch_batch / fancy_binsearch_batch, held
+against sapling_tpu by tests/test_torch_query*.py and
+test_torch_binsearch.py): every position must be equal, -1s and the member
+of a duplicate run included, and the kernel's stats must give the plain
+path's rounds. tests/test_torch_query_cu_on_cpu.py holds the same source on
+the CPU.
 """
 
 import numpy as np
@@ -194,22 +195,114 @@ def test_binsearch_kernel_small_genomes(dev):
             assert torch.equal(got, want), (n, length)
 
 
+@pytest.fixture(scope="module")
+def tables(seq):
+    """The genome's int32 llcp / rlcp tables (host tensors)."""
+    from sapling_tpu_torch.index.suffix_array import (build_llcp_rlcp,
+                                                      build_suffix_data)
+
+    lcp = np.asarray(build_suffix_data(seq).lcp, np.int64)
+    return tuple(torch.from_numpy(a) for a in build_llcp_rlcp(lcp,
+                                                              len(seq)))
+
+
+def _off_end(seq, length, num, seed):
+    """Queries that run off the genome's end: its last m < length bases,
+    then pad bases (A, code 0) or random ones."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(1, max(2, min(length, len(seq) + 1)), num)
+    q = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (num, length))]
+    q[::2] = ord("A")
+    for i, mi in enumerate(m):
+        q[i, :mi] = seq[len(seq) - mi:]
+    return packops.encode_bases(q)
+
+
 @pytest.mark.cuda
-def test_entry_points_launch_the_kernels(dev, seq):
-    """SaplingIndex.query_device and binsearch_device launch once a call;
-    an empty batch launches nothing."""
+@pytest.mark.parametrize("pos_dtype", ["uint32", "int64"])
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_fancy_kernel_matches_plain(dev, seq, tables, prefix, pos_dtype):
+    """The llcp/rlcp-pruned search at lengths 5-130 (the prefix64 probe up
+    to 32 bases), in-genome, absent and off-the-end queries, shuffled:
+    every lane equal to the plain version on the same CUDA tensors, one
+    launch a call, and binsearch_device runs it."""
+    idx = _index(seq, dev, prefix, pos_dtype=pos_dtype)
+    d = idx.device_arrays()
+    llcp, rlcp = (t.to(dev) for t in tables)
+    rng = np.random.default_rng(41)
+    for length in (5, 13, 21, 32, 33, 101, 130):
+        codes = np.concatenate([_queries(seq, 20_000, length, seed=length),
+                                _off_end(seq, length, 2000, seed=length)])
+        qw = idx.query_words(codes[rng.permutation(len(codes))])
+        want = query.fancy_binsearch_batch(
+            d["packed"], d["rev"], llcp, rlcp, qw, n=idx.n, length=length,
+            prefix=d["prefix64"])
+        before = query_cuda.LAUNCHES["fancy"]
+        query.ROUNDS.update(C=0, D=0)
+        got = query_cuda.fancy_binsearch_cuda(
+            d["packed"], d["rev"], llcp, rlcp, qw, n=idx.n, length=length,
+            prefix=d["prefix64"], stats=True)
+        torch.cuda.synchronize()
+        assert query_cuda.LAUNCHES["fancy"] == before + 1
+        assert torch.equal(got, want), (length, int((got != want).sum()))
+        assert dict(query.ROUNDS) == {"C": 0, "D": 0}
+        assert idx.binsearch_device(qw, length, llcp, rlcp).equal(want)
+
+
+@pytest.mark.cuda
+def test_fancy_kernel_small_genomes(dev):
+    """Small and odd genome lengths (the base cases within a few rounds),
+    periodic genomes, both probe forms."""
+    from sapling_tpu_torch.index.suffix_array import (build_llcp_rlcp,
+                                                      build_suffix_data)
+
+    for n in (2, 3, 5, 33, 1001, 9000):
+        seq = repeat_genome(n, period=min(5, n), seed=n)
+        codes = packops.encode_bases(seq)
+        sd = build_suffix_data(seq, np.int32)
+        rev = torch.from_numpy(sd.sa).to(dev)
+        llcp, rlcp = (torch.from_numpy(a).to(dev) for a in build_llcp_rlcp(
+            np.asarray(sd.lcp, np.int64), n))
+        packed = torch.from_numpy(packops.pack_codes(
+            codes, pad_words=16).astype(np.int64)).to(dev)
+        prefix = torch.from_numpy(packops.rank_prefix64(
+            codes, sd.sa).view(np.int64)).to(dev)
+        rng = np.random.default_rng(n)
+        for length in (1, 5, 32, 33, 101):
+            tiled = np.tile(codes, -(-(length + n) // n))
+            q = tiled[rng.integers(0, n, 3000)[:, None] + np.arange(length)]
+            q[:500] = rng.integers(0, 4, (500, length))
+            q = np.concatenate([q, _off_end(seq, length, 500, seed=n)])
+            qw = torch.from_numpy(
+                packops.pack_queries(q).astype(np.int64)).to(dev)
+            for pre in (prefix, None):
+                want = query.fancy_binsearch_batch(
+                    packed, rev, llcp, rlcp, qw, n=n, length=length,
+                    prefix=pre)
+                got = query_cuda.fancy_binsearch_cuda(
+                    packed, rev, llcp, rlcp, qw, n=n, length=length,
+                    prefix=pre)
+                assert torch.equal(got, want), (n, length)
+
+
+@pytest.mark.cuda
+def test_entry_points_launch_the_kernels(dev, seq, tables):
+    """SaplingIndex.query_device and binsearch_device (both searches)
+    launch once a call; an empty batch launches nothing."""
     idx = _index(seq, dev)
     codes = _queries(seq, 1000, 21, seed=8)
+    llcp, rlcp = (t.to(dev) for t in tables)
     before = dict(query_cuda.LAUNCHES)
     idx.query_device(*idx.query_inputs(codes), 21)
     idx.binsearch_device(idx.query_words(codes), 21)
+    idx.binsearch_device(idx.query_words(codes), 21, llcp, rlcp)
     idx.query_device(*idx.query_inputs(codes[:0]), 21)
     torch.cuda.synchronize()
     assert query_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
 
 
 @pytest.mark.cuda
-def test_wrapper_refuses_what_the_kernel_does_not_take(dev, seq):
+def test_wrapper_refuses_what_the_kernel_does_not_take(dev, seq, tables):
     idx = _index(seq, dev)
     codes = _queries(seq, 100, 33, seed=2)
     d = idx.device_arrays()
@@ -231,3 +324,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev, seq):
             d["packed"], d["rev"], d["xlist"], d["ylist"], qw, x, n=idx.n,
             length=33, k=idx.k, buckets=idx.buckets, most_over=1,
             most_under=1, max_over=2, max_under=2, adaptive_bounds=True)
+    llcp, rlcp = tables
+    with pytest.raises(ValueError):                      # tables' dtype
+        query_cuda.fancy_binsearch_cuda(
+            d["packed"], d["rev"], llcp.to(dev).long(), rlcp.to(dev), qw,
+            n=idx.n, length=33)
+    with pytest.raises(ValueError):                      # tables' device
+        query_cuda.fancy_binsearch_cuda(d["packed"], d["rev"], llcp, rlcp,
+                                        qw, n=idx.n, length=33)
+    with pytest.raises(ValueError):                      # n past int32
+        query_cuda.fancy_binsearch_cuda(
+            d["packed"], d["rev"], llcp.to(dev), rlcp.to(dev), qw,
+            n=1 << 31, length=33)
