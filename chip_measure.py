@@ -41,8 +41,9 @@ and queries (same seeds) and measures:
 
 With --against-query (one or more), it measures only this instead:
 
-  query_ab: each other version of csrc/query.cu (same C entry points,
-           built with the same flags: PR 11's, or another design) timed
+  query_ab: each other version of csrc/query.cu (the same C entry points,
+           or those of a version whose pruned search reads the llcp/rlcp
+           tables rather than node records; built with the same flags) timed
            in turns with this tree's (other, this, this, other, AB_ROUNDS
            times; CUDA events) on the same CUDA tensors, their positions
            held equal, in these cases, each in chip_smoke's
@@ -50,11 +51,14 @@ With --against-query (one or more), it measures only this instead:
            fast3 L=21 and packed L=101 without prefix arrays, chip_smoke
            phase 8's 46 Mbp artifact (no prefix arrays) at L=21 and 101,
            and the binary search at L=21 on both, and the llcp/rlcp-pruned
-           search at L=21 with and without prefix64 on the 4.6 Mbp index
-           (--big: another artifact in place of the 46 Mbp one); each
-           case's bound
+           search at L=21 with and without prefix64 and at L=101 without
+           on the 4.6 Mbp index, and at L=21 and 101 on the 46 Mbp
+           artifact (its tables from its LCP: scale_tables) (--big:
+           another artifact in place of the 46 Mbp one); each case's bound
            (chip_smoke.query_bound_ms over this build's sector trace) and
-           lane utilisation (chip_smoke.lane_utilisation); and of each
+           lane utilisation (chip_smoke.lane_utilisation), and for the
+           pruned search the sectors a lane read and its node records'
+           build time and bytes; and of each
            build the registers, stack and spills of every kernel (nvcc's
            -Xptxas -v log) and the CALL instructions in its SASS by target
            (cuobjdump): the int64 division subroutine's.
@@ -80,6 +84,7 @@ chiprun_out/measure.json). Exits non-zero without a GPU.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import signal
@@ -246,7 +251,8 @@ def build_report(lib_path: str) -> dict:
         if m:
             return f"nn_predict_kernel<{'true' if m.group(1) == '1' else 'false'}>"
         m = re.search(r"(plquery_kernel|fancy_binsearch_kernel|"
-                      r"binsearch_kernel)I(?:Li(\d+)E)?([il])E", mangled)
+                      r"fancy_nodes_kernel|binsearch_kernel)"
+                      r"I(?:Li(\d+)E)?([il])E", mangled)
         if not m:
             return mangled
         rev = {"i": "int32", "l": "int64"}[m.group(3)]
@@ -273,69 +279,146 @@ def build_report(lib_path: str) -> dict:
     return out
 
 
+# fancy_binsearch_launch of a query.cu from before the node records (the
+# first design of the pruned search: it reads llcp / rlcp, rev and prefix64
+# or the genome itself)
+TABLES_FANCY = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p]
+
+
+def bind_query(path: str):
+    """A query library with its C entry points typed: this tree's, or one
+    from before the node records (no fancy_nodes_launch), whose pruned
+    search takes TABLES_FANCY's arguments (with_query_lib launches it
+    through launch_fancy_tables)."""
+    from sapling_tpu_torch.ops import query_cuda, sw_cuda
+
+    if hasattr(ctypes.CDLL(path), "fancy_nodes_launch"):
+        return query_cuda.bind(path)
+    sig = {k: v for k, v in query_cuda.SIGNATURES.items()
+           if k != "fancy_nodes_launch"}
+    lib = sw_cuda.bind_lib(path, dict(sig,
+                                      fancy_binsearch_launch=TABLES_FANCY))
+    lib.tables_fancy = True
+    return lib
+
+
+def launch_fancy_tables(lib, stream, packed, rev, llcp, rlcp, prefix, _nodes,
+                        q_words, out, lane, depth, trace, *, n: int,
+                        length: int, form: str) -> int:
+    """query_cuda.launch_fancy for a library from before the node records:
+    the same call without them."""
+    import torch
+
+    from sapling_tpu_torch.ops.query_cuda import PROBES, _ptr
+
+    return lib.fancy_binsearch_launch(
+        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
+        int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
+        _ptr(prefix) if form == "prefix64" else None, q_words.data_ptr(),
+        out.data_ptr(), _ptr(lane), _ptr(depth), _ptr(trace),
+        q_words.shape[1], n, length, 0 if trace is None else trace.shape[1],
+        PROBES[form], stream)
+
+
 def with_query_lib(lib, fn):
-    """fn() with query_cuda's launches going to the library `lib`."""
+    """fn() with query_cuda's launches going to the library `lib` (one from
+    before the node records through launch_fancy_tables)."""
     from sapling_tpu_torch.ops import query_cuda
 
-    saved, query_cuda._LIB = query_cuda._LIB, lib
+    saved = query_cuda._LIB, query_cuda.launch_fancy
+    query_cuda._LIB = lib
+    if getattr(lib, "tables_fancy", False):
+        query_cuda.launch_fancy = launch_fancy_tables
     try:
         return fn()
     finally:
-        query_cuda._LIB = saved
+        query_cuda._LIB, query_cuda.launch_fancy = saved
 
 
-def query_cases(dev, idx21, big, tables):
-    """The query_ab cases: (name, call(**stats) -> positions, lanes,
-    coalesced bytes a lane), each in chip_smoke's order and shuffled."""
+def scale_tables(big):
+    """The llcp / rlcp tables of the scale artifact's genome, on the host:
+    its LCP (Kasai, over the artifact's own suffix array rev), then
+    build_llcp_rlcp (a sparse table of ~5 GB at 46 Mbp)."""
+    import numpy as np
+
+    from sapling_tpu_torch.index.suffix_array import build_llcp_rlcp
+    from sapling_tpu_torch.native import lcp_kasai
+    from sapling_tpu_torch.ops import pack as packops
+
+    rev = np.asarray(big.rev)
+    _inv, lcp = lcp_kasai(packops.decode_bases(big.codes),
+                          rev.astype(np.int64) if rev.dtype == np.uint32
+                          else rev)
+    return build_llcp_rlcp(np.asarray(lcp, np.int64), big.n)
+
+
+def query_cases(dev, idx21, big, tables, big_tables):
+    """The query_ab cases, each in chip_smoke's order and shuffled: dicts
+    of name, call(**stats) -> positions, lanes, coalesced bytes a lane and,
+    for the pruned search, the build of its node records (made once for
+    an index and its tables, outside the timed calls)."""
     import torch
 
     from sapling_tpu_torch.ops import query_cuda
 
-    lr = [torch.from_numpy(a).to(dev) for a in tables]
-
     def plquery(tag, idx, length, codes):
         args, kw, form, lane_bytes = cs.plquery_inputs(idx, length, codes)
-        return (f"{tag} L={length} {form}", lambda **st:
-                query_cuda.plquery_cuda(*args, **st, **kw), len(codes),
-                lane_bytes)
+        return dict(name=f"{tag} L={length} {form}", call=lambda **st:
+                    query_cuda.plquery_cuda(*args, **st, **kw),
+                    lanes=len(codes), lane_bytes=lane_bytes)
 
     def binsearch(tag, didx, codes):
         qw, kw, lane_bytes = cs.binsearch_inputs(didx, codes)
         d = didx.device_arrays()
-        return (f"{tag} binary search L={codes.shape[1]}", lambda **st:
-                query_cuda.binsearch_cuda(d["packed"], d["rev"], qw, **st,
-                                          **kw), len(codes), lane_bytes)
+        return dict(name=f"{tag} binary search L={codes.shape[1]}",
+                    call=lambda **st: query_cuda.binsearch_cuda(
+                        d["packed"], d["rev"], qw, **st, **kw),
+                    lanes=len(codes), lane_bytes=lane_bytes)
 
-    def fancy(tag, didx, codes):
+    def fancy(tag, didx, lr, codes):
         qw, kw, lane_bytes = cs.binsearch_inputs(didx, codes)
         d = didx.device_arrays()
-        return (f"{tag} pruned binary search L={codes.shape[1]}",
-                lambda **st: query_cuda.fancy_binsearch_cuda(
-                    d["packed"], d["rev"], *lr, qw, prefix=d["prefix64"],
-                    **st, **kw), len(codes), lane_bytes)
+        nodes = didx.fancy_nodes(*lr)
+        length = codes.shape[1]
+        form = ("prefix64" if d["prefix64"] is not None and length <= 32
+                else "packed")
+        return dict(name=f"{tag} pruned binary search L={length} {form}",
+                    call=lambda **st: query_cuda.fancy_binsearch_cuda(
+                        d["packed"], d["rev"], *lr, qw, prefix=d["prefix64"],
+                        nodes=nodes, **st, **kw),
+                    lanes=len(codes), lane_bytes=lane_bytes,
+                    build=lambda: query_cuda.fancy_nodes_cuda(
+                        d["packed"], d["rev"], *lr, n=didx.n),
+                    build_bytes=32 * didx.n)
 
+    lr = [torch.from_numpy(a).to(dev) for a in tables]
+    big_lr = [torch.from_numpy(a).to(dev) for a in big_tables]
+    didx, bare = idx21.to(dev), cs.without_prefix(idx21).to(dev)
     cases = []
     for order in ("smoke", "shuffled"):
         def codes_of(idx, length):
             codes, _n_in = cs.query_codes(idx.codes, length)
             return cs.shuffled(codes) if order == "shuffled" else codes
 
-        didx, bare = idx21.to(dev), cs.without_prefix(idx21).to(dev)
         tag = f"{idx21.n} bp {order}"
         cases += [plquery(tag, didx, cs.QUERY_LEN,
                           codes_of(idx21, cs.QUERY_LEN)),
                   plquery(tag + " no_prefix", bare, 101,
                           codes_of(idx21, 101))]
-        tag = f"{big.n} bp {order}"
-        cases += [plquery(tag, big, length, codes_of(big, length))
+        big_tag = f"{big.n} bp {order}"
+        cases += [plquery(big_tag, big, length, codes_of(big, length))
                   for length in cs.SCALE_LENGTHS]
-        cases += [binsearch(f"{idx21.n} bp {order}", didx,
-                            codes_of(idx21, cs.QUERY_LEN)),
-                  binsearch(tag, big, codes_of(big, cs.QUERY_LEN)),
-                  fancy(f"{idx21.n} bp {order}", didx,
+        cases += [binsearch(tag, didx, codes_of(idx21, cs.QUERY_LEN)),
+                  binsearch(big_tag, big, codes_of(big, cs.QUERY_LEN)),
+                  fancy(tag, didx, lr, codes_of(idx21, cs.QUERY_LEN)),
+                  fancy(tag + " no_prefix", bare, lr,
                         codes_of(idx21, cs.QUERY_LEN)),
-                  fancy(f"{idx21.n} bp {order} no_prefix", bare,
-                        codes_of(idx21, cs.QUERY_LEN))]
+                  fancy(tag + " no_prefix", bare, lr, codes_of(idx21, 101))]
+        cases += [fancy(big_tag, big, big_lr, codes_of(big, length))
+                  for length in cs.SCALE_LENGTHS]
     return cases
 
 
@@ -356,10 +439,15 @@ def query_ab(dev, idx21, art: str, others: list[str], tables) -> dict:
     builds = {src: build_report(path) for src, path in zip(srcs, paths)}
     for src, rep in builds.items():
         log(f"query_ab build {src}: " + json.dumps(rep))
-    libs = [query_cuda.bind(path) for path in paths]
+    libs = [bind_query(path) for path in paths]
     big = load_for_queries(art, dev)
+    t0 = time.perf_counter()
+    big_tables = scale_tables(big)
+    log(f"query_ab: the {big.n} bp artifact's llcp/rlcp tables on the host "
+        f"in {time.perf_counter() - t0:.1f} s")
     out = dict(builds=builds, cases=[])
-    for name, call, b, lane_bytes in query_cases(dev, idx21, big, tables):
+    for case in query_cases(dev, idx21, big, tables, big_tables):
+        name, call, b = case["name"], case["call"], case["lanes"]
         mine = call()
         for src, lib in zip(others, libs[1:]):
             theirs = with_query_lib(lib, call)
@@ -370,10 +458,20 @@ def query_ab(dev, idx21, art: str, others: list[str], tables) -> dict:
         tr = st["trace"]
         distinct = int(torch.unique(tr[tr >= 0]).numel())
         probes = st["probes"].cpu()
-        row = dict(name=name, bound_ms=cs.query_bound_ms(distinct, b,
-                                                         lane_bytes),
+        row = dict(name=name, bound_ms=cs.query_bound_ms(
+            distinct, b, case["lane_bytes"]),
                    util=cs.lane_utilisation(probes),
-                   probes=int(probes.sum()), against={})
+                   probes=int(probes.sum()),
+                   sectors=int(st["sectors"].sum()), against={})
+        extra = ""
+        if "reads" in st:
+            row["reads"] = int(st["reads"].sum())
+            row["build_ms"] = cs._time_ms(case["build"], dev, reps=3, warm=1)
+            row["build_bytes"] = case["build_bytes"]
+            extra = (f"; sectors a lane: {row['sectors'] / b:.2f} of the "
+                     f"first design, {row['reads'] / b:.2f} read; node "
+                     f"records {row['build_bytes']} bytes built in "
+                     f"{row['build_ms']:.4f} ms")
         del tr, st
         query_cuda.LAST_STATS.clear()
         for src, lib in zip(others, libs[1:]):
@@ -394,7 +492,7 @@ def query_ab(dev, idx21, art: str, others: list[str], tables) -> dict:
                 f"({min(t_this):.4f}-{max(t_this):.4f}): {med_o / med_t:.3f}x;"
                 f" bound {row['bound_ms']:.4f} ms: {100 * row['bound_ms'] / med_t:.1f}%"
                 f" / {100 * row['bound_ms'] / med_o:.1f}% of it; lane "
-                f"utilisation {100 * row['util']:.1f}%")
+                f"utilisation {100 * row['util']:.1f}%" + extra)
         out["cases"].append(row)
     return out
 

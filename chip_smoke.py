@@ -38,9 +38,13 @@ failure raises and the script exits non-zero:
      QK_SHIFT ranks, and that with the stride cap QK_STRIDE_CAP, at
      QK_OPTION_LENGTHS; phase 8's artifact at SCALE_LENGTHS; and
      binsearch_cuda against binsearch_batch on phase 5's queries and on
-     phase 8's artifact; fancy_binsearch_cuda against
-     fancy_binsearch_batch on phase 5's queries with prefix64, without,
-     at L=101 (packed) and shuffled; fast3 at L=21, packed at L=101 and
+     phase 8's artifact; fancy_nodes_cuda (the pruned search's node
+     records) against the plain fancy_nodes, every word, with its time,
+     bound and bytes, and fancy_binsearch_cuda, on records built once for
+     each index outside the timed calls, against fancy_binsearch_batch on
+     phase 5's queries with prefix64, without, with an int64 rev, at
+     L=101 (packed) and shuffled, with the sectors it read a lane;
+     fast3 at L=21, packed at L=101 and
      the binary searches also in a shuffled order (hits and misses
      mixed). Each case prints the kernel's CUDA-event time, the plain
      path's, the kernel's launches, its bound (query_bound_ms: the
@@ -75,7 +79,9 @@ failure raises and the script exits non-zero:
   7. baselines: the plain and the llcp/rlcp-pruned binary search (the
      binsearch and fancy kernels) on phase 5's queries; in-genome queries
      must self-check and the first 100,000 positions must equal the CPU
-     path's.
+     path's; the pruned search's first call also builds its node records
+     (the fancy_nodes kernel), once: the timed calls launch the search
+     alone.
   8. scale: phase 2's artifact loaded memory-mapped without inv and the
      aligner's run arrays (SaplingIndex.load(skip, mmap), codes copied
      into RAM), 1,000,000 queries of 21 and of 101 bases (7/8 from the
@@ -131,7 +137,8 @@ failure raises and the script exits non-zero:
 
 Phases 4 to 9 each count the kernels' launches over their main call
 (`counted`): each must launch its kernel (phase 7's pruned search the
-fancy kernel, phase 9's engine nn_predict and plquery), and no plain
+fancy kernel and, on its first call, fancy_nodes; phase 9's engine
+nn_predict and plquery), and no plain
 cascade may run a host round there.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -479,7 +486,8 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
     rounds must equal the plain path's ROUNDS. Returns the kernel's and the
     plain path's CUDA-event times, the kernel's launches a call, its bound
     (query_bound_ms over the distinct sectors of its trace), the sectors
-    its lanes touched in all, the rounds, and the lane utilisation
+    its lanes touched in all (and, for the pruned search, the sectors they
+    really read), the rounds, and the lane utilisation
     (lane_utilisation)."""
     import numpy as np
     import torch
@@ -495,6 +503,7 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
     launched = sum(query_cuda.LAUNCHES.values()) - sum(launches.values())
     st = dict(query_cuda.LAST_STATS)
     tr = st.pop("trace")
+    reads = st.pop("reads", None)
     distinct = int(torch.unique(tr[tr >= 0]).numel())
     over = int((st["sectors"] > QK_TRACE).sum())
     del tr
@@ -512,20 +521,70 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
                 / ms, sectors=int(st["sectors"].sum()), distinct=distinct,
                 over=over, probes=int(st["probes"].sum()), rounds=rounds,
                 util=lane_utilisation(st["probes"].cpu()),
+                reads=None if reads is None else int(reads.sum()),
                 max_abs_err=0)
 
 
-def query_kernel_phase(dev, idx21, art: str, tables) -> list[dict]:
+def fancy_nodes_bound_ms(didx) -> float:
+    """The least time of the pruned search's node records on `didx` (on
+    the card): rev, llcp and rlcp read once, the packed genome's words
+    that the ranks' keys read (all of them, to two past the last base),
+    and n records of 32 bytes written once, over HBM_BYTES_PER_S."""
+    d = didx.device_arrays()
+    n = didx.n
+    words = min(d["packed"].shape[0], (n - 1) // 16 + 3)
+    return ((d["rev"].element_size() + 8 + 32) * n + 8 * words) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def fancy_nodes_case(dev, didx, lr) -> dict:
+    """Phase 3b: the pruned search's node records of `didx` (on the card)
+    and the tables lr: fancy_nodes_cuda against the plain
+    ops.query.fancy_nodes on the same CUDA tensors, every word equal;
+    both timed, the bound (fancy_nodes_bound_ms) and the records' bytes."""
+    import torch
+
+    from sapling_tpu_torch.ops import query, query_cuda
+
+    args = (didx.device_arrays()["packed"], didx.device_arrays()["rev"],
+            *lr)
+
+    def kernel():
+        return query_cuda.fancy_nodes_cuda(*args, n=didx.n)
+
+    def plain():
+        return query.fancy_nodes(*args, n=didx.n)
+
+    got, want = kernel(), plain()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"fancy_nodes kernel != plain: {int((got != want).any(1).sum())}"
+            f" of {didx.n} records differ")
+    nbytes = got.numel() * got.element_size()
+    del got, want
+    ms = _time_ms(kernel, dev)
+    bound = fancy_nodes_bound_ms(didx)
+    return dict(n=didx.n, bytes=nbytes, ms=ms,
+                plain_ms=_time_ms(plain, dev, reps=3, warm=1),
+                bound_ms=bound, pct_of_bound=100 * bound / ms,
+                max_abs_err=0)
+
+
+def query_kernel_phase(dev, idx21, art: str,
+                       tables) -> tuple[list[dict], dict]:
     """Phase 3b: the query kernels against the plain cascade on the card,
     each case on the same CUDA tensors (_kernel_case): plquery at
     QK_LENGTHS on the k=21 index as built and without prefix arrays (every
     probe form); an int64 copy of rev; adaptive bounds; a pred64 moved by
     up to QK_SHIFT ranks, also with the stride cap QK_STRIDE_CAP; phase
     8's artifact at SCALE_LENGTHS; the binary search on both indexes; the
-    pruned search (with `tables`, the host llcp / rlcp) at QUERY_LEN with
-    and without prefix64 and at the last SCALE_LENGTHS. fast3 at
-    QUERY_LEN, packed at the last SCALE_LENGTHS, each binary search and
-    the pruned one with prefix64 also run in a shuffled order."""
+    pruned search's node records (fancy_nodes_case) and the search (with
+    `tables`, the host llcp / rlcp, on records built once for each index,
+    outside the timed calls) at QUERY_LEN with and without prefix64 and
+    with an int64 rev, and at the last SCALE_LENGTHS. fast3 at QUERY_LEN,
+    packed at the last SCALE_LENGTHS, each binary search and the pruned
+    one with prefix64 also run in a shuffled order. Returns the cases'
+    rows and the node records' (fancy_nodes_case on the k=21 index)."""
     import numpy as np
     import torch
 
@@ -561,11 +620,13 @@ def query_kernel_phase(dev, idx21, art: str, tables) -> list[dict]:
         d = didx.device_arrays()
         args = (d["packed"], d["rev"], *lr, qw)
         kw["prefix"] = d["prefix64"]
+        nodes = query_cuda.fancy_nodes_cuda(*args[:4], n=didx.n)
         form = ("prefix64" if d["prefix64"] is not None
                 and kw["length"] <= 32 else "packed")
         row = _kernel_case(
             dev, f"{tag}pruned binary search L={kw['length']} {form}",
-            lambda **st: query_cuda.fancy_binsearch_cuda(*args, **st, **kw),
+            lambda **st: query_cuda.fancy_binsearch_cuda(
+                *args, nodes=nodes, **st, **kw),
             lambda: query.fancy_binsearch_batch(*args, **kw), lane_bytes,
             len(codes))
         rows.append(dict(row, kernel="fancy", length=kw["length"],
@@ -594,14 +655,16 @@ def query_kernel_phase(dev, idx21, art: str, tables) -> list[dict]:
         plquery_cases(f"pred64 +-{QK_SHIFT} stride cap {cap}",
                       idx21.to(dev), length, shift=QK_SHIFT,
                       max_stride_steps=cap)
-    del rev64
     codes, _n_in = query_codes(idx21.codes)
     binsearch_case("", idx21.to(dev), codes)
     binsearch_case("shuffled ", idx21.to(dev), shuffled(codes))
     lr = [torch.from_numpy(a).to(dev) for a in tables]
+    node_row = fancy_nodes_case(dev, idx21.to(dev), lr)
     fancy_case("", idx21.to(dev), codes)
     fancy_case("no_prefix ", bare.to(dev), codes)
     fancy_case("shuffled ", idx21.to(dev), shuffled(codes))
+    fancy_case("int64 rev ", rev64, codes)
+    del rev64
     codes, _n_in = query_codes(idx21.codes, SCALE_LENGTHS[-1])
     fancy_case("", idx21.to(dev), codes)
     del lr
@@ -614,7 +677,7 @@ def query_kernel_phase(dev, idx21, art: str, tables) -> list[dict]:
     binsearch_case(f"{big.n} bp ", big, codes)
     binsearch_case(f"{big.n} bp shuffled ", big, shuffled(codes))
     del big
-    return rows
+    return rows, node_row
 
 
 def nn_bound_ms(b: int, c: int, s: int, sm_clock_mhz: float,
@@ -988,14 +1051,23 @@ def baseline_runs(didx, codes, tables) -> dict:
 
 def baseline_phase(dev, idx21, tables) -> dict:
     """Phase 7: the plain and the llcp/rlcp-pruned binary search on phase
-    5's queries, self-checked and held against the CPU path."""
+    5's queries, self-checked and held against the CPU path; the pruned
+    search's first call (counted) also makes the node records, once: a
+    second call launches the search alone, as the timed ones do."""
     codes, n_in = query_codes(idx21.codes)
     didx = idx21.to(dev)
     on_cpu = {"binsearch": lambda c: idx21.query_positions_binsearch(c),
               "fancy": lambda c: idx21.query_positions_fancy(c, *tables)}
     out = {}
     for name, run in baseline_runs(didx, codes, tables).items():
+        # the pruned search's first call makes the index's node records
         pos, launches, _ = counted(run, want=name)
+        if name == "fancy":
+            _, again, _ = counted(run, want=name)
+            if launches["fancy_nodes"] != 1 or again["fancy_nodes"]:
+                raise AssertionError(
+                    f"the node records were not built once: {launches}, "
+                    f"then {again}")
         pos = pos.cpu().numpy()
         _check(name, pos, didx.verify_hits(codes, pos), n_in,
                on_cpu[name](codes[:N_QUERY_CHECK]))
@@ -1671,7 +1743,7 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 3b. the query kernels vs the plain cascade on the card
     t0 = time.perf_counter()
-    qk = query_kernel_phase(dev, idx21, scale[1], tables)
+    qk, fnodes = query_kernel_phase(dev, idx21, scale[1], tables)
     nk = nn_kernel_phase(dev, idx21, sm_clock_mhz)
     log(f"query kernel vs plain: phase 3b took "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1683,7 +1755,16 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
             f"({r['distinct']} distinct sectors of 32 B of {r['sectors']} "
             f"the lanes touched, {r['over']} lanes past {QK_TRACE}; "
             f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it); lane "
-            f"utilisation {100 * r['util']:.1f}%")
+            f"utilisation {100 * r['util']:.1f}%"
+            + ("" if r["reads"] is None else
+               f"; sectors read {r['reads']} ({r['reads'] / N_QUERIES:.2f}"
+               " a lane: node records and genome windows)"))
+    log(f"query kernel vs plain: fancy_nodes, the pruned search's node "
+        f"records of the k=21 index: {fnodes['n']} records "
+        f"({fnodes['bytes']} bytes) equal to the plain version; build "
+        f"kernel {fnodes['ms']:.4f} ms (1 launch), plain "
+        f"{fnodes['plain_ms']:.3f} ms; bound {fnodes['bound_ms']:.4f} ms "
+        f"({fnodes['pct_of_bound']:.1f}% of it)")
     log(f"nn kernel vs plain: nn_predict, an untrained model of "
         f"{nk['chunks']} chunks x {nk['units']} units (seed {SEED}): "
         f"{nk['lanes']} ranks equal (phase 5's {N_QUERIES} x and all "
@@ -1781,7 +1862,7 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 11. profiling, evalx, the gather microbenchmark
     last_modules_phase(dev, seq, idx21, td, al)
-    return kp, qk, nk, al, qr, bl, nn
+    return kp, qk, fnodes, nk, al, qr, bl, nn
 
 
 def main() -> int:
@@ -1805,8 +1886,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         scale = start_scale_build(td)
         try:
-            kp, qk, nk, al, qr, bl, nn = run_phases(td, scale,
-                                                    sm_clock_mhz)
+            kp, qk, fnodes, nk, al, qr, bl, nn = run_phases(
+                td, scale, sm_clock_mhz)
         finally:
             if scale[0].poll() is None:
                 os.killpg(scale[0].pid, signal.SIGKILL)
@@ -1823,8 +1904,8 @@ def main() -> int:
     ]
     # the query kernels' rows: phase 3b's case on phase 5's queries (k=21
     # index as built: fast3, the binary search, the pruned search with
-    # prefix64); launches of phase 5's and phase 7's main calls. No PyTorch
-    # call computes any of the three.
+    # prefix64, its node records); launches of phase 5's and phase 7's
+    # main calls. No PyTorch call computes any of the four.
     qsrc = os.path.relpath(query_cuda.SOURCE, ROOT)
     for name, replaces, row, launches in (
             ("plquery", "sapling_tpu/ops/query.py:1011",
@@ -1835,7 +1916,9 @@ def main() -> int:
              bl["binsearch"]["launches"]["binsearch"]),
             ("fancy_binsearch", "sapling_tpu/ops/query.py:1404",
              next(r for r in qk if r["kernel"] == "fancy"),
-             bl["fancy"]["launches"]["fancy"])):
+             bl["fancy"]["launches"]["fancy"]),
+            ("fancy_nodes", "sapling_tpu/ops/query.py:1404", fnodes,
+             bl["fancy"]["launches"]["fancy_nodes"])):
         kernels.append({
             "name": name, "route": "cuda", "source": qsrc,
             "replaces": replaces, "launches": launches,

@@ -74,24 +74,35 @@
 //                    L2 hits anyway, the gain is gone (0.97-0.98x).
 //   fancy_binsearch_kernel
 //                    The Manber-Myers search, one thread a query: a round
-//                    reads the one table entry its test needs (llcp[mid]
-//                    when loLcp >= hiLcp, else rlcp[mid]) and probes the
-//                    genome only when that entry equals the boundary LCP,
-//                    so a lane reads rev and the genome on its probing
-//                    rounds alone (the plain version gathers both tables
-//                    and probes rank 0 for every other lane). A lane stops
-//                    when it is decided. The probe's LCP is the capped one
-//                    (finish), as the plain version feeds it back. A shared
-//                    table of the top 11 levels, as the binary search's
-//                    (llcp, rlcp, rev and the first 32 bases a node), ran
-//                    0.86x at prefix64 L=21 and 1.04x on packed probes on
-//                    an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): its
-//                    registers cut the resident threads, and the top
-//                    levels were cache hits already.
+//                    tests the one table entry it needs (llcp[mid] when
+//                    loLcp >= hiLcp, else rlcp[mid]) and probes only when
+//                    that entry equals the boundary LCP; a lane stops when
+//                    it is decided. The probe's LCP is the capped one
+//                    (finish), as the plain version feeds it back. A round
+//                    is one dependent load of one 32-byte node record a
+//                    rank (fancy_nodes_kernel builds them once for an index
+//                    and its tables): the suffix's first 32 bases
+//                    (genome_key), rev, llcp and rlcp. So the test and the
+//                    probe read the same sector, and a probe reads the
+//                    genome only at L > 32 when all 32 bases tie. Up to 32
+//                    bases the prefix64 and packed forms are one
+//                    instantiation (40 registers, against 64 for the
+//                    packed form's compare_at). Lane state is 32-bit
+//                    (n < 2^31). The first design read llcp or rlcp, then
+//                    rev and prefix64 or the genome on a probe: ~52
+//                    scattered sectors a lane along ~39 dependent loads at
+//                    4.6 Mbp; the records run 1.6-2.1x faster on an NVIDIA
+//                    H100 80GB HBM3 at 700 W. Measured and dropped
+//                    (PERF.md): a shared table of the top 11 levels, int32
+//                    state alone, a prefetch of both candidate next
+//                    records, the record's LCP half read first, and a
+//                    long probe's genome read from base 32 on.
 //
-// The binary search keeps each lane's decision sequence and its probe and
-// sector counts (a probe answered from shared memory records the sectors
-// it would have read), so the bound does not move with the design.
+// The binary search and the pruned one keep each lane's decision sequence
+// and its probe and sector counts (a probe answered from shared memory or
+// a node record records the sectors the first designs read), so the bound
+// does not move with the design; the pruned search also counts the
+// sectors it really reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,6 +143,7 @@ struct Args {
   int length, k, buckets, adaptive, trace_cap;
   const int32_t* llcp = nullptr;   // the pruned search's [n] tables
   const int32_t* rlcp = nullptr;
+  const longlong2* nodes = nullptr;   // its [n] node records, 2 halves each
 };
 
 struct Probe {
@@ -199,15 +211,19 @@ struct Lane {
   uint32_t qw[kWin];              // packed: the query's first words
   int wq;
   int probes = 0, sectors = 0;
+  int genome_sectors = 0;   // with stats, those compare_at read
 
-  // with stats, count (and with a trace, record) the sectors of [p, last]
-  __device__ void touch(const void* p, const void* last) {
-    if (!a.lane_stats) return;
+  // with stats, count (and with a trace, record) the sectors of [p, last];
+  // returns their count (0 without stats)
+  __device__ int touch(const void* p, const void* last) {
+    if (!a.lane_stats) return 0;
+    const int before = sectors;
     for (int64_t s = sector(p); s <= sector(last); ++s) {
       if (a.trace && sectors < a.trace_cap)
         a.trace[b * a.trace_cap + sectors] = s;
       ++sectors;
     }
+    return sectors - before;
   }
   __device__ void touch(const void* p) { touch(p, p); }
 
@@ -295,6 +311,32 @@ struct Lane {
                   (q & mask) > (key & mask));
   }
 
+  // probe(rank) answered from rank's node record: the suffix's first 32
+  // bases (key, as genome_key gives them) and pos = rev[rank]. Up to 32
+  // bases (kPrefix64, with prefix64 or without) the key decides as
+  // prefix64[rank] does (the two differ only past the genome's end, where
+  // finish caps the LCP); past 32 (kPacked) as probe_known. Records the
+  // sectors the first design's probe(rank) read: rev[rank], then
+  // prefix64[rank] or compare_at's genome window.
+  __device__ Probe probe_node(int64_t rank, int64_t pos, uint64_t key) {
+    if constexpr (PROBE == kPrefix64) {
+      ++probes;
+      touch(static_cast<const REV*>(a.rev) + rank);
+      if (a.prefix) {
+        touch(a.prefix + rank);
+      } else {
+        const int64_t last = a.packed_len - 1, w0 = pos >> 4;
+        touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + wq, last));
+      }
+      const uint64_t pw = key & qmask;
+      const uint64_t d = pw ^ qword;
+      return finish(pos, d ? __clzll((long long)d) >> 1 : a.length,
+                    qword > pw);
+    } else {
+      return probe_known(rank, pos, key);
+    }
+  }
+
   // probe_at: the query against the genome at text position pos, a window
   // of up to kWin query words at a time (one window up to 112 bases): the
   // window's kWin + 1 genome words are loaded together, funnel-shifted into
@@ -311,7 +353,8 @@ struct Lane {
 #pragma unroll
       for (int j = 0; j <= kWin; ++j)
         if (j <= nw) w[j] = (uint32_t)__ldg(a.packed + lmin(w0 + j, last));
-      touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + nw, last));
+      genome_sectors +=
+          touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + nw, last));
 #pragma unroll
       for (int j = 0; j < kWin; ++j) {
         if (j >= nw) break;
@@ -575,6 +618,37 @@ __global__ void __launch_bounds__(kSearchThreads)
     binsearch_lane<REV>(a, tree, b);
 }
 
+// A node record of the pruned search, as its two 16-byte halves: the
+// suffix's first 32 bases and its position, then llcp | rlcp << 32 and a
+// zero word. One record is one 32-byte sector; both halves are loaded at
+// once, so a round waits on one load.
+struct FancyNode {
+  uint64_t key;
+  int64_t pos;
+  int llcp, rlcp;
+};
+
+__device__ __forceinline__ FancyNode load_node(const longlong2* nodes,
+                                               int rank) {
+  const longlong2 kp = __ldg(nodes + 2 * (int64_t)rank);
+  const longlong2 lr = __ldg(nodes + 2 * (int64_t)rank + 1);
+  return FancyNode{(uint64_t)kp.x, kp.y, (int)lr.x, (int)(lr.x >> 32)};
+}
+
+// The records: one thread a rank r writes {genome_key(rev[r]), rev[r]} and
+// {llcp[r] | rlcp[r] << 32, 0}, both tables' entries exact.
+template <typename REV>
+__global__ void __launch_bounds__(kThreads)
+    fancy_nodes_kernel(const __grid_constant__ Args a, longlong2* nodes) {
+  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= a.n) return;
+  const int64_t pos = rev_at<REV>(a.rev, r);
+  const uint64_t lr = (uint32_t)__ldg(a.llcp + r)
+                      | (uint64_t)(uint32_t)__ldg(a.rlcp + r) << 32;
+  nodes[2 * r] = make_longlong2((long long)genome_key(a, pos), pos);
+  nodes[2 * r + 1] = make_longlong2((long long)lr, 0);
+}
+
 // The llcp/rlcp-pruned search (the port's fancy_binsearch_batch; the
 // reference's unused fancyBinarySearch, src/binarysearch.cpp:90-153):
 // bQuery's pre-probes of ranks 0 and n-1 seed loLcp and hiLcp, then each
@@ -582,7 +656,11 @@ __global__ void __launch_bounds__(kSearchThreads)
 // lo+1's value, unverified, or moves lo or hi to mid, on the table entry
 // alone where it differs from the boundary LCP, else on a probe. At most
 // bit_length(n - 1) + 2 rounds, as in the plain version (a lane is decided
-// within them). Stats count probes and sectors; there are no host rounds
+// within them). Every rank is read from its node record; PROBE is
+// kPrefix64 up to 32 bases (prefix may be null: the trace then records the
+// packed form's windows) and kPacked past 32. Stats count probes and the
+// first design's sectors (rows 0 and 1), and in row 2 the sectors read:
+// the records and compare_at's genome windows; there are no host rounds
 // to match, so depth stays 0.
 template <int PROBE, typename REV>
 __global__ void __launch_bounds__(kThreads)
@@ -590,53 +668,70 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= a.B) return;
   Lane<PROBE, REV> lane(a, b);
-  const Probe p0 = lane.probe(0);
-  if (p0.match) return lane.done(p0.val, 0, 0);
-  const Probe p1 = lane.probe(a.n - 1);
-  if (p1.match) return lane.done(p1.val, 0, 0);
-  int64_t lo = 0, hi = a.n - 1, lo_lcp = p0.lcp, hi_lcp = p1.lcp;
+  const REV* rev = static_cast<const REV*>(a.rev);
+  const int n = (int)a.n;
+  int records = 0;
+  auto done = [&](int64_t res) {
+    if (a.lane_stats)
+      a.lane_stats[2 * a.B + b] = records + lane.genome_sectors;
+    lane.done(res, 0, 0);
+  };
+  FancyNode nd = load_node(a.nodes, 0);
+  ++records;
+  const Probe p0 = lane.probe_node(0, nd.pos, nd.key);
+  if (p0.match) return done(p0.val);
+  nd = load_node(a.nodes, n - 1);
+  ++records;
+  const Probe p1 = lane.probe_node(n - 1, nd.pos, nd.key);
+  if (p1.match) return done(p1.val);
+  int lo = 0, hi = n - 1, lo_lcp = (int)p0.lcp, hi_lcp = (int)p1.lcp;
   int trips = 2;
-  while (trips < 64 && ((a.n - 1) >> (trips - 2)) != 0) ++trips;
+  while (((n - 1) >> (trips - 2)) != 0) ++trips;
   for (int t = 0; t < trips; ++t) {
     if (hi == lo + 1) break;
-    if (hi == lo + 2) return lane.done(lane.value_at(lo + 1), 0, 0);
-    const int64_t mid = lo + ((hi - lo) >> 1);
+    if (hi == lo + 2) {   // rank lo + 1's position, unprobed
+      lane.touch(rev + lo + 1);
+      ++records;
+      return done(__ldg(a.nodes + 2 * (int64_t)(lo + 1)).y);
+    }
+    const int mid = lo + ((hi - lo) >> 1);
+    nd = load_node(a.nodes, mid);
+    ++records;
     if (lo_lcp >= hi_lcp) {
       lane.touch(a.llcp + mid);
-      const int64_t ll = __ldg(a.llcp + mid);
-      if (ll > lo_lcp) {
+      if (nd.llcp > lo_lcp) {
         lo = mid;
         continue;
       }
-      if (ll < lo_lcp) {
+      if (nd.llcp < lo_lcp) {
         hi = mid;
-        hi_lcp = ll;
+        hi_lcp = nd.llcp;
         continue;
       }
     } else {
       lane.touch(a.rlcp + mid);
-      const int64_t rl = __ldg(a.rlcp + mid);
-      if (rl < hi_lcp) {
+      if (nd.rlcp < hi_lcp) {
         lo = mid;
-        lo_lcp = rl;
+        lo_lcp = nd.rlcp;
         continue;
       }
-      if (rl > hi_lcp) {
+      if (nd.rlcp > hi_lcp) {
         hi = mid;
         continue;
       }
     }
-    const Probe p = lane.probe(mid);   // the entry equals the boundary LCP
-    if (p.match) return lane.done(p.val, 0, 0);
+    // the entry equals the boundary LCP
+    const Probe p = lane.probe_node(mid, nd.pos, nd.key);
+    if (p.match) return done(p.val);
     if (p.smaller) {
       lo = mid;
-      lo_lcp = p.lcp;
+      lo_lcp = (int)p.lcp;
     } else {
       hi = mid;
-      hi_lcp = p.lcp;
+      hi_lcp = (int)p.lcp;
     }
   }
-  lane.done(-1, 0, 0);
+  done(-1);
 }
 
 int blocks_for(int64_t B) { return (int)((B + kThreads - 1) / kThreads); }
@@ -649,6 +744,17 @@ int launch_fancy(const Args& a, int rev64, cudaStream_t stream) {
   else
     fancy_binsearch_kernel<PROBE, int32_t><<<blocks_for(a.B), kThreads, 0,
                                              stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int launch_fancy_nodes(const Args& a, longlong2* nodes, int rev64,
+                      cudaStream_t stream) {
+  if (rev64)
+    fancy_nodes_kernel<int64_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
+        a, nodes);
+  else
+    fancy_nodes_kernel<int32_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
+        a, nodes);
   return (int)cudaGetLastError();
 }
 
@@ -701,8 +807,10 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
 // words, xlist, ylist and prefix views; rev int32 holding uint32 bits when
 // rev64 is 0, else int64; bounds int32 holding uint32 bits); q_words is
 // int64 [ceil(L/16), B]; x, q3, pred64 and out are int64 [B]. lane_stats
-// (int32 [2, B]), depth (int32 [2], zeroed) and trace (int64 [B,
-// trace_cap]) may be null.
+// (int32 [2, B]; [3, B] for the pruned search), depth (int32 [2], zeroed)
+// and trace (int64 [B, trace_cap]) may be null. The pruned search reads
+// llcp, rlcp and prefix only through its node records (nodes, int64 [n,
+// 4], 32-byte aligned); with stats it records their sectors.
 extern "C" int plquery_launch(
     const void* packed, long long packed_len, const void* rev, int rev64,
     const void* xlist, const void* ylist, const void* prefix,
@@ -765,9 +873,9 @@ extern "C" int binsearch_launch(const void* packed, long long packed_len,
 extern "C" int fancy_binsearch_launch(
     const void* packed, long long packed_len, const void* rev, int rev64,
     const void* llcp, const void* rlcp, const void* prefix,
-    const void* q_words, void* out, void* lane_stats, void* depth,
-    void* trace, long long B, long long n, int length, int trace_cap,
-    int probe, void* stream) {
+    const void* nodes, const void* q_words, void* out, void* lane_stats,
+    void* depth, void* trace, long long B, long long n, int length,
+    int trace_cap, int probe, void* stream) {
   if (B <= 0) return 0;
   Args a{};
   a.packed = static_cast<const int64_t*>(packed);
@@ -776,6 +884,7 @@ extern "C" int fancy_binsearch_launch(
   a.llcp = static_cast<const int32_t*>(llcp);
   a.rlcp = static_cast<const int32_t*>(rlcp);
   a.prefix = static_cast<const int64_t*>(prefix);
+  a.nodes = static_cast<const longlong2*>(nodes);
   a.q_words = static_cast<const int64_t*>(q_words);
   a.out = static_cast<int64_t*>(out);
   a.lane_stats = static_cast<int32_t*>(lane_stats);
@@ -791,4 +900,22 @@ extern "C" int fancy_binsearch_launch(
     case kPacked: return launch_fancy<kPacked>(a, rev64, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The pruned search's node records: nodes is int64 [n, 4], 32-byte
+// aligned; llcp and rlcp int32 [n].
+extern "C" int fancy_nodes_launch(const void* packed, long long packed_len,
+                                  const void* rev, int rev64,
+                                  const void* llcp, const void* rlcp,
+                                  void* nodes, long long n, void* stream) {
+  if (n <= 0) return 0;
+  Args a{};
+  a.packed = static_cast<const int64_t*>(packed);
+  a.packed_len = packed_len;
+  a.rev = rev;
+  a.llcp = static_cast<const int32_t*>(llcp);
+  a.rlcp = static_cast<const int32_t*>(rlcp);
+  a.n = n;
+  return launch_fancy_nodes(a, static_cast<longlong2*>(nodes), rev64,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -25,7 +25,7 @@ from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
 from ..ops.query_cuda import (binsearch_cuda, fancy_binsearch_cuda,
-                              plquery_cuda)
+                              fancy_nodes_cuda, plquery_cuda)
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -73,6 +73,9 @@ class SaplingIndex:
     inv_hi: np.ndarray | None = None
     device: torch.device = field(default=torch.device("cuda"))
     _device: dict = field(default_factory=dict, repr=False)
+    # the pruned search's node records of the last llcp/rlcp pair
+    # (fancy_nodes)
+    _fancy: tuple = field(default=(), repr=False)
 
     # --- construction -------------------------------------------------------
 
@@ -386,15 +389,36 @@ class SaplingIndex:
         found: the classic search (ops.query_cuda.binsearch_cuda), or with
         the int32 [n] llcp/rlcp tables on `self.device` the pruned one
         (ops.query_cuda.fancy_binsearch_cuda, with the index's prefix64
-        when it has one); each its kernel on the card, `stats` as in
-        query_device."""
+        when it has one, and on the card the node records of fancy_nodes);
+        each its kernel on the card, `stats` as in query_device."""
         dev = self.device_arrays()
         if llcp is None:
             return binsearch_cuda(dev["packed"], dev["rev"], q_words,
                                   n=self.n, length=length, stats=stats)
         return fancy_binsearch_cuda(dev["packed"], dev["rev"], llcp, rlcp,
                                     q_words, n=self.n, length=length,
-                                    prefix=dev["prefix64"], stats=stats)
+                                    prefix=dev["prefix64"],
+                                    nodes=self.fancy_nodes(llcp, rlcp),
+                                    stats=stats)
+
+    def fancy_nodes(self, llcp: torch.Tensor,
+                    rlcp: torch.Tensor) -> torch.Tensor | None:
+        """The pruned search's node records of these llcp/rlcp tables on
+        the card (ops.query_cuda.fancy_nodes_cuda: int64 [n, 4]), made on
+        the first call with this pair and kept until another pair comes
+        (the same tensor objects, not written in place since, over the
+        same rev); None on the CPU, where the plain search reads the
+        tables."""
+        if self.device.type == "cpu":
+            return None
+        dev = self.device_arrays()
+        versions = (llcp._version, rlcp._version)
+        f = self._fancy
+        if not (f and f[0] is llcp and f[1] is rlcp and f[2] == versions
+                and f[3] is dev["rev"]):
+            self._fancy = (llcp, rlcp, versions, dev["rev"], fancy_nodes_cuda(
+                dev["packed"], dev["rev"], llcp, rlcp, n=self.n))
+        return self._fancy[4]
 
     def query_positions_binsearch(self, codes2d: np.ndarray) -> np.ndarray:
         """Classic binary-search baseline over the same device arrays."""
@@ -404,7 +428,8 @@ class SaplingIndex:
     def query_positions_fancy(self, codes2d: np.ndarray, llcp: np.ndarray,
                               rlcp: np.ndarray) -> np.ndarray:
         """llcp/rlcp-pruned binary search with the int32 [n] tables of
-        index.suffix_array.build_llcp_rlcp."""
+        index.suffix_array.build_llcp_rlcp (sent to the device, and on the
+        card made into node records, anew each call)."""
         llcp_d, rlcp_d = (torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device) for a in (llcp, rlcp))
         return self.binsearch_device(self.query_words(codes2d),

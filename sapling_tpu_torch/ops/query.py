@@ -517,3 +517,22 @@ def fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words, *, n: int,
     return torch.where(has_base,
                        gather64(rev, torch.where(has_base, base_rank, 0)),
                        res)
+
+
+def fancy_nodes(packed, rev, llcp, rlcp, *, n: int) -> torch.Tensor:
+    """The pruned search's node records (csrc/query.cu's fancy_nodes_kernel
+    builds the same on the card): int64 [n, 4], a rank r's row the first 32
+    bases of the suffix at rev[r] (two aligned genome words, big-endian
+    2-bit codes, word indexes clamped to the array as probe_at clamps
+    them; the uint64's bits), rev[r], llcp[r] | rlcp[r] << 32, and 0."""
+    pos = gather64(rev, torch.arange(n, device=packed.device))
+    sh = (pos & 15) << 1
+    last = packed.shape[0] - 1
+    w = [packed[torch.clamp((pos >> 4) + j, max=last)] for j in range(3)]
+    # sh == 0 takes nothing from the next word (a word >> 32 is 0)
+    hi, lo = (((w[j] << sh) & _MASK32) | (w[j + 1] >> (32 - sh))
+              for j in range(2))
+    key = torch.where(hi >= 1 << 31, hi - (1 << 32), hi) * (1 << 32) + lo
+    lcps = (rlcp[:n].long() << 32) | (llcp[:n].long() & _MASK32)
+    return torch.stack([key, pos, lcps, torch.zeros_like(pos)], dim=1)
+

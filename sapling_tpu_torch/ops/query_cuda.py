@@ -4,8 +4,10 @@
 probe, the optional bucket probe, phases A-D), `binsearch_kernel` runs
 `ops.query.binsearch_batch` (the bisection's first levels from a table in
 shared memory) and `fancy_binsearch_kernel` runs
-`ops.query.fancy_binsearch_batch` (the llcp/rlcp-pruned search), one
-thread a query, one launch a call and no host sync, with exactly the plain
+`ops.query.fancy_binsearch_batch` (the llcp/rlcp-pruned search, a round
+one 32-byte node record that `fancy_nodes_kernel` builds once for an
+index and its tables, as `ops.query.fancy_nodes` does), one thread a
+query, one launch a call and no host sync, with exactly the plain
 versions' results. They replace `sapling_tpu/ops/query.py::plquery_batch`
 (:1011), `::binsearch_batch` (:1370) and `::fancy_binsearch_batch`
 (:1404), XLA programs in the JAX package.
@@ -19,7 +21,9 @@ parallel.sharded_index keeps the plain versions):
   * tensors on the card launch a kernel, or raise: there is no fallback.
 
 `stats=True` also has the kernel write each lane's probes and the 32-byte
-sectors its reads touched (`LAST_STATS`), and its deepest phase C and
+sectors its reads touched (`LAST_STATS`; the pruned search records the
+sectors of its first design's reads there, and the sectors it really
+reads as `reads`), and its deepest phase C and
 phase D step counts, which it adds to `ops.query.ROUNDS` as the plain
 versions' host loops do; that syncs. With `trace=K` it also records the
 numbers of the first K sectors each lane touched (int64 [B, K], -1 past
@@ -47,10 +51,10 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 PROBES = {"fast3": 0, "prefix64": 1, "packed": 2}   # query.cu's kFast3...
 
 # kernel launches, counted where each kernel is launched
-LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0}
+LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0, "fancy_nodes": 0}
 # the last stats=True call on the card: int32 [B] probes and sectors a
-# lane, the deepest phase C / phase D step counts, and with trace=K the
-# int64 [B, K] sector numbers
+# lane (and the pruned search's reads), the deepest phase C / phase D step
+# counts, and with trace=K the int64 [B, K] sector numbers
 LAST_STATS: dict = {}
 _LOCK = threading.Lock()
 _LIB = None
@@ -61,8 +65,9 @@ SIGNATURES = {
     + [_LL] * 5 + [_I, _I, _I, _P],
     "binsearch_launch": [_P, _LL, _P, _I] + [_P] * 5 + [_LL, _LL, _I, _I,
                                                          _P],
-    "fancy_binsearch_launch": [_P, _LL, _P, _I] + [_P] * 8
+    "fancy_binsearch_launch": [_P, _LL, _P, _I] + [_P] * 9
     + [_LL, _LL, _I, _I, _I, _P],
+    "fancy_nodes_launch": [_P, _LL, _P, _I, _P, _P, _P, _LL, _P],
 }
 
 
@@ -108,15 +113,15 @@ _I64 = (torch.int64,)
 _REV = (torch.int32, torch.int64)
 
 
-def stats_buffers(b: int, dev, stats: bool, trace: int = 0):
-    """(lane_stats, depth, trace) buffers of a stats call: int32 [2, B],
+def stats_buffers(b: int, dev, stats: bool, trace: int = 0, rows: int = 2):
+    """(lane_stats, depth, trace) buffers of a stats call: int32 [rows, B],
     int32 [2] zeroed, int64 [B, trace] (None without a trace); all None
     without stats."""
     if trace and not stats:
         raise ValueError("trace= needs stats=True")
     if not stats:
         return None, None, None
-    return (torch.empty((2, b), dtype=torch.int32, device=dev),
+    return (torch.empty((rows, b), dtype=torch.int32, device=dev),
             torch.zeros(2, dtype=torch.int32, device=dev),
             torch.empty((b, trace), dtype=torch.int64, device=dev)
             if trace else None)
@@ -129,6 +134,8 @@ def _read_stats(lane, depth, trace) -> None:
     LAST_STATS.clear()
     LAST_STATS.update(probes=lane[0], sectors=lane[1], C=c, D=d,
                       trace=trace)
+    if lane.shape[0] > 2:
+        LAST_STATS["reads"] = lane[2]
 
 
 def _ptr(t):
@@ -278,30 +285,81 @@ def binsearch_cuda(packed, rev, q_words, *, n: int, length: int,
     return out
 
 
-def launch_fancy(lib, stream, packed, rev, llcp, rlcp, prefix, q_words, out,
-                 lane, depth, trace, *, n: int, length: int,
+def launch_fancy(lib, stream, packed, rev, llcp, rlcp, prefix, nodes,
+                 q_words, out, lane, depth, trace, *, n: int, length: int,
                  form: str) -> int:
-    """fancy_binsearch_launch of `lib` on checked tensors (prefix None on
-    the packed form), on `stream`; returns its cudaError_t."""
+    """fancy_binsearch_launch of `lib` on checked tensors, on `stream`;
+    returns its cudaError_t. The kernel's 32-base compare of the node
+    records answers every probe up to 32 bases (its prefix64
+    instantiation); `form` decides only whether prefix is passed, so that
+    the trace records the sectors that form's probe read."""
     return lib.fancy_binsearch_launch(
         packed.data_ptr(), packed.shape[0], rev.data_ptr(),
         int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
-        _ptr(prefix) if form == "prefix64" else None, q_words.data_ptr(),
-        out.data_ptr(), _ptr(lane), _ptr(depth), _ptr(trace),
-        q_words.shape[1], n, length, 0 if trace is None else trace.shape[1],
-        PROBES[form], stream)
+        _ptr(prefix) if form == "prefix64" else None, nodes.data_ptr(),
+        q_words.data_ptr(), out.data_ptr(), _ptr(lane), _ptr(depth),
+        _ptr(trace), q_words.shape[1], n, length,
+        0 if trace is None else trace.shape[1],
+        PROBES["prefix64" if length <= 32 else "packed"], stream)
+
+
+def launch_fancy_nodes(lib, stream, packed, rev, llcp, rlcp, nodes, *,
+                       n: int) -> int:
+    """fancy_nodes_launch of `lib` on checked tensors, on `stream`; returns
+    its cudaError_t."""
+    return lib.fancy_nodes_launch(
+        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
+        int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
+        nodes.data_ptr(), n, stream)
+
+
+def _check_tables(packed, rev, llcp, rlcp, n: int, dev) -> None:
+    if not 1 <= n < 1 << 31:
+        raise ValueError(f"the pruned search needs 1 <= n < 2^31, got {n}")
+    _check("packed", packed, _I64, (1,), dev, at_least=True)
+    _check("rev", rev, _REV, (n,), dev, at_least=True)
+    _check("llcp", llcp, (torch.int32,), (n,), dev, at_least=True)
+    _check("rlcp", rlcp, (torch.int32,), (n,), dev, at_least=True)
+
+
+def fancy_nodes_cuda(packed, rev, llcp, rlcp, *, n: int):
+    """ops.query.fancy_nodes (the pruned search's int64 [n, 4] node
+    records) on fancy_nodes_kernel for tensors on the card, with the
+    arguments fancy_binsearch_cuda takes; tensors on the CPU take the
+    plain version."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return query.fancy_nodes(packed, rev, llcp, rlcp, n=n)
+    if dev.type != "cuda":
+        raise ValueError(f"fancy_nodes_cuda: unsupported device {dev}")
+    _check_tables(packed, rev, llcp, rlcp, n, dev)
+    nodes = torch.empty((n, 4), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = launch_fancy_nodes(
+            _lib(), torch.cuda.current_stream(dev).cuda_stream, packed, rev,
+            llcp, rlcp, nodes, n=n)
+    if rc != 0:
+        raise RuntimeError(f"fancy nodes kernel launch failed: cudaError {rc}")
+    with _LOCK:
+        LAUNCHES["fancy_nodes"] += 1
+    return nodes
 
 
 def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
-                         length: int, prefix=None, stats: bool = False,
-                         trace: int = 0):
+                         length: int, prefix=None, nodes=None,
+                         stats: bool = False, trace: int = 0):
     """ops.query.fancy_binsearch_batch with the same arguments and results,
     on fancy_binsearch_kernel for tensors on the card: packed int64, rev
     int32 (uint32 bits) or int64, llcp / rlcp int32 [n], prefix int64 or
     None (its probe answers at length <= 32), q_words int64 [ceil(L/16),
-    B], all contiguous on one device; n < 2^31 (the tables are indexed
-    flat). The kernel adds no rounds (the plain version has none). Returns
-    int64 [B] positions, -1 = not found."""
+    B], all contiguous on one device; n < 2^31 (the lane state is 32-bit).
+    `nodes` are the node records fancy_nodes_cuda made of the same packed,
+    rev, llcp and rlcp; a call without them on the card makes them first
+    (one more launch), so a caller that searches more than once passes
+    them. On the CPU they are not read: the plain version reads the
+    tables. The kernel adds no rounds (the plain version has none), and
+    with stats LAST_STATS["reads"] holds the sectors a lane really read.
+    Returns int64 [B] positions, -1 = not found."""
     if q_words.device.type == "cpu":
         return query.fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words,
                                            n=n, length=length, prefix=prefix)
@@ -310,25 +368,25 @@ def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
         raise ValueError(f"fancy_binsearch_cuda: unsupported device {dev}")
     if length < 1:
         raise ValueError(f"query length {length} < 1")
-    if not 1 <= n < 1 << 31:
-        raise ValueError(f"the pruned search needs 1 <= n < 2^31, got {n}")
+    _check_tables(packed, rev, llcp, rlcp, n, dev)
     b = q_words.shape[1]
     form = "prefix64" if prefix is not None and length <= 32 else "packed"
     _check("q_words", q_words, _I64, (-(-length // BASES_PER_WORD), b), dev)
-    _check("packed", packed, _I64, (1,), dev, at_least=True)
-    _check("rev", rev, _REV, (n,), dev, at_least=True)
-    _check("llcp", llcp, (torch.int32,), (n,), dev, at_least=True)
-    _check("rlcp", rlcp, (torch.int32,), (n,), dev, at_least=True)
     if form == "prefix64":
         _check("prefix", prefix, _I64, (n,), dev, at_least=True)
+    if nodes is None:
+        nodes = fancy_nodes_cuda(packed, rev, llcp, rlcp, n=n)
+    _check("nodes", nodes, _I64, (n, 4), dev)
+    if nodes.data_ptr() % 32:
+        raise ValueError("nodes must start on a 32-byte boundary")
     out = torch.empty(b, dtype=torch.int64, device=dev)
-    lane, depth, tr = stats_buffers(b, dev, stats, trace)
+    lane, depth, tr = stats_buffers(b, dev, stats, trace, rows=3)
     if b:
         with torch.cuda.device(dev):
             rc = launch_fancy(
                 _lib(), torch.cuda.current_stream(dev).cuda_stream, packed,
-                rev, llcp, rlcp, prefix, q_words, out, lane, depth, tr, n=n,
-                length=length, form=form)
+                rev, llcp, rlcp, prefix, nodes, q_words, out, lane, depth,
+                tr, n=n, length=length, form=form)
         if rc != 0:
             raise RuntimeError(
                 f"fancy binsearch kernel launch failed: cudaError {rc}")

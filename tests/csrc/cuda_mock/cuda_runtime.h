@@ -118,6 +118,12 @@ inline int __vimax3_s32_relu(int a, int b, int c) {
 }
 inline int __viaddmax_s32(int a, int b, int c) { return std::max(a + b, c); }
 
+// the 16-byte vector type of vector_types.h that the sources load and store
+struct alignas(16) longlong2 {
+  long long x, y;
+};
+inline longlong2 make_longlong2(long long x, long long y) { return {x, y}; }
+
 // read-only loads, leading zeros (of 0: the width, as on the card), and an
 // atomic max that the lanes of a block, all running at once, may share
 template <typename T>

@@ -81,9 +81,9 @@ def lib(tmp_path_factory):
         pytest.skip("the mock needs a g++ with C++20 <barrier>")
     cpp, so = d / "query_on_cpu.cpp", d / "libquery_on_cpu.so"
     with open(query_cuda.SOURCE) as f:
-        # plquery and the pruned search launch at two rev types each, the
-        # binary search from one launcher
-        cpp.write_text(mock_source(f.read(), 5))
+        # plquery, the pruned search and its node records launch at two
+        # rev types each, the binary search from one launcher
+        cpp.write_text(mock_source(f.read(), 7))
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     "-Wno-unknown-pragmas", "-I", MOCK_DIR, "-o", str(so),
                     str(cpp)], check=True)
@@ -525,8 +525,9 @@ def test_binsearch_tree_kernel_source(lib, n):
 
 
 def test_wrappers_take_the_plain_path_on_the_cpu(k21):
-    """plquery_cuda / binsearch_cuda on host tensors are the plain
-    versions, and launch nothing."""
+    """plquery_cuda / binsearch_cuda / fancy_binsearch_cuda /
+    fancy_nodes_cuda on host tensors are the plain versions, and launch
+    nothing; an index on the CPU makes no node records."""
     codes = _queries(k21.codes, 300, 33, seed=1)
     args, kw = _args(k21, codes), _kw(k21, 33)
     before = dict(query_cuda.LAUNCHES)
@@ -548,6 +549,10 @@ def test_wrappers_take_the_plain_path_on_the_cpu(k21):
             prefix=dev["prefix64"]).numpy(),
         query.fancy_binsearch_batch(dev["packed"], dev["rev"], llcp, rlcp,
                                     qw, n=k21.n, length=33).numpy())
+    assert query_cuda.fancy_nodes_cuda(dev["packed"], dev["rev"], llcp,
+                                       rlcp, n=k21.n).equal(
+        query.fancy_nodes(dev["packed"], dev["rev"], llcp, rlcp, n=k21.n))
+    assert k21.fancy_nodes(llcp, rlcp) is None
     assert query_cuda.LAUNCHES == before
 
 
@@ -565,15 +570,18 @@ def _tables(seq):
 
 def _fancy_replica(codes, rev, llcp, rlcp, q, n):
     """tests/test_fancy.py's scalar fancyBinarySearch, also counting the
-    lane's probes and whether it ended on the hi == lo + 2 base case:
-    (position, probes, base)."""
+    lane's probes and whether it ended on the hi == lo + 2 base case, and
+    listing what it read in order: ("llcp" | "rlcp", mid), ("probe", rank,
+    pos), ("base", rank). Returns (position, probes, base, events)."""
     length = len(q)
     probes = 0
+    events = []
 
     def probe(rank):
         nonlocal probes
         probes += 1
         idx = int(rev[rank])
+        events.append(("probe", rank, idx))
         lcp = 0
         while idx + lcp < n and lcp < length and codes[idx + lcp] == q[lcp]:
             lcp += 1
@@ -583,18 +591,20 @@ def _fancy_replica(codes, rev, llcp, rlcp, q, n):
 
     idx, lo_lcp, _ = probe(0)
     if lo_lcp == length:
-        return idx, probes, False
+        return idx, probes, False, events
     idx, hi_lcp, _ = probe(n - 1)
     if hi_lcp == length:
-        return idx, probes, False
+        return idx, probes, False, events
     lo, hi = 0, n - 1
     while True:
         if hi == lo + 1:
-            return -1, probes, False
+            return -1, probes, False, events
         if hi == lo + 2:
-            return int(rev[lo + 1]), probes, True
+            events.append(("base", lo + 1))
+            return int(rev[lo + 1]), probes, True, events
         mid = (lo + hi) >> 1
         if lo_lcp >= hi_lcp:
+            events.append(("llcp", mid))
             if llcp[mid] > lo_lcp:
                 lo = mid
                 continue
@@ -602,6 +612,7 @@ def _fancy_replica(codes, rev, llcp, rlcp, q, n):
                 hi, hi_lcp = mid, int(llcp[mid])
                 continue
         else:
+            events.append(("rlcp", mid))
             if rlcp[mid] > hi_lcp:
                 hi = mid
                 continue
@@ -610,11 +621,71 @@ def _fancy_replica(codes, rev, llcp, rlcp, q, n):
                 continue
         idx, lcp, smaller = probe(mid)
         if lcp == length:
-            return idx, probes, False
+            return idx, probes, False, events
         if smaller:
             lo, lo_lcp = mid, lcp
         else:
             hi, hi_lcp = mid, lcp
+
+
+def _sector(t, i):
+    """The 32-byte sector number of element i of tensor t."""
+    return (t.data_ptr() + i * t.element_size()) >> 5
+
+
+def _probe_windows(packed, pos, qw, length):
+    """The packed genome's sectors a probe at text position pos reads, as
+    compare_at reads them (windows of up to 7 query words, each with the
+    word after it, indexes clamped to the array, up to the window of the
+    first word that differs from the query's): a list of sector lists."""
+    wq = -(-length // 16)
+    words = packed.numpy()
+    last = len(words) - 1
+    w0, sh = pos >> 4, (pos & 15) << 1
+
+    def aligned(j):
+        w = int(words[min(w0 + j, last)])
+        nxt = int(words[min(w0 + j + 1, last)])
+        return ((w << sh) & 0xFFFFFFFF) | (nxt >> (32 - sh)) if sh else w
+
+    first = next((j for j in range(wq) if aligned(j) != int(qw[j])), wq)
+    windows = []
+    for base in range(0, wq, 7):
+        nw = min(7, wq - base)
+        windows.append(list(range(_sector(packed, min(w0 + base, last)),
+                                  _sector(packed, min(w0 + base + nw, last))
+                                  + 1)))
+        if first < base + nw:
+            break
+    return windows, first
+
+
+def _replica_trace(events, packed, rev, llcp, rlcp, prefix, qw, length):
+    """The sectors the first design of the pruned search reads for a lane's
+    replica events (the yardstick the kernel records), and the sectors the
+    kernel really reads: one node record a pre-probe, a round or the base
+    case, and the genome windows of a probe whose first 32 bases all agree
+    at L > 32. Returns (trace, records, genome sectors)."""
+    trace, reads, genome = [], 0, 0
+    for i, ev in enumerate(events):
+        if ev[0] in ("llcp", "rlcp"):
+            trace.append(_sector(llcp if ev[0] == "llcp" else rlcp, ev[1]))
+            reads += 1
+        elif ev[0] == "base":
+            trace.append(_sector(rev, ev[1]))
+            reads += 1
+        else:
+            _, rank, pos = ev
+            reads += i < 2   # a pre-probe's record (rank 0, then n - 1)
+            trace.append(_sector(rev, rank))
+            if prefix is not None and length <= 32:
+                trace.append(_sector(prefix, rank))
+                continue
+            windows, first = _probe_windows(packed, pos, qw, length)
+            trace += [s for w in windows for s in w]
+            if length > 32 and first >= 2:
+                genome += sum(len(w) for w in windows)
+    return trace, reads, genome
 
 
 def _fancy_queries(codes, length, num, seed):
@@ -641,19 +712,32 @@ def _fancy_queries(codes, length, num, seed):
     return q
 
 
+def _mock_nodes(lib, packed, rev, llcp, rlcp, n):
+    """The node records through launch_fancy_nodes (the mocked
+    fancy_nodes_kernel) on host tensors."""
+    nodes = torch.full((n, 4), -9, dtype=torch.int64)
+    assert query_cuda.launch_fancy_nodes(lib, None, packed, rev, llcp, rlcp,
+                                         nodes, n=n) == 0
+    return nodes
+
+
 def _kernel_fancy(lib, packed, rev, llcp, rlcp, prefix, q_words, n, length):
-    """The kernel through launch_fancy on host tensors: (positions, int32
-    [2, B] probes and sectors a lane, the sector trace), the trace checked
-    to hold only sectors of the arrays the pruned search reads."""
+    """The kernel through launch_fancy on host tensors, with the node
+    records of the mocked node kernel (held equal to the plain
+    ops.query.fancy_nodes): (positions, int32 [3, B] probes, sectors of
+    the first design and sectors read a lane, the sector trace), the trace
+    checked to hold only sectors of the arrays the first design reads."""
     b = q_words.shape[1]
     form = "prefix64" if prefix is not None and length <= 32 else "packed"
+    nodes = _mock_nodes(lib, packed, rev, llcp, rlcp, n)
+    assert nodes.equal(query.fancy_nodes(packed, rev, llcp, rlcp, n=n))
     out = torch.full((b,), -777, dtype=torch.int64)
-    lane = torch.full((2, b), -1, dtype=torch.int32)
+    lane = torch.full((3, b), -1, dtype=torch.int32)
     depth = torch.zeros(2, dtype=torch.int32)
     trace = torch.full((b, FANCY_TRACE), -5, dtype=torch.int64)
     rc = query_cuda.launch_fancy(lib, None, packed, rev, llcp, rlcp, prefix,
-                                 q_words, out, lane, depth, trace, n=n,
-                                 length=length, form=form)
+                                 nodes, q_words, out, lane, depth, trace,
+                                 n=n, length=length, form=form)
     assert rc == 0
     assert depth.tolist() == [0, 0]
     assert (lane[1] <= FANCY_TRACE).all()
@@ -662,24 +746,19 @@ def _kernel_fancy(lib, packed, rev, llcp, rlcp, prefix, q_words, n, length):
     return out, lane, trace
 
 
-def _sectors_in(trace, t):
-    """Each lane's trace entries inside tensor t's bytes."""
-    lo = t.data_ptr() >> 5
-    hi = (t.data_ptr() + t.numel() * t.element_size() - 1) >> 5
-    return ((trace >= lo) & (trace <= hi)).sum(1)
-
-
 def _check_fancy(lib, seq, packed, rev, prefix, codes, length,
                  replica=True):
     """Kernel == fancy_binsearch_batch (with the same prefix) on every
     lane; with `replica`, also == the scalar replica's positions and probe
-    counts, with one rev sector a probe (and one more on the base case),
-    and on the prefix64 form one prefix64 sector a probe and no genome
-    read: a round the tables decide reads neither rev nor the genome.
-    Returns the positions."""
+    counts, the kernel's sector trace exactly the first design's for the
+    replica's reads (_replica_trace: a round the tables decide reads
+    neither rev nor the genome; the prefix64 form reads no genome) and its
+    sectors read the node records and genome windows _replica_trace
+    counts. Returns the positions and the lanes that read the genome."""
     n = len(seq)
     llcp, rlcp = _tables(seq)
-    qw = torch.from_numpy(packops.pack_queries(codes).astype(np.int64))
+    qw_np = packops.pack_queries(codes).astype(np.int64)
+    qw = torch.from_numpy(qw_np)
     want = query.fancy_binsearch_batch(packed, rev, llcp, rlcp, qw, n=n,
                                        length=length, prefix=prefix)
     got, lane, trace = _kernel_fancy(lib, packed, rev, llcp, rlcp, prefix,
@@ -690,17 +769,22 @@ def _check_fancy(lib, seq, packed, rev, prefix, codes, length,
         gcodes = packops.encode_bases(seq)
         r64 = rev.long().numpy() & 0xFFFFFFFF
         ll, rl = llcp.numpy(), rlcp.numpy()
-        rep = [_fancy_replica(gcodes, r64, ll, rl, q, n) for q in codes]
-        pos, probes, base = (np.array(v) for v in zip(*rep))
-        np.testing.assert_array_equal(got.numpy(), pos)
-        np.testing.assert_array_equal(lane[0].numpy(), probes)
-        np.testing.assert_array_equal(_sectors_in(trace, rev).numpy(),
-                                      probes + base)
-        if prefix is not None and length <= 32:
-            np.testing.assert_array_equal(
-                _sectors_in(trace, prefix).numpy(), probes)
-            assert (_sectors_in(trace, packed) == 0).all()
-    return got.numpy()
+        pre = prefix if length <= 32 else None
+        genome_lanes = 0
+        for i, q in enumerate(codes):
+            pos, probes, _base, events = _fancy_replica(gcodes, r64, ll, rl,
+                                                        q, n)
+            want_trace, records, genome = _replica_trace(
+                events, packed, rev, llcp, rlcp, pre, qw_np[:, i], length)
+            genome_lanes += genome > 0
+            assert (int(got[i]), int(lane[0, i]), int(lane[1, i]),
+                    int(lane[2, i])) == (pos, probes, len(want_trace),
+                                         records + genome), (
+                f"lane {i}, n={n} L={length}")
+            assert trace[i, :len(want_trace)].tolist() == want_trace, (
+                f"lane {i}, n={n} L={length}")
+        return got.numpy(), genome_lanes
+    return got.numpy(), None
 
 
 @pytest.fixture(scope="module")
@@ -744,8 +828,9 @@ def test_fancy_kernel_source_matches_sapling_tpu(lib, dup_genome):
                                     rlcp.numpy(), qw, n=jidx.n,
                                     length=length, prefix=jidx.prefix64))
         for prefix in (dev["prefix64"], None):
-            got = _check_fancy(lib, dup_genome, dev["packed"], dev["rev"],
-                               prefix, codes, length, replica=False)
+            got, _ = _check_fancy(lib, dup_genome, dev["packed"],
+                                  dev["rev"], prefix, codes, length,
+                                  replica=False)
             np.testing.assert_array_equal(got, want, err_msg=f"L={length}")
 
 
@@ -766,3 +851,70 @@ def test_fancy_kernel_source_small_genomes(lib, n):
                     torch.from_numpy(sa.astype(np.int64))):
             for pre in (prefix, None):
                 _check_fancy(lib, seq, packed, rev, pre, q, length)
+
+
+@pytest.mark.parametrize("rev64", [False, True], ids=["rev32", "rev64"])
+@pytest.mark.parametrize("pad", [16, 1, 0])
+def test_fancy_nodes_kernel_source(lib, dup_genome, pad, rev64):
+    """The node records, plain (ops.query.fancy_nodes) and the mocked
+    fancy_nodes_kernel, against rev, llcp | rlcp << 32, a zero word and
+    the genome's 32-base keys gathered by rank (each suffix's first 32
+    bases, big-endian 2 bits a base, zero past the genome's end). With
+    fewer pad words than a key reads past the end (word indexes clamped)
+    the two still agree, and their keys equal these on the bases inside
+    the genome."""
+    seq = dup_genome[:3001]
+    n = len(seq)
+    codes = packops.encode_bases(seq)
+    sa = build_suffix_data(seq, np.int32).sa
+    rev = torch.from_numpy(sa.astype(np.int64 if rev64 else np.int32))
+    packed = torch.from_numpy(
+        packops.pack_codes(codes, pad_words=pad).astype(np.int64))
+    llcp, rlcp = _tables(seq)
+    plain = query.fancy_nodes(packed, rev, llcp, rlcp, n=n)
+    assert plain.equal(_mock_nodes(lib, packed, rev, llcp, rlcp, n))
+    windows = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([codes, np.zeros(32, np.uint8)]), 32)[:n]
+    keys = (windows.astype(np.uint64) << (np.uint64(62) - np.uint64(2)
+                                          * np.arange(32, dtype=np.uint64))
+            ).sum(1, dtype=np.uint64)[sa]
+    got = plain.numpy()
+    np.testing.assert_array_equal(got[:, 1], sa)
+    np.testing.assert_array_equal(
+        got[:, 2], llcp.numpy().astype(np.int64)
+        | (rlcp.numpy().astype(np.int64) << 32))
+    assert (got[:, 3] == 0).all()
+    key_bits = got[:, 0].view(np.uint64)
+    # the bases inside the genome, 1 to 32 of them
+    inside = np.minimum(n - sa.astype(np.int64), 32).astype(np.uint64)
+    assert ((key_bits ^ keys) >> (np.uint64(64) - 2 * inside) == 0).all()
+    if pad >= 2:   # no clamped word: zero past the end
+        np.testing.assert_array_equal(key_bits, keys)
+
+
+@pytest.mark.parametrize("rev64", [False, True], ids=["rev32", "rev64"])
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+@pytest.mark.parametrize("genome,length", [("dup", 21), ("dup", 40),
+                                           ("repeat", 33), ("repeat", 101)])
+def test_fancy_kernel_source_off_end_and_ties(lib, dup_genome, genome,
+                                              length, prefix, rev64):
+    """Queries that run off the genome's end (_fancy_queries) at L = 21
+    and 40, and at L = 33 and 101 on a repeat genome, where suffixes share
+    their first 32 bases and a probe's node record ties, so the kernel
+    reads the genome: against the plain version and the replica
+    (positions, probes, the first design's sector trace, the sectors
+    read). At L > 32 on the repeat genome some lanes must read the genome;
+    on the prefix64 form none does."""
+    seq = (dup_genome if genome == "dup"
+           else repeat_genome(3000, period=37, seed=77))
+    idx = _index(seq, 13, 8, prefix_lookup=prefix)
+    dev = idx.device_arrays()
+    rev = dev["rev"].long() if rev64 else dev["rev"]
+    codes = _fancy_queries(idx.codes, length, 600, seed=length + 500)
+    _, genome_lanes = _check_fancy(lib, seq, dev["packed"], rev,
+                                   dev["prefix64"], codes, length)
+    if genome == "repeat" and length > 32:
+        assert genome_lanes > 0
+    if prefix and length <= 32:
+        assert genome_lanes == 0
+

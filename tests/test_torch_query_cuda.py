@@ -223,12 +223,15 @@ def _off_end(seq, length, num, seed):
 @pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
 def test_fancy_kernel_matches_plain(dev, seq, tables, prefix, pos_dtype):
     """The llcp/rlcp-pruned search at lengths 5-130 (the prefix64 probe up
-    to 32 bases), in-genome, absent and off-the-end queries, shuffled:
-    every lane equal to the plain version on the same CUDA tensors, one
-    launch a call, and binsearch_device runs it."""
+    to 32 bases), in-genome, absent and off-the-end queries, shuffled,
+    on node records built once: every lane equal to the plain version on
+    the same CUDA tensors, one launch a call, and binsearch_device runs
+    it (building its own records once)."""
     idx = _index(seq, dev, prefix, pos_dtype=pos_dtype)
     d = idx.device_arrays()
     llcp, rlcp = (t.to(dev) for t in tables)
+    nodes = query_cuda.fancy_nodes_cuda(d["packed"], d["rev"], llcp, rlcp,
+                                        n=idx.n)
     rng = np.random.default_rng(41)
     for length in (5, 13, 21, 32, 33, 101, 130):
         codes = np.concatenate([_queries(seq, 20_000, length, seed=length),
@@ -237,16 +240,43 @@ def test_fancy_kernel_matches_plain(dev, seq, tables, prefix, pos_dtype):
         want = query.fancy_binsearch_batch(
             d["packed"], d["rev"], llcp, rlcp, qw, n=idx.n, length=length,
             prefix=d["prefix64"])
-        before = query_cuda.LAUNCHES["fancy"]
+        before = dict(query_cuda.LAUNCHES)
         query.ROUNDS.update(C=0, D=0)
         got = query_cuda.fancy_binsearch_cuda(
             d["packed"], d["rev"], llcp, rlcp, qw, n=idx.n, length=length,
-            prefix=d["prefix64"], stats=True)
+            prefix=d["prefix64"], nodes=nodes, stats=True)
         torch.cuda.synchronize()
-        assert query_cuda.LAUNCHES["fancy"] == before + 1
+        assert query_cuda.LAUNCHES == dict(before, fancy=before["fancy"] + 1)
         assert torch.equal(got, want), (length, int((got != want).sum()))
         assert dict(query.ROUNDS) == {"C": 0, "D": 0}
+        # a node record a pre-probe, a round or the base case; the genome
+        # only past 32 bases
+        reads = query_cuda.LAST_STATS["reads"]
+        assert (reads >= 1).all()
+        if length <= 32:
+            assert (reads <= (idx.n - 1).bit_length() + 5).all()
         assert idx.binsearch_device(qw, length, llcp, rlcp).equal(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_dtype", ["uint32", "int64"])
+def test_fancy_nodes_kernel_matches_plain(dev, seq, tables, pos_dtype):
+    """The node records: fancy_nodes_kernel equal to the plain
+    ops.query.fancy_nodes on the same CUDA tensors, both rev widths, also
+    on a packed genome without pad words (word indexes clamped); one
+    launch a call."""
+    idx = _index(seq, dev, pos_dtype=pos_dtype)
+    d = idx.device_arrays()
+    llcp, rlcp = (t.to(dev) for t in tables)
+    unpadded = torch.from_numpy(packops.pack_codes(
+        idx.codes, pad_words=0).astype(np.int64)).to(dev)
+    for packed in (d["packed"], unpadded):
+        before = query_cuda.LAUNCHES["fancy_nodes"]
+        got = query_cuda.fancy_nodes_cuda(packed, d["rev"], llcp, rlcp,
+                                          n=idx.n)
+        assert query_cuda.LAUNCHES["fancy_nodes"] == before + 1
+        want = query.fancy_nodes(packed, d["rev"], llcp, rlcp, n=idx.n)
+        assert got.shape == (idx.n, 4) and torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -288,17 +318,26 @@ def test_fancy_kernel_small_genomes(dev):
 @pytest.mark.cuda
 def test_entry_points_launch_the_kernels(dev, seq, tables):
     """SaplingIndex.query_device and binsearch_device (both searches)
-    launch once a call; an empty batch launches nothing."""
+    launch once a call, the pruned search's node records once for a pair
+    of tables (again after a table is written in place); an empty batch
+    launches nothing."""
     idx = _index(seq, dev)
     codes = _queries(seq, 1000, 21, seed=8)
     llcp, rlcp = (t.to(dev) for t in tables)
     before = dict(query_cuda.LAUNCHES)
     idx.query_device(*idx.query_inputs(codes), 21)
     idx.binsearch_device(idx.query_words(codes), 21)
-    idx.binsearch_device(idx.query_words(codes), 21, llcp, rlcp)
+    want = idx.binsearch_device(idx.query_words(codes), 21, llcp, rlcp)
     idx.query_device(*idx.query_inputs(codes[:0]), 21)
     torch.cuda.synchronize()
     assert query_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    got = idx.binsearch_device(idx.query_words(codes), 21, llcp, rlcp)
+    assert torch.equal(got, want)
+    assert query_cuda.LAUNCHES["fancy"] == before["fancy"] + 2
+    assert query_cuda.LAUNCHES["fancy_nodes"] == before["fancy_nodes"] + 1
+    llcp.add_(0)
+    idx.binsearch_device(idx.query_words(codes), 21, llcp, rlcp)
+    assert query_cuda.LAUNCHES["fancy_nodes"] == before["fancy_nodes"] + 2
 
 
 @pytest.mark.cuda
@@ -336,3 +375,16 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev, seq, tables):
         query_cuda.fancy_binsearch_cuda(
             d["packed"], d["rev"], llcp.to(dev), rlcp.to(dev), qw,
             n=1 << 31, length=33)
+    llcp, rlcp = llcp.to(dev), rlcp.to(dev)
+    nodes = query_cuda.fancy_nodes_cuda(d["packed"], d["rev"], llcp, rlcp,
+                                        n=idx.n)
+    with pytest.raises(ValueError):                      # records' shape
+        query_cuda.fancy_binsearch_cuda(d["packed"], d["rev"], llcp, rlcp,
+                                        qw, n=idx.n, length=33,
+                                        nodes=nodes[:-1])
+    shifted = torch.empty(4 * idx.n + 1, dtype=torch.int64,
+                          device=dev)[1:].view(idx.n, 4)
+    with pytest.raises(ValueError):                      # records' sector
+        query_cuda.fancy_binsearch_cuda(d["packed"], d["rev"], llcp, rlcp,
+                                        qw, n=idx.n, length=33,
+                                        nodes=shifted)
