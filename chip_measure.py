@@ -5,6 +5,7 @@
     python3 chip_measure.py [out.json] --against-query=path/to/query.cu ...
         [--big=path/to/artifact.stpu.npz]
     python3 chip_measure.py [out.json] --against-nn=path/to/nn_predict.cu ...
+        [--nn-variants=tile=1024,align=8]
 
 Run from the root of a checkout on a machine with one NVIDIA GPU, after
 chip_smoke.py has shown the port right there: this script times, it does
@@ -63,17 +64,25 @@ With --against-query (one or more), it measures only this instead:
            -Xptxas -v log) and the CALL instructions in its SASS by target
            (cuobjdump): the int64 division subroutine's.
 
-With --against-nn (one or more), it measures only this instead:
+With --against-nn (one or more) or --nn-variants, it measures only this
+instead:
 
-  nn_ab:   each other version of csrc/nn_predict.cu (same C entry point)
-           timed in turns with this tree's (other, this, this, other,
-           AB_ROUNDS times; CUDA events around wrapper calls, and the
-           kernel's own device time, chip_smoke.kernel_device_ms) on
-           chip_smoke's
-           untrained model at phase 9's width (chip_smoke.nn_untrained),
-           on phase 5's 1M x and on every genome k-mer, their ranks held
-           equal; the plain nn_predict's time; the bound
-           (chip_smoke.nn_bound_ms); each build's registers and spills.
+  nn_ab:   each other version of csrc/nn_predict.cu (same C entry point),
+           and this tree's with each change of --nn-variants (the tile a
+           block groups, the padding, the search table: NN_VARIANTS),
+           timed in turns with this tree's (other, this, this,
+           other, AB_ROUNDS times; CUDA events around wrapper calls, and
+           the kernel's own device time, chip_smoke.kernel_device_ms) on
+           chip_smoke's untrained model at phase 9's width
+           (chip_smoke.nn_untrained), on phase 5's 1M x, every genome
+           k-mer, 5M k-mers drawn as bench_nn_query draws its queries,
+           phase 5's x sorted and 1M x in one chunk (chip_smoke.
+           nn_batches), their ranks held equal; the plain nn_predict's
+           time; the bound (chip_smoke.nn_bound_ms); each build's
+           registers and spills and the fp64-pipe instructions in its
+           SASS (sass_fp64); and this tree's kernel built with a clock
+           at each barrier (nn_phase_source): each phase's cycles a tile
+           in the same cases (nn_phases).
 
 Profiled calls also give the device's busy share within their own
 window. Prints one line per measurement and writes all of them, with the
@@ -247,9 +256,11 @@ def build_report(lib_path: str) -> dict:
     from torch.utils.cpp_extension import CUDA_HOME
 
     def short(mangled):
-        m = re.search(r"nn_predict_kernelILb([01])E", mangled)
+        m = re.search(r"nn_predict_kernelILb([01])E(?:Li(\d+)E)?", mangled)
         if m:
-            return f"nn_predict_kernel<{'true' if m.group(1) == '1' else 'false'}>"
+            shared = "true" if m.group(1) == "1" else "false"
+            width = "" if m.group(2) is None else f", {m.group(2)}"
+            return f"nn_predict_kernel<{shared}{width}>"
         m = re.search(r"(plquery_kernel|fancy_binsearch_kernel|"
                       r"fancy_nodes_kernel|binsearch_kernel)"
                       r"I(?:Li(\d+)E)?([il])E", mangled)
@@ -276,7 +287,35 @@ def build_report(lib_path: str) -> dict:
         calls = collections.Counter(
             t.strip() for t in re.findall(r"CALL\.\S*\s+([^;]*);", func))
         out.setdefault(name, {})["calls"] = dict(calls)
+        if name.startswith("nn_predict_kernel"):
+            out[name]["fp64"] = sass_fp64(func)
     return out
+
+
+def sass_fp64(func: str) -> dict:
+    """The fp64-pipe instructions of one function's SASS (DADD, DMUL, DFMA,
+    DSETP, DMNMX, the F64 conversions and roundings, MUFU.RCP64H), by
+    opcode, in its body and in the subroutines it calls (from the lowest
+    CALL target on: the division's slow path)."""
+    import collections
+    import re
+
+    ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t.strip()).split()[0])
+           for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+    targets = [int(t, 16) for t in
+               re.findall(r"CALL\.\S*\s+(0x[0-9a-f]+)", func)]
+    sub = min(targets, default=float("inf"))
+
+    def fp64(op):
+        return (op.split(".")[0] in ("DADD", "DMUL", "DFMA", "DSETP",
+                                     "DMNMX") or "F64" in op
+                or "RCP64H" in op)
+
+    body = collections.Counter(op for at, op in ins if at < sub and fp64(op))
+    subs = collections.Counter(op for at, op in ins if at >= sub and fp64(op))
+    return dict(body=dict(body.most_common()), body_total=sum(body.values()),
+                subroutines=dict(subs.most_common()),
+                subroutines_total=sum(subs.values()))
 
 
 # fancy_binsearch_launch of a query.cu from before the node records (the
@@ -508,16 +547,169 @@ def with_nn_lib(lib, fn):
         nn_predict_cuda._LIB = saved
 
 
-def nn_ab(dev, idx21, others: list[str], sm_clock_mhz: float) -> dict:
-    """Each of `others` (nn_predict.cu versions) in turns with this tree's
-    on chip_smoke.nn_untrained's model; their builds' reports."""
-    import statistics
-    from concurrent.futures import ThreadPoolExecutor
+# this tree's csrc/nn_predict.cu with one part changed, by name: the tile a
+# block groups, the slot multiple a chunk's run starts at, the doubles that
+# pad a chunk's row of parameters, a block a tile (a grid of every tile,
+# not of the blocks the card holds at once), the chunk search over all of
+# xb (no table of cells), or the histogram counted by __match_any_sync
+# groups (one atomicAdd a group)
+NN_VARIANTS = {
+    "tile": (r"constexpr int kTile = \d+;", "constexpr int kTile = {};"),
+    "align": (r"constexpr int kAlign = \d+;", "constexpr int kAlign = {};"),
+    "row_pad": (r"return \(s \+ 1\) / 2 \* 2 \+ 2;",
+                "return (s + 1) / 2 * 2 + {};"),
+    "tile_a_block": (r"if \(needed < grid\) grid = needed;",
+                     "grid = needed;"),
+    "no_table": (r"count_le\(p, cell >= 0\.0f \? table\[g\] : 0, "
+                 r"table\[g \+ 1\], xs\)",
+                 "count_le(p, 0, table[kCells + 1], xs)"),
+    "match_any": (r"if \(__all_sync[^\n]*\n(?:[^\n]*\n){4}\s*\}",
+                  """{{
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        const int leader = __ffs(peers) - 1;
+        int at = 0;
+        if (bin >= 0 && lane == leader)
+          at = atomicAdd(hist + bin, __popc(peers));
+        at = __shfl_sync(0xffffffffu, at, leader);
+        place[k] = at + __popc(peers & ((1u << lane) - 1u));
+      }}"""),
+}
 
+
+def nn_variant(spec: str) -> str:
+    """This tree's csrc/nn_predict.cu changed by `spec` ("tile=1024",
+    "align=1", "row_pad=0", "tile_a_block", "no_table", "match_any":
+    NN_VARIANTS), written beside the builds (ops.sw_cuda.BUILD_DIR);
+    returns its path."""
+    import re
+
+    from sapling_tpu_torch.ops import nn_predict_cuda, sw_cuda
+
+    name, _, value = spec.partition("=")
+    pattern, repl = NN_VARIANTS[name]
+    with open(nn_predict_cuda.SOURCE) as f:
+        src, n = re.subn(pattern, repl.format(value), f.read())
+    assert n == 1, f"{spec}: {n} matches in csrc/nn_predict.cu"
+    os.makedirs(sw_cuda.BUILD_DIR, exist_ok=True)
+    path = os.path.join(sw_cuda.BUILD_DIR, "nn_predict_" + re.sub(
+        r"\W", "_", spec) + ".cu")
+    with open(path, "w") as f:
+        f.write(src)
+    return path
+
+
+# the phases of nn_predict_kernel, each ended by a __syncthreads (the last
+# by the end of a tile): staging, the search table (and the histogram's
+# first clearing), then for each tile the route and count, the scan, the
+# scatter, the MLP and the ranks' store
+NN_PHASES = ("stage", "table", "route", "scan", "scatter", "mlp", "output")
+
+
+def nn_phase_source() -> str:
+    """This tree's csrc/nn_predict.cu with thread 0 of each block adding
+    the clock64() cycles since its last barrier to a counter of the phase
+    that barrier ends (NN_PHASES, by instantiation), and a C entry point
+    nn_phase_cycles(out, reset) that copies the counters out or clears
+    them; written beside the builds (ops.sw_cuda.BUILD_DIR). Returns its
+    path."""
+    import re
+
+    from sapling_tpu_torch.ops import nn_predict_cuda, sw_cuda
+
+    add = ("if (threadIdx.x == 0) {{ const long long now = clock64(); "
+           "atomicAdd(&g_phase[SHARED][S > 0][{}], "
+           "(unsigned long long)(now - t_last)); t_last = now; }} {}")
+    with open(nn_predict_cuda.SOURCE) as f:
+        src = f.read()
+    head, body = src.split("    nn_predict_kernel(const __grid_constant__ "
+                           "NNArgs a) {\n", 1)
+    body, tail = body.split("\n}\n", 1)
+    body, n = re.subn(r"(\n\s*)__syncthreads\(\);",
+                      lambda m: m.group(0) + m.group(1)
+                      + add.format("ph", "++ph;"), body)
+    assert n == len(NN_PHASES) - 1, f"{n} barriers in nn_predict_kernel"
+    body = body.rstrip()
+    assert body.endswith("}\n  }"), "the tile loop should end the kernel"
+    body = (body[:-len("\n  }")] + "\n    "
+            + add.format(len(NN_PHASES) - 1, "ph = 2;") + "\n  }")
+    src = (head.replace("namespace {\n", "namespace {\n__device__ unsigned "
+                        f"long long g_phase[2][2][{len(NN_PHASES)}];\n", 1)
+           + "    nn_predict_kernel(const __grid_constant__ NNArgs a) {\n"
+           + "  long long t_last = clock64();\n  int ph = 0;\n" + body
+           + "\n}\n" + tail + f"""
+extern "C" int nn_phase_cycles(unsigned long long* out, int reset) {{
+  unsigned long long zero[2 * 2 * {len(NN_PHASES)}] = {{}};
+  return (int)(reset ? cudaMemcpyToSymbol(g_phase, zero, sizeof(zero))
+                     : cudaMemcpyFromSymbol(out, g_phase, sizeof(zero)));
+}}
+""")
+    os.makedirs(sw_cuda.BUILD_DIR, exist_ok=True)
+    path = os.path.join(sw_cuda.BUILD_DIR, "nn_predict_phases.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    return path
+
+
+def nn_phases(dev, cases: dict, args, kw, reps: int = 10) -> dict:
+    """{case: {phase: cycles a tile}} of nn_phase_source's build of
+    nn_predict_kernel<true, 16> on each of `cases` ({name: x}), over reps
+    calls after a warm one: the cycles of thread 0 of each block between
+    its barriers, summed over blocks and divided by the tiles. A block
+    shares its SM with others, so a phase's cycles are its own wall time,
+    not the SM's."""
+    import numpy as np
     import torch
 
     from sapling_tpu_torch.ops import nn_predict_cuda, sw_cuda
 
+    lib = nn_predict_cuda.bind(sw_cuda.build_kernel(nn_phase_source()))
+    lib.nn_phase_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    tile = nn_predict_cuda.kernel_tile()
+    out = {}
+    for name, x in cases.items():
+        def call():
+            return nn_predict_cuda.nn_predict_cuda(x, *args, **kw)
+
+        with_nn_lib(lib, call)
+        torch.cuda.synchronize(dev)
+        assert lib.nn_phase_cycles(None, 1) == 0
+        for _ in range(reps):
+            with_nn_lib(lib, call)
+        torch.cuda.synchronize(dev)
+        buf = (ctypes.c_ulonglong * (4 * len(NN_PHASES)))()
+        assert lib.nn_phase_cycles(ctypes.addressof(buf), 0) == 0
+        cyc = np.array(buf[:], np.float64).reshape(2, 2, -1)[1, 1]
+        tiles = reps * -(-len(x) // tile)
+        out[name] = {ph: float(c / tiles) for ph, c in zip(NN_PHASES, cyc)}
+        log(f"nn phases {name} ({len(x)} lanes, {tiles // reps} tiles of "
+            f"{tile}): cycles a tile of a block's thread 0 "
+            + json.dumps({k: round(v) for k, v in out[name].items()})
+            + f", in all {sum(out[name].values()):.0f}")
+    return out
+
+
+# bench_nn_query's default query count and seed: its k-mers drawn from the
+# genome's
+NN_BENCH_LANES, NN_BENCH_SEED = 5_000_000, 99
+
+
+def nn_ab(dev, idx21, others: list[str], sm_clock_mhz: float,
+          variants: list[str] = ()) -> dict:
+    """Each of `others` (nn_predict.cu versions) and of this tree's source
+    changed by each of `variants` (nn_variant) in turns with this tree's on
+    chip_smoke.nn_untrained's model, on phase 5's 1M x, every genome k-mer,
+    NN_BENCH_LANES k-mers drawn as bench_nn_query draws its queries, phase
+    5's x sorted and chip_smoke's one-chunk batch; their builds'
+    reports."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from sapling_tpu_torch.ops import nn_predict_cuda, sw_cuda
+
+    others = [*others, *(nn_variant(v) for v in variants)]
     srcs = [nn_predict_cuda.SOURCE, *others]
     with ThreadPoolExecutor(len(srcs)) as pool:
         paths = list(pool.map(sw_cuda.build_kernel, srcs))
@@ -530,8 +722,14 @@ def nn_ab(dev, idx21, others: list[str], sm_clock_mhz: float) -> dict:
     codes, _n_in = cs.query_codes(idx21.codes)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = dict(builds=builds, cases=[])
-    for name, x in (("phase 5 x", idx21.to(dev).query_inputs(codes)[0]),
-                    ("every k-mer", torch.from_numpy(kmers).to(dev))):
+    x5 = idx21.to(dev).query_inputs(codes)[0]
+    bench = np.random.default_rng(NN_BENCH_SEED).integers(
+        0, len(kmers), NN_BENCH_LANES)
+    cases = {"phase 5 x": x5, "every k-mer": torch.from_numpy(kmers).to(dev),
+             f"{NN_BENCH_LANES} k-mers": torch.from_numpy(kmers[bench]).to(
+                 dev), **cs.nn_batches(x5, srv)}
+    out["phases"] = nn_phases(dev, cases, args, kw)
+    for name, x in cases.items():
         def call():
             return nn_predict_cuda.nn_predict_cuda(x, *args, **kw)
 
@@ -786,8 +984,9 @@ def main(argv: list[str]) -> int:
         return [a.split("=", 1)[1] for a in argv
                 if a.startswith(f"--{name}=")]
 
-    against, against_query, big, against_nn = (
-        opt("against"), opt("against-query"), opt("big"), opt("against-nn"))
+    against, against_query, big, against_nn, nn_variants = (
+        opt("against"), opt("against-query"), opt("big"), opt("against-nn"),
+        [v for o in opt("nn-variants") for v in o.split(",")])
     argv = [a for a in argv if not a.startswith("--")]
     out_path = argv[0] if argv else os.path.join(
         cs.ROOT, "chiprun_out", "measure.json")
@@ -799,9 +998,10 @@ def main(argv: list[str]) -> int:
     res = dict(card=info, torch=torch.__version__, cuda=torch.version.cuda)
     dev = torch.device("cuda", 0)
 
-    if against_nn:
+    if against_nn or nn_variants:
         _seq, _idx16, idx21, _t = cs.build_indexes(cs.GENOME_N)
-        res["nn_ab"] = nn_ab(dev, idx21, against_nn, sm_clock_mhz)
+        res["nn_ab"] = nn_ab(dev, idx21, against_nn, sm_clock_mhz,
+                             nn_variants)
     elif against_query and big:
         _seq, _idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)
         res["query_ab"] = query_ab(dev, idx21, big[0], against_query,

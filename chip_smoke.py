@@ -54,8 +54,11 @@ failure raises and the script exits non-zero:
      nn_predict_cuda against the plain nn_predict on the card, every rank
      equal, for a seeded untrained model at phase 9's width (NN_CHUNKS x
      NN_UNITS, the k=21 index's dataset scaling), on phase 5's 1M x and on
-     every genome k-mer; its time, the plain version's and its bound
-     (nn_bound_ms);
+     every genome k-mer, on phase 5's x sorted and on 1M x in one chunk;
+     its time, the plain version's and its bound (nn_bound_ms), and the
+     modelled shared-memory wavefronts of its parameter loads in the
+     caller's lane order and in the kernel's grouped order
+     (nn_shared_wavefronts);
   4. aligner: 20,000 simulated 100 bp reads (1% substitutions) FASTQ ->
      SAM on the card; the first 1,000 reads' SAM must be byte-identical to
      the port's CPU path, and both SW kernel modes must have launched;
@@ -702,6 +705,42 @@ def nn_bound_ms(b: int, c: int, s: int, sm_clock_mhz: float,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def nn_shared_wavefronts(chunks, units: int, tile: int) -> dict:
+    """A model of the shared-memory wavefronts of nn_predict's parameter
+    loads: w1, b1 and w2 of each unit and b2, 3 s + 1 loads of 8 bytes a
+    lane from the [s][C] staging, where every load of a lane's chunk c sits
+    in bank pair (c + a constant) mod 16. `chunks` are the lanes' chunks in
+    the caller's order. Warps: 32 consecutive lanes of that order (a
+    grid-stride kernel, one thread a lane), or of each tile of `tile`
+    lanes sorted by chunk (the grouped kernel). Two rules for an 8-byte load: the whole warp at
+    once (a wavefront for each distinct address in the fullest bank pair),
+    or each half-warp apart (the sum of its two halves'). Returns, per
+    order and rule, the mean wavefronts of a load and of a warp's 3 s + 1
+    loads, and the count of warps."""
+    import numpy as np
+
+    chunks = np.asarray(chunks, np.int64)
+    n, c_max = len(chunks), int(chunks.max()) + 1
+    tiles = np.arange(n) // tile
+    orders = {"caller": chunks,
+              "grouped": chunks[np.lexsort((chunks, tiles))]}
+    out = dict(warps=-(-n // 32), loads_a_lane=3 * units + 1)
+    for name, order in orders.items():
+        for rule, group in (("warp", 32), ("half", 16)):
+            g = np.arange(n) // group
+            key = np.unique(g * c_max + order)     # distinct (group, chunk)
+            gg, cc = key // c_max, key % c_max
+            fullest = np.bincount(gg * 16 + cc % 16,
+                                  minlength=(g[-1] + 1) * 16)
+            fullest = fullest.reshape(-1, 16).max(1)
+            per_warp = np.bincount(np.arange(len(fullest)) * group // 32,
+                                   weights=fullest)
+            out[f"{name}_{rule}"] = dict(
+                per_load=float(per_warp.mean()),
+                per_warp=float(per_warp.mean()) * (3 * units + 1))
+    return out
+
+
 def nn_model_args(srv):
     """A NNServing's nn_predict arguments: (args, keywords)."""
     return ((srv.xb, srv.params[0]["w"], srv.params[0]["b"],
@@ -734,6 +773,29 @@ def nn_untrained(dev, idx21):
         x_max=ds.x_max, res_min=ds.res_min, res_ptp=ds.res_ptp,
         line_m=ds.line_m, line_c=ds.line_c, n=idx21.n, k=idx21.k)
     return srv, kmers
+
+
+def nn_batches(x, srv) -> dict:
+    """Phase 3b's other NN batches beside phase 5's x: x sorted (a warp's
+    lanes share a chunk in the caller's order), and as many lanes drawn
+    (seed SEED) from the middle half of the widest chunk of srv's
+    boundaries (x / x_max rounds to float32, whose step at k = 21 spans
+    some 2^18 k-mers, so that the edges of a chunk are not its own)."""
+    import numpy as np
+    import torch
+
+    from sapling_tpu_torch.ops.nn_predict_cuda import nn_route
+
+    edges = np.round(srv.xb.cpu().numpy().astype(np.float64) * srv.x_max)
+    edges = np.append(edges, srv.x_max).astype(np.int64)
+    c = int(np.argmax(np.diff(edges)))
+    quarter = (edges[c + 1] - edges[c]) // 4
+    one = np.random.default_rng(SEED).integers(
+        edges[c] + quarter, edges[c + 1] - quarter, len(x))
+    one = torch.from_numpy(one).to(x.device)
+    if torch.unique(nn_route(one, srv.xb, srv.x_max)[2]).numel() != 1:
+        raise AssertionError("the one-chunk batch spans chunks")
+    return {"sorted x": torch.sort(x).values, "one chunk": one}
 
 
 def kernel_device_ms(fn, dev, reps: int = 20) -> float:
@@ -777,25 +839,40 @@ def nn_kernel_phase(dev, idx21, sm_clock_mhz: float) -> dict:
 
     from sapling_tpu_torch.ops import nn_predict_cuda
 
+    import numpy as np
+
     srv, kmers = nn_untrained(dev, idx21)
     c = srv.xb.shape[0]
     args, kw = nn_model_args(srv)
     codes, _n_in = query_codes(idx21.codes)
     x5 = idx21.to(dev).query_inputs(codes)[0]
+    batches = nn_batches(x5, srv)
     out = dict(chunks=c, units=NN_UNITS, lanes=0)
-    for x in (x5, torch.from_numpy(kmers).to(dev)):
+    for name, x in (("phase 5 x", x5),
+                    ("every k-mer", torch.from_numpy(kmers).to(dev)),
+                    *batches.items()):
         before = nn_predict_cuda.LAUNCHES["nn_predict"]
         got = nn_predict_cuda.nn_predict_cuda(x, *args, **kw)
         launched = nn_predict_cuda.LAUNCHES["nn_predict"] - before
         want = nn_predict_cuda.nn_predict(x, *args, **kw)
         if not torch.equal(got, want) or launched != 1:
             raise AssertionError(
-                f"nn_predict kernel != plain: {int((got != want).sum())} of "
-                f"{len(x)} ranks differ, {launched} launches")
+                f"nn_predict kernel != plain on {name}: "
+                f"{int((got != want).sum())} of {len(x)} ranks differ, "
+                f"{launched} launches")
         out["lanes"] += len(x)
     out["kmers"] = len(kmers)
     out["ms"] = kernel_device_ms(lambda: nn_predict_cuda.nn_predict_cuda(
         x5, *args, **kw), dev)
+    out["batch_ms"] = {
+        name: kernel_device_ms(lambda x=x: nn_predict_cuda.nn_predict_cuda(
+            x, *args, **kw), dev) for name, x in batches.items()}
+    chunks = nn_predict_cuda.nn_route(x5, srv.xb, srv.x_max)[2]
+    out["wavefronts"] = nn_shared_wavefronts(
+        chunks.cpu().numpy(), NN_UNITS, nn_predict_cuda.kernel_tile())
+    out["distinct_chunks_a_warp"] = float(np.mean([
+        len(np.unique(w)) for w in np.array_split(
+            chunks.cpu().numpy(), -(-len(x5) // 32))]))
     out["call_ms"] = _time_ms(lambda: nn_predict_cuda.nn_predict_cuda(
         x5, *args, **kw), dev)
     out["plain_ms"] = _time_ms(lambda: nn_predict_cuda.nn_predict(
@@ -1767,13 +1844,30 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"({fnodes['pct_of_bound']:.1f}% of it)")
     log(f"nn kernel vs plain: nn_predict, an untrained model of "
         f"{nk['chunks']} chunks x {nk['units']} units (seed {SEED}): "
-        f"{nk['lanes']} ranks equal (phase 5's {N_QUERIES} x and all "
-        f"{nk['kmers']} genome k-mers), 1 launch a call; kernel "
+        f"{nk['lanes']} ranks equal (phase 5's {N_QUERIES} x, all "
+        f"{nk['kmers']} genome k-mers, phase 5's x sorted and {N_QUERIES} x "
+        f"in one chunk), 1 launch a call; kernel "
         f"{nk['ms']:.4f} ms on the card (kernel_device_ms), a wrapper call "
         f"{nk['call_ms']:.4f} ms (CUDA events), plain {nk['plain_ms']:.3f} "
         f"ms on {N_QUERIES} lanes; bound {nk['bound_ms']:.4f} ms by {nk['bound_by']} (fp64 "
         f"operations {nk['ops_ms']:.4f} ms, bytes {nk['bytes_ms']:.4f} ms; "
-        f"{nk['pct_of_bound']:.1f}% of it)")
+        f"{nk['pct_of_bound']:.1f}% of it); sorted x "
+        f"{nk['batch_ms']['sorted x']:.4f} ms, one chunk "
+        f"{nk['batch_ms']['one chunk']:.4f} ms")
+    wf = nk["wavefronts"]
+    log(f"nn kernel: modelled shared wavefronts of the parameter loads "
+        f"(nn_shared_wavefronts, {wf['loads_a_lane']} loads a lane, "
+        f"{wf['warps']} warps of phase 5's x, "
+        f"{nk['distinct_chunks_a_warp']:.2f} distinct chunks a warp in the "
+        f"caller's order): caller's order (one thread a lane) "
+        f"{wf['caller_warp']['per_load']:.3f} a load / "
+        f"{wf['caller_warp']['per_warp']:.1f} a warp whole-warp rule, "
+        f"{wf['caller_half']['per_load']:.3f} / "
+        f"{wf['caller_half']['per_warp']:.1f} half-warp rule; grouped "
+        f"{wf['grouped_warp']['per_load']:.3f} / "
+        f"{wf['grouped_warp']['per_warp']:.1f} and "
+        f"{wf['grouped_half']['per_load']:.3f} / "
+        f"{wf['grouped_half']['per_warp']:.1f}")
 
     # 4. aligner (and 4b), 5. query, 6. length sweep, 7. baselines,
     # 8. scale

@@ -4,8 +4,10 @@ wrapper of its hand-written CUDA kernel (csrc/nn_predict.cu).
 `nn_predict` is the plain version of `models.serve.NNServing.
 predict_ranks` (the JAX package's `sapling_tpu/models/serve.py::
 NNServing.predict_ranks`, :63, an XLA program there); `nn_predict_kernel`
-computes the same ranks, bit for bit, one thread a lane, one launch a
-call. `nn_predict_cuda` takes the plain function's arguments:
+computes the same ranks, bit for bit, in one launch a call: persistent
+blocks, each grouping a tile of kTile lanes by chunk before the MLP, so
+that a warp's parameter loads are broadcasts. `nn_predict_cuda` takes
+the plain function's arguments:
 
   * tensors on the CPU take the plain version (there is no CUDA there);
   * tensors on the card launch the kernel, or raise: there is no fallback.
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import threading
 
 import torch
@@ -52,6 +55,25 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
+def nn_route(x, xb, x_max: float):
+    """nn_predict's routing of [B] int64 x: (x / x_max in float64, that
+    rounded to float32, the chunk: searchsorted over the boundaries xb,
+    clamped to [0, C-1])."""
+    xs64 = x.to(F64) / torch.full((), x_max, dtype=F64, device=x.device)
+    xs = xs64.to(torch.float32)
+    c = torch.clamp(torch.searchsorted(xb, xs, right=True) - 1, 0,
+                    xb.shape[0] - 1)
+    return xs64, xs, c
+
+
+def kernel_tile(source: str = SOURCE) -> int:
+    """The lanes a block of the kernel at `source` groups by chunk at once
+    (its kTile)."""
+    with open(source) as f:
+        return int(re.search(r"constexpr int kTile = (\d+);",
+                             f.read()).group(1))
+
+
 def nn_predict(x, xb, w1, b1, w2, b2, *, x_max: float, line_m: float,
                line_c: float, res_ptp: float, res_min: float, n: int):
     """[B] int64 adjusted k-mer values -> [B] int64 predicted ranks, with
@@ -67,10 +89,7 @@ def nn_predict(x, xb, w1, b1, w2, b2, *, x_max: float, line_m: float,
     its reciprocal), and the s hidden units are summed one after the
     other, separate multiplies and adds, not by one sum(dim=1), whose
     order is the device's."""
-    xs64 = x.to(F64) / torch.full((), x_max, dtype=F64, device=x.device)
-    xs = xs64.to(torch.float32)
-    c = torch.clamp(torch.searchsorted(xb, xs, right=True) - 1, 0,
-                    xb.shape[0] - 1)
+    xs64, xs, c = nn_route(x, xb, x_max)
     h = torch.relu(xs.to(F64)[:, None] * w1[c, 0, :] + b1[c])   # [B, s]
     prod = h * w2[c, :, 0]
     res = prod[:, 0]

@@ -19,6 +19,7 @@
 #include <vector>
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
@@ -109,6 +110,18 @@ inline int __reduce_max_sync(unsigned, int v) {
   return r;
 }
 inline void __syncwarp() { mock_warp->bar.arrive_and_wait(); }
+inline int __shfl_sync(unsigned, int v, int src, int = 32) {
+  return mock_exchange(v, src, false);
+}
+// whether every lane's p holds
+inline bool __all_sync(unsigned, bool p) {
+  mock_warp->vals[mock_lane] = p;
+  mock_warp->bar.arrive_and_wait();
+  bool all = true;
+  for (int i = 0; i < 32; ++i) all = all && mock_warp->vals[i];
+  mock_warp->bar.arrive_and_wait();
+  return all;
+}
 
 // DPX (sm_90): max/min with ReLU, 3-way max, add then max
 inline int __vimax_s32_relu(int a, int b) { return std::max({a, b, 0}); }
@@ -118,14 +131,18 @@ inline int __vimax3_s32_relu(int a, int b, int c) {
 }
 inline int __viaddmax_s32(int a, int b, int c) { return std::max(a + b, c); }
 
-// the 16-byte vector type of vector_types.h that the sources load and store
+// the 16-byte vector types of vector_types.h that the sources load and store
 struct alignas(16) longlong2 {
   long long x, y;
 };
 inline longlong2 make_longlong2(long long x, long long y) { return {x, y}; }
+struct alignas(16) double2 {
+  double x, y;
+};
 
 // read-only loads, leading zeros (of 0: the width, as on the card), and an
-// atomic max that the lanes of a block, all running at once, may share
+// atomic add and max that the lanes of a block, all running at once, may
+// share
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
 inline int __clz(int x) {
@@ -133,6 +150,9 @@ inline int __clz(int x) {
 }
 inline int __clzll(long long x) {
   return x ? __builtin_clzll((unsigned long long)x) : 64;
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline int atomicMax(int* p, int v) {
   int old = __atomic_load_n(p, __ATOMIC_SEQ_CST);

@@ -5,9 +5,11 @@ sapling_tpu_torch/csrc/nn_predict.cu is compiled with g++ against the
 stand-in `cuda_runtime.h` of tests/csrc/cuda_mock/ (one std::thread a
 lane; __dmul_rn, __dadd_rn, __dsub_rn, __ddiv_rn and __double2float_rn
 plain IEEE operations), with -ffp-contract=off so that g++ fuses no
-multiply and add, after its launch is rewritten into the mock's
-`mock_launch`. The wrapper's own ctypes call (ops.nn_predict_cuda.
-launch_nn_predict) then runs the kernel's code on host tensors: every rank
+multiply and add, and with UBSan's alignment check (a 16-byte load of
+shared memory at an address the card would refuse aborts the run), after
+its launch is rewritten into the mock's `mock_launch`. The wrapper's own
+ctypes call (ops.nn_predict_cuda.launch_nn_predict) then runs the
+kernel's code on host tensors: every rank
 must equal the plain PyTorch version's (itself held against sapling_tpu by
 tests/test_torch_serve.py) on every k-mer of a genome with a trained
 model, and on random models at edge inputs: x = 0 and x_max, x whose
@@ -32,6 +34,8 @@ from sapling_tpu_torch.ops import nn_predict_cuda
 from sapling_tpu_torch.ops import pack as packops
 from sapling_tpu_torch.sim.genomes import uniform_genome
 
+from .nn_cases import GROUPING, grouping_case
+from .nn_cases import random_model as _random_model
 from .test_torch_query_cu_on_cpu import MOCK_DIR, mock_source
 
 
@@ -50,8 +54,10 @@ def lib(tmp_path_factory):
     with open(nn_predict_cuda.SOURCE) as f:
         cpp.write_text(mock_source(f.read(), 1))
     subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-pthread", "-I", MOCK_DIR, "-o", str(so),
-                    str(cpp)], check=True)
+                    "-fPIC", "-pthread", "-Wno-unknown-pragmas",
+                    "-fsanitize=alignment",
+                    "-fno-sanitize-recover=alignment", "-I", MOCK_DIR,
+                    "-o", str(so), str(cpp)], check=True)
     return nn_predict_cuda.bind(str(so))
 
 
@@ -94,24 +100,6 @@ def test_nn_kernel_source_on_every_kmer(lib):
     assert len(np.unique(got)) > len(got) // 4
 
 
-def _random_model(c, s, seed, x_max, scale, n):
-    """Random float64 parameters for c chunks of s units, ascending float32
-    boundaries below 1 (the first 0, as training's are from the smallest
-    k-mer), and un-scaling constants of magnitude `scale`."""
-    rng = np.random.default_rng(seed)
-    xb = np.sort(rng.integers(0, x_max, c) / x_max).astype(np.float32)
-    xb[0] = 0.0
-    t = {"w1": rng.normal(0, 2, (c, 1, s)), "b1": rng.normal(0, 1, (c, s)),
-         "w2": rng.normal(0, 1, (c, s, 1)), "b2": rng.normal(0, 1, (c, 1))}
-    args = (torch.from_numpy(xb),) + tuple(
-        torch.from_numpy(t[k]) for k in ("w1", "b1", "w2", "b2"))
-    kw = dict(x_max=x_max, line_m=scale * (0.75 + rng.random() / 7),
-              line_c=scale * (0.5 + rng.random() / 11),
-              res_ptp=scale * (0.001 + rng.random() / 13),
-              res_min=-scale * rng.random() / 17, n=n)
-    return args, kw
-
-
 def _edge_x(model, x_max, num, seed):
     """0, x_max and its neighbours, x whose scaled float32 value equals a
     chunk boundary (and the k-mers beside them), then random x."""
@@ -145,6 +133,22 @@ def test_nn_kernel_source_random_models(lib, c, s):
             args, kw = model
             rows = nn_predict_rows(x, *args, **kw)
             assert ((rows % 1) == 0.5).sum() > 1000
+
+
+@pytest.mark.parametrize("case", sorted(GROUPING))
+def test_nn_kernel_source_grouping(lib, case):
+    """The kernel groups each tile's lanes by chunk before the MLP: every
+    rank must survive it, at rank scale and where a double steps by 0.5
+    (ties to even), in every case of nn_cases.GROUPING: one chunk, every
+    chunk in random and sorted order, B = 1, 31 and a tile plus one, C = 1,
+    s = 1, 5, 16 and 33, the global path (C = 300 and 3000), chunks
+    sharing a histogram bin (C = 2000 and 3000), every boundary in one cell
+    of the chunk search's table, and x past x_max. The mock runs 2 blocks,
+    so a block takes several tiles."""
+    for scale, n in ((float(4 ** 13), 4 ** 13), (2.0 ** 51, 2 ** 53)):
+        args, kw, x = grouping_case(case, scale, n)
+        got = _check(lib, x, (args, kw))
+        assert got.min() >= 0 and got.max() <= n - 1
 
 
 def nn_predict_rows(x, xb, w1, b1, w2, b2, *, x_max, line_m, line_c,

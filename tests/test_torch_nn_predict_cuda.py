@@ -27,6 +27,8 @@ from sapling_tpu_torch.ops import nn_predict_cuda, query_cuda
 from sapling_tpu_torch.ops import pack as packops
 from sapling_tpu_torch.sim.genomes import uniform_genome
 
+from .nn_cases import GROUPING, grouping_case, random_model
+
 
 @pytest.fixture
 def dev():
@@ -36,18 +38,9 @@ def dev():
 
 
 def _model(c, s, seed, x_max, scale, n, device):
-    """Random float64 parameters and ascending float32 boundaries (the
-    first 0), un-scaling constants of magnitude `scale`."""
-    rng = np.random.default_rng(seed)
-    xb = np.sort(rng.integers(0, x_max, c) / x_max).astype(np.float32)
-    xb[0] = 0.0
-    arrays = (xb, rng.normal(0, 2, (c, 1, s)), rng.normal(0, 1, (c, s)),
-              rng.normal(0, 1, (c, s, 1)), rng.normal(0, 1, (c, 1)))
-    kw = dict(x_max=x_max, line_m=scale * (0.75 + rng.random() / 7),
-              line_c=scale * (0.5 + rng.random() / 11),
-              res_ptp=scale * (0.001 + rng.random() / 13),
-              res_min=-scale * rng.random() / 17, n=n)
-    return tuple(torch.from_numpy(a).to(device) for a in arrays), kw
+    """nn_cases.random_model's parameters and boundaries on `device`."""
+    args, kw = random_model(c, s, seed, x_max, scale, n)
+    return tuple(a.to(device) for a in args), kw
 
 
 @pytest.mark.cuda
@@ -75,6 +68,25 @@ def test_nn_kernel_matches_plain(dev, c, s):
         host = nn_predict_cuda.nn_predict(
             x.cpu(), *(a.cpu() for a in args), **kw)
         assert torch.equal(got.cpu(), host), int((got.cpu() != host).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GROUPING))
+def test_nn_kernel_grouping_cases(dev, case):
+    """tests/test_torch_nn_predict_cu_on_cpu.py's grouping cases on the
+    card (one chunk, every chunk in random and sorted order, B = 1, 31 and
+    a tile plus one, C = 1, s = 1, 5, 16 and 33, the global path, binned
+    chunks, boundaries in one cell of the search table, x past x_max):
+    every rank equal to the plain version's, one launch a call."""
+    for scale, n in ((float(4 ** 13), 4 ** 13), (2.0 ** 51, 2 ** 53)):
+        args, kw, x = grouping_case(case, scale, n)
+        want = nn_predict_cuda.nn_predict(x, *args, **kw)
+        args, x = tuple(a.to(dev) for a in args), x.to(dev)
+        before = nn_predict_cuda.LAUNCHES["nn_predict"]
+        got = nn_predict_cuda.nn_predict_cuda(x, *args, **kw)
+        torch.cuda.synchronize()
+        assert nn_predict_cuda.LAUNCHES["nn_predict"] == before + 1
+        assert torch.equal(got.cpu(), want), int((got.cpu() != want).sum())
 
 
 @pytest.fixture(scope="module")
