@@ -3,7 +3,9 @@
 
     python3 chip_measure.py [out.json] [--against=path/to/other/sw.cu]
     python3 chip_measure.py [out.json] --against-query=path/to/query.cu ...
-        [--big=path/to/artifact.stpu.npz]
+        [--query-variants=no_bucket_records,blocks6]
+        [--query-kernels=plquery,binsearch,fancy]
+        [--big=path/to/artifact.stpu.npz ...]
     python3 chip_measure.py [out.json] --against-nn=path/to/nn_predict.cu ...
         [--nn-variants=tile=1024,align=8]
 
@@ -40,29 +42,39 @@ and queries (same seeds) and measures:
   baselines: the plain and the llcp/rlcp-pruned binary search on the
            21-base queries, three timings and one profiled call each.
 
-With --against-query (one or more), it measures only this instead:
+With --against-query (one or more) or --query-variants, it measures only
+this instead:
 
   query_ab: each other version of csrc/query.cu (the same C entry points,
-           or those of a version whose pruned search reads the llcp/rlcp
-           tables rather than node records; built with the same flags) timed
-           in turns with this tree's (other, this, this, other, AB_ROUNDS
-           times; CUDA events) on the same CUDA tensors, their positions
-           held equal, in these cases, each in chip_smoke's
-           order and shuffled (chip_smoke.shuffled): the 4.6 Mbp k=21 index
-           fast3 L=21 and packed L=101 without prefix arrays, chip_smoke
-           phase 8's 46 Mbp artifact (no prefix arrays) at L=21 and 101,
-           and the binary search at L=21 on both, and the llcp/rlcp-pruned
-           search at L=21 with and without prefix64 and at L=101 without
-           on the 4.6 Mbp index, and at L=21 and 101 on the 46 Mbp
-           artifact (its tables from its LCP: scale_tables) (--big:
-           another artifact in place of the 46 Mbp one); each case's bound
-           (chip_smoke.query_bound_ms over this build's sector trace) and
-           lane utilisation (chip_smoke.lane_utilisation), and for the
-           pruned search the sectors a lane read and its node records'
-           build time and bytes; and of each
-           build the registers, stack and spills of every kernel (nvcc's
-           -Xptxas -v log) and the CALL instructions in its SASS by target
-           (cuobjdump): the int64 division subroutine's.
+           or those of a version from before plquery's record tables or
+           the pruned search's node records, each called as it was; built
+           with the same flags), and this tree's changed by each of
+           --query-variants (QUERY_VARIANTS: the prediction read from
+           xlist / ylist, 6 blocks an SM), timed in turns with this
+           tree's (other, this, this, other, AB_ROUNDS times; CUDA events)
+           on the same CUDA tensors, their positions held equal, in these
+           cases of --query-kernels (default all), each in chip_smoke's
+           order and shuffled (chip_smoke.shuffled): plquery on the 4.6
+           Mbp k=21 index at PLQUERY_LENGTHS and the NN engine's call
+           (nn_engine_case), chip_smoke phase 8's 46 Mbp artifact (no
+           prefix arrays) and each --big artifact at L=21 and 101, the
+           binary search at L=21 on each, and the llcp/rlcp-pruned search
+           at L=21 with and without prefix64 and at L=101 without on the
+           4.6 Mbp index and at L=21 and 101 on each artifact (its tables
+           from its LCP: scale_tables); plquery's probe sources (rank
+           records, rev and the genome, fast3) in turns (probe_sources),
+           the NN engine's call included; each
+           case's bounds (chip_smoke.query_bound_ms over this build's
+           sector trace, and query_rate_bound_ms at the random sector
+           rate the run measures, chip_smoke.random_sector_rate) and lane
+           utilisation (chip_smoke.lane_utilisation), an older plquery's
+           own distinct sectors and bounds, and for the pruned search the
+           sectors a lane read and its node records' build time and
+           bytes; each artifact's device bytes (arrays and record tables)
+           and peak device memory; and of each build the registers, stack
+           and spills of every kernel (nvcc's -Xptxas -v log) and the CALL
+           instructions in its SASS by target (cuobjdump): the int64
+           division subroutine's.
 
 With --against-nn (one or more) or --nn-variants, it measures only this
 instead:
@@ -261,13 +273,18 @@ def build_report(lib_path: str) -> dict:
             shared = "true" if m.group(1) == "1" else "false"
             width = "" if m.group(2) is None else f", {m.group(2)}"
             return f"nn_predict_kernel<{shared}{width}>"
+        if "bucket_records_kernel" in mangled:
+            return "bucket_records_kernel"
         m = re.search(r"(plquery_kernel|fancy_binsearch_kernel|"
-                      r"fancy_nodes_kernel|binsearch_kernel)"
-                      r"I(?:Li(\d+)E)?([il])E", mangled)
+                      r"fancy_nodes_kernel|binsearch_kernel|"
+                      r"rank_records_kernel)"
+                      r"I(?:Li(\d+)E)?([il])(?:Lb([01])E)?E", mangled)
         if not m:
             return mangled
         rev = {"i": "int32", "l": "int64"}[m.group(3)]
-        return f"{m.group(1)}<{m.group(2) + ', ' if m.group(2) else ''}{rev}>"
+        ranks = {None: "", "0": ", false", "1": ", true"}[m.group(4)]
+        return (f"{m.group(1)}<{m.group(2) + ', ' if m.group(2) else ''}"
+                f"{rev}{ranks}>")
 
     out = {}
     with open(lib_path[:-3] + ".log") as f:
@@ -325,23 +342,81 @@ TABLES_FANCY = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                 ctypes.c_int] + [ctypes.c_void_p] * 8 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p]
+# plquery_launch of a query.cu from before plquery's record tables (it
+# reads xlist, ylist, bounds, rev, prefix64 and the genome)
+ARRAYS_PLQUERY = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                  ctypes.c_int] + [ctypes.c_void_p] * 13 + [
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int] + [ctypes.c_longlong] * 5 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def bind_query(path: str):
-    """A query library with its C entry points typed: this tree's, or one
-    from before the node records (no fancy_nodes_launch), whose pruned
-    search takes TABLES_FANCY's arguments (with_query_lib launches it
-    through launch_fancy_tables)."""
+    """A query library with its C entry points typed: this tree's, or an
+    older one's. One from before plquery's record tables (no
+    rank_records_launch) takes ARRAYS_PLQUERY's arguments
+    (with_query_lib calls it through plquery_arrays); one from
+    before the node records (no fancy_nodes_launch) takes TABLES_FANCY's
+    for its pruned search (launch_fancy_tables); the first version has no
+    pruned search."""
     from sapling_tpu_torch.ops import query_cuda, sw_cuda
 
-    if hasattr(ctypes.CDLL(path), "fancy_nodes_launch"):
-        return query_cuda.bind(path)
-    sig = {k: v for k, v in query_cuda.SIGNATURES.items()
-           if k != "fancy_nodes_launch"}
-    lib = sw_cuda.bind_lib(path, dict(sig,
-                                      fancy_binsearch_launch=TABLES_FANCY))
-    lib.tables_fancy = True
+    has = ctypes.CDLL(path)
+    sig = {k: v for k, v in query_cuda.SIGNATURES.items() if hasattr(has, k)}
+    arrays = "rank_records_launch" not in sig
+    tables = "fancy_nodes_launch" not in sig
+    if arrays:
+        sig["plquery_launch"] = ARRAYS_PLQUERY
+    if tables and "fancy_binsearch_launch" in sig:
+        sig["fancy_binsearch_launch"] = TABLES_FANCY
+    lib = sw_cuda.bind_lib(path, sig)
+    lib.arrays_plquery, lib.tables_fancy = arrays, tables
     return lib
+
+
+# the probes of a query.cu from before plquery's record tables
+ARRAYS_PROBES = {"fast3": 0, "prefix64": 1, "packed": 2}
+
+
+def plquery_arrays(lib, fast3_q3=None):
+    """query_cuda.plquery_cuda for a library from before plquery's record
+    tables: the same call (stats and trace included) on the probe that
+    design took for the index's arrays (ops.query_cuda.probe_form: fast3
+    where prefix3 and q3 are given; `fast3_q3`, that design's q3, where
+    the call passes none), without the records."""
+    import torch
+
+    from sapling_tpu_torch.ops import query_cuda
+    from sapling_tpu_torch.ops.query_cuda import _ptr
+
+    def call(packed, rev, xlist, ylist, q_words, x, prefix=None,
+             prefix3=None, q3=None, bounds=None, *, n, length, k, buckets,
+             most_over, most_under, max_over, max_under,
+             max_stride_steps=1 << 20, adaptive_bounds=False, pred64=None,
+             bucket_recs=None, rank_recs=None, stats=False, trace=0):
+        if q3 is None:
+            q3 = fast3_q3
+        form = query_cuda.probe_form(length, k, prefix, prefix3, q3)
+        dev, b = x.device, x.shape[0]
+        out = torch.empty(b, dtype=torch.int64, device=dev)
+        lane, depth, tr = query_cuda.stats_buffers(b, dev, stats, trace)
+        rc = lib.plquery_launch(
+            packed.data_ptr(), packed.shape[0], rev.data_ptr(),
+            int(rev.dtype == torch.int64), xlist.data_ptr(),
+            ylist.data_ptr(), _ptr(prefix), _ptr(prefix3),
+            _ptr(bounds) if adaptive_bounds else None, _ptr(q_words),
+            _ptr(q3), x.data_ptr(), _ptr(pred64), out.data_ptr(), _ptr(lane),
+            _ptr(depth), _ptr(tr), b, n, length, k, buckets, most_over,
+            most_under, max_over, max_under, max_stride_steps,
+            int(adaptive_bounds), 0 if tr is None else tr.shape[1],
+            ARRAYS_PROBES[form], torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"plquery kernel launch failed: cudaError {rc}")
+        if stats:
+            query_cuda._read_stats(lane, depth, tr)
+        return out
+
+    return call
 
 
 def launch_fancy_tables(lib, stream, packed, rev, llcp, rlcp, prefix, _nodes,
@@ -362,19 +437,64 @@ def launch_fancy_tables(lib, stream, packed, rev, llcp, rlcp, prefix, _nodes,
         PROBES[form], stream)
 
 
-def with_query_lib(lib, fn):
-    """fn() with query_cuda's launches going to the library `lib` (one from
-    before the node records through launch_fancy_tables)."""
+# this tree's csrc/query.cu changed: {name: (pattern, replacement)}
+# (query_variant): the prediction reading xlist, ylist and bounds as the
+# first design read them, not its bucket record; plquery_kernel held to 6
+# blocks of 256 an SM (40 registers a thread)
+QUERY_VARIANTS = {
+    "no_bucket_records": (
+        r"  const longlong2\* rec = a\.bucket_recs.*?\n  \}\n",
+        """  const int64_t xlo = __ldg(a.xlist + bucket);
+  const int64_t xhi = __ldg(a.xlist + bucket + 1);
+  const int64_t ylo = __ldg(a.ylist + bucket);
+  const int64_t m = __ldg(a.ylist + bucket + 1) - ylo;
+  lane.touch(a.xlist + bucket, a.xlist + bucket + 1);
+  lane.touch(a.ylist + bucket, a.ylist + bucket + 1);
+  if (a.adaptive) {
+    lane.touch(a.bounds + bucket);
+    *bw = (uint32_t)__ldg(a.bounds + bucket);
+  }
+"""),
+    "blocks6": (r"__launch_bounds__\(kThreads\) plquery_kernel",
+                "__launch_bounds__(kThreads, 6) plquery_kernel"),
+}
+
+
+def query_variant(name: str) -> str:
+    """This tree's csrc/query.cu changed by QUERY_VARIANTS[name], written
+    beside the builds (ops.sw_cuda.BUILD_DIR); returns its path."""
+    import re
+
+    from sapling_tpu_torch.ops import query_cuda, sw_cuda
+
+    pattern, repl = QUERY_VARIANTS[name]
+    with open(query_cuda.SOURCE) as f:
+        src, n = re.subn(pattern, lambda _m: repl, f.read(), flags=re.S)
+    assert n == 1, f"{name}: {n} matches in csrc/query.cu"
+    os.makedirs(sw_cuda.BUILD_DIR, exist_ok=True)
+    path = os.path.join(sw_cuda.BUILD_DIR, f"query_{name}.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    return path
+
+
+def with_query_lib(lib, fn, fast3_q3=None):
+    """fn() with query_cuda's launches going to the library `lib` (an older
+    one's plquery through plquery_arrays, with fast3_q3, its pruned search
+    through launch_fancy_tables)."""
     from sapling_tpu_torch.ops import query_cuda
 
-    saved = query_cuda._LIB, query_cuda.launch_fancy
+    saved = query_cuda._LIB, query_cuda.launch_fancy, query_cuda.plquery_cuda
     query_cuda._LIB = lib
     if getattr(lib, "tables_fancy", False):
         query_cuda.launch_fancy = launch_fancy_tables
+    if getattr(lib, "arrays_plquery", False):
+        query_cuda.plquery_cuda = plquery_arrays(lib, fast3_q3)
     try:
         return fn()
     finally:
-        query_cuda._LIB, query_cuda.launch_fancy = saved
+        (query_cuda._LIB, query_cuda.launch_fancy,
+         query_cuda.plquery_cuda) = saved
 
 
 def scale_tables(big):
@@ -394,20 +514,60 @@ def scale_tables(big):
     return build_llcp_rlcp(np.asarray(lcp, np.int64), big.n)
 
 
-def query_cases(dev, idx21, big, tables, big_tables):
-    """The query_ab cases, each in chip_smoke's order and shuffled: dicts
-    of name, call(**stats) -> positions, lanes, coalesced bytes a lane and,
-    for the pruned search, the build of its node records (made once for
-    an index and its tables, outside the timed calls)."""
+# plquery's query lengths on the 4.6 Mbp index (the aligner's seeds are 16
+# bases); on the artifacts chip_smoke.SCALE_LENGTHS
+PLQUERY_LENGTHS = (16, 21, 101)
+QUERY_KERNELS = ("plquery", "binsearch", "fancy")
+
+
+def nn_engine_case(didx, codes):
+    """The NN engine's call of chip_smoke phase 9 on `didx` (on the card):
+    the model trained as there (train_serving), then plquery_cuda with its
+    predict_ranks as pred64, its windows, the fast3 probe's q3 where the
+    index has prefix3 (NNQueryEngine.query_inputs) and the index's rank
+    records, as NNQueryEngine.query_device makes the call; a query_cases
+    dict (with the trained model, `srv`)."""
+    from sapling_tpu_torch.models.serve import train_serving
+    from sapling_tpu_torch.ops import query_cuda
+
+    srv = train_serving(didx, num_chunks=cs.NN_CHUNKS,
+                        layer_size=cs.NN_UNITS, epochs=cs.NN_EPOCHS, seed=0,
+                        log=lambda _msg: None)
+    args, kw, _form, lane_bytes, recs = cs.plquery_inputs(
+        didx, codes.shape[1], codes, fast3=True, most_over=srv.most_over,
+        most_under=srv.most_under, max_over=srv.max_over,
+        max_under=srv.max_under)
+    x = args[5]
+    return dict(name=f"{didx.n} bp nn engine L={codes.shape[1]}",
+                call=lambda **st: query_cuda.plquery_cuda(
+                    *args, pred64=srv.predict_ranks(x),
+                    rank_recs=recs["rank_recs"], **st, **kw),
+                lanes=len(codes), lane_bytes=lane_bytes + 8,
+                kernel="plquery", srv=srv)
+
+
+def query_cases(dev, idx21, bigs, tables, big_tables, kernels):
+    """The query_ab cases of `kernels` (QUERY_KERNELS), each in
+    chip_smoke's order and shuffled: dicts of name, call(**stats) ->
+    positions, lanes, coalesced bytes a lane and, for the pruned search,
+    the build of its node records (made once for an index and its tables,
+    outside the timed calls). plquery: the 4.6 Mbp index as built at
+    PLQUERY_LENGTHS (an older query.cu reads its prefix arrays: fast3 up to
+    21 bases), the NN engine's call (nn_engine_case, in chip_smoke's
+    order), and every artifact of `bigs` at chip_smoke.SCALE_LENGTHS, on
+    each index's record tables (query_records)."""
     import torch
 
     from sapling_tpu_torch.ops import query_cuda
 
     def plquery(tag, idx, length, codes):
-        args, kw, form, lane_bytes = cs.plquery_inputs(idx, length, codes)
+        args, kw, form, lane_bytes, recs = cs.plquery_inputs(idx, length,
+                                                             codes)
         return dict(name=f"{tag} L={length} {form}", call=lambda **st:
-                    query_cuda.plquery_cuda(*args, **st, **kw),
-                    lanes=len(codes), lane_bytes=lane_bytes)
+                    query_cuda.plquery_cuda(*args, **recs, **st, **kw),
+                    lanes=len(codes), lane_bytes=lane_bytes,
+                    kernel="plquery", fast3_q3=cs.plquery_inputs(
+                        idx, length, codes, fast3=True)[0][8])
 
     def binsearch(tag, didx, codes):
         qw, kw, lane_bytes = cs.binsearch_inputs(didx, codes)
@@ -433,8 +593,10 @@ def query_cases(dev, idx21, big, tables, big_tables):
                         d["packed"], d["rev"], *lr, n=didx.n),
                     build_bytes=32 * didx.n)
 
-    lr = [torch.from_numpy(a).to(dev) for a in tables]
-    big_lr = [torch.from_numpy(a).to(dev) for a in big_tables]
+    if "fancy" in kernels:
+        lr = [torch.from_numpy(a).to(dev) for a in tables]
+        big_lrs = [[torch.from_numpy(a).to(dev) for a in t]
+                   for t in big_tables]
     didx, bare = idx21.to(dev), cs.without_prefix(idx21).to(dev)
     cases = []
     for order in ("smoke", "shuffled"):
@@ -443,27 +605,201 @@ def query_cases(dev, idx21, big, tables, big_tables):
             return cs.shuffled(codes) if order == "shuffled" else codes
 
         tag = f"{idx21.n} bp {order}"
-        cases += [plquery(tag, didx, cs.QUERY_LEN,
-                          codes_of(idx21, cs.QUERY_LEN)),
-                  plquery(tag + " no_prefix", bare, 101,
-                          codes_of(idx21, 101))]
-        big_tag = f"{big.n} bp {order}"
-        cases += [plquery(big_tag, big, length, codes_of(big, length))
-                  for length in cs.SCALE_LENGTHS]
-        cases += [binsearch(tag, didx, codes_of(idx21, cs.QUERY_LEN)),
-                  binsearch(big_tag, big, codes_of(big, cs.QUERY_LEN)),
-                  fancy(tag, didx, lr, codes_of(idx21, cs.QUERY_LEN)),
-                  fancy(tag + " no_prefix", bare, lr,
-                        codes_of(idx21, cs.QUERY_LEN)),
-                  fancy(tag + " no_prefix", bare, lr, codes_of(idx21, 101))]
-        cases += [fancy(big_tag, big, big_lr, codes_of(big, length))
-                  for length in cs.SCALE_LENGTHS]
+        if "plquery" in kernels:
+            cases += [plquery(tag, didx, length, codes_of(idx21, length))
+                      for length in PLQUERY_LENGTHS]
+            if order == "smoke":
+                cases.append(nn_engine_case(didx, codes_of(idx21,
+                                                           cs.QUERY_LEN)))
+        if "binsearch" in kernels:
+            cases.append(binsearch(tag, didx, codes_of(idx21, cs.QUERY_LEN)))
+        if "fancy" in kernels:
+            cases += [fancy(tag, didx, lr, codes_of(idx21, cs.QUERY_LEN)),
+                      fancy(tag + " no_prefix", bare, lr,
+                            codes_of(idx21, cs.QUERY_LEN)),
+                      fancy(tag + " no_prefix", bare, lr,
+                            codes_of(idx21, 101))]
+        for i, big in enumerate(bigs):
+            big_tag = f"{big.n} bp {order}"
+            if "plquery" in kernels:
+                cases += [plquery(big_tag, big, length, codes_of(big, length))
+                          for length in cs.SCALE_LENGTHS]
+            if "binsearch" in kernels:
+                cases.append(binsearch(big_tag, big,
+                                       codes_of(big, cs.QUERY_LEN)))
+            if "fancy" in kernels:
+                cases += [fancy(big_tag, big, big_lrs[i],
+                                codes_of(big, length))
+                          for length in cs.SCALE_LENGTHS]
     return cases
 
 
-def query_ab(dev, idx21, art: str, others: list[str], tables) -> dict:
-    """Each of `others` (query.cu versions) in turns with this tree's on
-    query_cases; their builds' reports (build_report)."""
+def in_turns(a, b, dev, rounds: int = AB_ROUNDS) -> tuple[list, list]:
+    """CUDA-event ms of a() and b() in turns (a, b, b, a), `rounds` times:
+    (a's times, b's times)."""
+    t_a, t_b = [], []
+    for _ in range(rounds):
+        t_a.append(cs._time_ms(a, dev))
+        t_b += [cs._time_ms(b, dev), cs._time_ms(b, dev)]
+        t_a.append(cs._time_ms(a, dev))
+    return t_a, t_b
+
+
+def trace_bound(call, b: int, lane_bytes: int, sectors_per_s: float):
+    """A case's distinct sectors (call's sector trace), both bounds
+    (chip_smoke.query_bound_ms, query_rate_bound_ms), the lane utilisation,
+    probes and sectors touched: a dict."""
+    import torch
+
+    from sapling_tpu_torch.ops import query_cuda
+
+    call(stats=True, trace=cs.QK_TRACE)
+    st = query_cuda.LAST_STATS
+    tr = st["trace"]
+    distinct = int(torch.unique(tr[tr >= 0]).numel())
+    probes = st["probes"].cpu()
+    row = dict(distinct=distinct,
+               bound_ms=cs.query_bound_ms(distinct, b, lane_bytes),
+               rate_bound_ms=cs.query_rate_bound_ms(distinct, b, lane_bytes,
+                                                    sectors_per_s),
+               util=cs.lane_utilisation(probes), probes=int(probes.sum()),
+               sectors=int(st["sectors"].sum()))
+    if "reads" in st:
+        row["reads"] = int(st["reads"].sum())
+    del tr, st
+    query_cuda.LAST_STATS.clear()
+    return row
+
+
+def in_turns_against(name, first, sources, dev, sectors_per_s) -> dict:
+    """Each of `sources` ({source: (call, lane bytes)}) in turns
+    (in_turns) with the one named `first`, their positions held equal,
+    each one's bounds from its own trace (trace_bound); logged, returned
+    as {source: dict(ms, median, bound...)}."""
+    import statistics
+
+    import torch
+
+    want = sources[first][0]()
+    row = {}
+    for src, (call, lane_bytes) in sources.items():
+        if not torch.equal(call(), want):
+            raise AssertionError(f"{src} != {first}: {name}")
+        row[src] = trace_bound(call, len(want), lane_bytes, sectors_per_s)
+    text = []
+    for src, (call, _lb) in sources.items():
+        if src == first:
+            continue
+        t_o, t_f = in_turns(call, sources[first][0], dev)
+        med_o, med_f = statistics.median(t_o), statistics.median(t_f)
+        row[src].update(ms=t_o, median=med_o, first_ms=t_f,
+                        first_median=med_f)
+        text.append(f"{src} {med_o:.4f} ms ({min(t_o):.4f}-{max(t_o):.4f}"
+                    f"; {row[src]['distinct']} distinct sectors, bound "
+                    f"{row[src]['bound_ms']:.4f} / at the measured rate "
+                    f"{row[src]['rate_bound_ms']:.4f}) in turns with {first}"
+                    f" {med_f:.4f} ms ({min(t_f):.4f}-{max(t_f):.4f}; "
+                    f"{row[first]['distinct']} distinct sectors, bound "
+                    f"{row[first]['bound_ms']:.4f} / "
+                    f"{row[first]['rate_bound_ms']:.4f}): {med_o / med_f:.3f}"
+                    f"x")
+    log(f"probe sources {name}: " + "; ".join(text))
+    return dict(name=name, **row)
+
+
+def probe_sources(dev, idx21, bigs, nn_case, sectors_per_s) -> list[dict]:
+    """plquery's probe sources on the same queries, bucket records and
+    kernel, in turns (in_turns_against): rank records (one 16-byte load a
+    probe) against rev and the genome (two dependent loads: what the
+    kernel reads where query_cuda.reads_rank_records says no) and, where
+    the index has prefix3 and the length allows, fast3 (one prefix3 load;
+    the probe the caller asks for with q3), on the 4.6 Mbp index at
+    PLQUERY_LENGTHS and each artifact of `bigs` at
+    chip_smoke.SCALE_LENGTHS, in chip_smoke's order and shuffled; and the
+    NN engine's call (nn_case: fast3) against the other two."""
+    from sapling_tpu_torch.ops import query_cuda
+
+    saved = query_cuda.reads_rank_records
+
+    def on_arrays(call):
+        def run(**st):
+            query_cuda.reads_rank_records = lambda rev, packed: False
+            try:
+                return call(**st)
+            finally:
+                query_cuda.reads_rank_records = saved
+        return run
+
+    rows = []
+    for order in ("smoke", "shuffled"):
+        for idx, lengths in ((idx21.to(dev), PLQUERY_LENGTHS),
+                             *((big, cs.SCALE_LENGTHS) for big in bigs)):
+            for length in lengths:
+                codes, _n_in = cs.query_codes(idx.codes, length)
+                if order == "shuffled":
+                    codes = cs.shuffled(codes)
+                args, kw, _f, lane_bytes, recs = cs.plquery_inputs(
+                    idx, length, codes, ranks=True)
+                f3, _kw3, form3, lane3, _r3 = cs.plquery_inputs(
+                    idx, length, codes, fast3=True)
+                sources = {
+                    "records": (lambda a=args, r=recs, k=kw, **st:
+                                query_cuda.plquery_cuda(*a, **r, **st, **k),
+                                lane_bytes),
+                    "arrays": (on_arrays(
+                        lambda a=args, r=recs, k=kw, **st:
+                        query_cuda.plquery_cuda(
+                            *a, bucket_recs=r["bucket_recs"], **st, **k)),
+                        lane_bytes)}
+                if form3 == "fast3":
+                    sources["fast3"] = (
+                        lambda a=f3, r=recs, k=kw, **st:
+                        query_cuda.plquery_cuda(
+                            *a, bucket_recs=r["bucket_recs"], **st, **k),
+                        lane3)
+                rows.append(in_turns_against(
+                    f"{idx.n} bp {order} L={length}", "records", sources,
+                    dev, sectors_per_s))
+    if nn_case is not None:
+        call = nn_case["call"]
+        d = idx21.to(dev).device_arrays()
+        ranks = query_cuda.plquery_records_cuda(d["packed"], d["rev"],
+                                                n=idx21.n)
+
+        def without_q3(**extra):
+            real = query_cuda.plquery_cuda
+
+            def patched(*a, **k):
+                a = a[:8] + (None,) + a[9:]
+                return real(*a, **dict(k, **extra))
+
+            def run(**st):
+                query_cuda.plquery_cuda = patched
+                try:
+                    return call(**st)
+                finally:
+                    query_cuda.plquery_cuda = real
+            return run
+
+        lb = nn_case["lane_bytes"]
+        rows.append(in_turns_against(nn_case["name"], "fast3", {
+            "fast3": (call, lb),
+            "arrays": (on_arrays(without_q3()), lb + 8),
+            "records": (without_q3(rank_recs=ranks), lb + 8)},
+            dev, sectors_per_s))
+    return rows
+
+
+def query_ab(dev, idx21, arts: list[str], others: list[str], tables,
+             variants=(), kernels=QUERY_KERNELS) -> dict:
+    """Each of `others` (query.cu versions) and this tree's source changed
+    by each of `variants` (query_variant) in turns with this tree's on
+    query_cases (of `kernels`) over the 4.6 Mbp index and the artifacts
+    `arts`; with plquery, probe_sources; the random sector rate the
+    second bound reads (chip_smoke.random_sector_rate); each artifact's
+    device bytes (its arrays and record tables) and the peak device
+    memory after its first queries; their builds' reports
+    (build_report)."""
     import statistics
     from concurrent.futures import ThreadPoolExecutor
 
@@ -472,6 +808,7 @@ def query_ab(dev, idx21, art: str, others: list[str], tables) -> dict:
     from sapling_tpu_torch.ops import query_cuda, sw_cuda
     from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
 
+    others = list(others) + [query_variant(v) for v in variants]
     srcs = [query_cuda.SOURCE, *others]
     with ThreadPoolExecutor(len(srcs)) as pool:
         paths = list(pool.map(sw_cuda.build_kernel, srcs))
@@ -479,59 +816,84 @@ def query_ab(dev, idx21, art: str, others: list[str], tables) -> dict:
     for src, rep in builds.items():
         log(f"query_ab build {src}: " + json.dumps(rep))
     libs = [bind_query(path) for path in paths]
-    big = load_for_queries(art, dev)
-    t0 = time.perf_counter()
-    big_tables = scale_tables(big)
-    log(f"query_ab: the {big.n} bp artifact's llcp/rlcp tables on the host "
-        f"in {time.perf_counter() - t0:.1f} s")
-    out = dict(builds=builds, cases=[])
-    for case in query_cases(dev, idx21, big, tables, big_tables):
+    rate = cs.random_sector_rate(dev)
+    log(f"query_ab: random 32-byte sectors {rate['sectors_per_s'] / 1e9:.2f}"
+        f"G/s ({rate['distinct']} distinct in {rate['ms']:.4f} ms)")
+    out = dict(builds=builds, rate=rate, cases=[], memory=[])
+    bigs, big_tables = [], []
+    for art in arts:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        big = load_for_queries(art, dev)
+        mem = dict(n=big.n, buckets=big.buckets,
+                   device_bytes=big.device_bytes(),
+                   records_bytes=sum(t.numel() * t.element_size()
+                                     for t in big.query_records()),
+                   peak_bytes=torch.cuda.max_memory_allocated(dev) - before)
+        log(f"query_ab: {big.n} bp 2^{big.buckets}: device arrays and "
+            f"record tables {mem['device_bytes'] / 1e9:.3f} GB (records "
+            f"{mem['records_bytes'] / 1e9:.3f} GB), peak "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB over what was there before")
+        out["memory"].append(mem)
+        bigs.append(big)
+        if "fancy" in kernels:
+            t0 = time.perf_counter()
+            big_tables.append(scale_tables(big))
+            log(f"query_ab: the {big.n} bp artifact's llcp/rlcp tables on "
+                f"the host in {time.perf_counter() - t0:.1f} s")
+    cases = query_cases(dev, idx21, bigs, tables, big_tables, kernels)
+    if "plquery" in kernels:
+        out["probe_sources"] = probe_sources(
+            dev, idx21, bigs, next(c for c in cases if "srv" in c),
+            rate["sectors_per_s"])
+    for case in cases:
         name, call, b = case["name"], case["call"], case["lanes"]
         mine = call()
+        q3 = case.get("fast3_q3")
         for src, lib in zip(others, libs[1:]):
-            theirs = with_query_lib(lib, call)
+            theirs = with_query_lib(lib, call, q3)
             if not torch.equal(theirs, mine):
                 raise AssertionError(f"{src} disagrees with this tree: {name}")
-        call(stats=True, trace=cs.QK_TRACE)
-        st = query_cuda.LAST_STATS
-        tr = st["trace"]
-        distinct = int(torch.unique(tr[tr >= 0]).numel())
-        probes = st["probes"].cpu()
-        row = dict(name=name, bound_ms=cs.query_bound_ms(
-            distinct, b, case["lane_bytes"]),
-                   util=cs.lane_utilisation(probes),
-                   probes=int(probes.sum()),
-                   sectors=int(st["sectors"].sum()), against={})
+        row = dict(name=name, against={}, **trace_bound(
+            call, b, case["lane_bytes"], rate["sectors_per_s"]))
         extra = ""
-        if "reads" in st:
-            row["reads"] = int(st["reads"].sum())
+        if "reads" in row:
             row["build_ms"] = cs._time_ms(case["build"], dev, reps=3, warm=1)
             row["build_bytes"] = case["build_bytes"]
             extra = (f"; sectors a lane: {row['sectors'] / b:.2f} of the "
                      f"first design, {row['reads'] / b:.2f} read; node "
                      f"records {row['build_bytes']} bytes built in "
                      f"{row['build_ms']:.4f} ms")
-        del tr, st
-        query_cuda.LAST_STATS.clear()
         for src, lib in zip(others, libs[1:]):
-            t_other, t_this = [], []
-            for _ in range(AB_ROUNDS):
-                t_other.append(cs._time_ms(lambda: with_query_lib(lib, call),
-                                           dev))
-                t_this += [cs._time_ms(call, dev), cs._time_ms(call, dev)]
-                t_other.append(cs._time_ms(lambda: with_query_lib(lib, call),
-                                           dev))
+            with_lib = lambda: with_query_lib(lib, call, q3)   # noqa: E731
+            if not (getattr(lib, "arrays_plquery", False)
+                    and case.get("kernel") == "plquery"):
+                other_bound = None
+            else:
+                other_bound = with_query_lib(lib, lambda: trace_bound(
+                    call, b, case["lane_bytes"], rate["sectors_per_s"]), q3)
+            t_other, t_this = in_turns(with_lib, call, dev)
             med_o, med_t = statistics.median(t_other), statistics.median(
                 t_this)
             row["against"][src] = dict(ms=t_other, this_ms=t_this,
-                                       median=med_o, this_median=med_t)
+                                       median=med_o, this_median=med_t,
+                                       bound=other_bound)
             log(f"query_ab {name}: {src} {med_o:.4f} ms (median of "
                 f"{len(t_other)}, {min(t_other):.4f}-{max(t_other):.4f}) in "
                 f"turns with this tree's {med_t:.4f} ms "
                 f"({min(t_this):.4f}-{max(t_this):.4f}): {med_o / med_t:.3f}x;"
-                f" bound {row['bound_ms']:.4f} ms: {100 * row['bound_ms'] / med_t:.1f}%"
-                f" / {100 * row['bound_ms'] / med_o:.1f}% of it; lane "
-                f"utilisation {100 * row['util']:.1f}%" + extra)
+                f" bound {row['bound_ms']:.4f} ms ({row['distinct']} distinct "
+                f"sectors): {100 * row['bound_ms'] / med_t:.1f}% of this "
+                f"tree's; at the measured rate {row['rate_bound_ms']:.4f} ms:"
+                f" {100 * row['rate_bound_ms'] / med_t:.1f}%; lane "
+                f"utilisation {100 * row['util']:.1f}%" + extra
+                + ("" if other_bound is None else
+                   f"; {src}'s own trace: {other_bound['distinct']} distinct "
+                   f"sectors, bound {other_bound['bound_ms']:.4f} ms "
+                   f"({100 * other_bound['bound_ms'] / med_o:.1f}%), at the "
+                   f"measured rate {other_bound['rate_bound_ms']:.4f} ms "
+                   f"({100 * other_bound['rate_bound_ms'] / med_o:.1f}%)"))
         out["cases"].append(row)
     return out
 
@@ -932,7 +1294,7 @@ def sweep_times(dev, idx21) -> list[dict]:
             inputs = didx.query_inputs(codes)
             query.ROUNDS.update(C=0, D=0)
             didx.query_device(*inputs, length, stats=True)
-            r = dict(form=cs._probe_form(idx, length),
+            r = dict(form=cs.query_form(didx, inputs, length),
                      rounds=dict(query.ROUNDS),
                      ms=[cs._time_ms(lambda: didx.query_device(
                          *inputs, length), dev, reps=3, warm=1)
@@ -987,6 +1349,9 @@ def main(argv: list[str]) -> int:
     against, against_query, big, against_nn, nn_variants = (
         opt("against"), opt("against-query"), opt("big"), opt("against-nn"),
         [v for o in opt("nn-variants") for v in o.split(",")])
+    query_variants = [v for o in opt("query-variants") for v in o.split(",")]
+    kernels = [v for o in opt("query-kernels") for v in o.split(",")] \
+        or QUERY_KERNELS
     argv = [a for a in argv if not a.startswith("--")]
     out_path = argv[0] if argv else os.path.join(
         cs.ROOT, "chiprun_out", "measure.json")
@@ -1002,19 +1367,16 @@ def main(argv: list[str]) -> int:
         _seq, _idx16, idx21, _t = cs.build_indexes(cs.GENOME_N)
         res["nn_ab"] = nn_ab(dev, idx21, against_nn, sm_clock_mhz,
                              nn_variants)
-    elif against_query and big:
-        _seq, _idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)
-        res["query_ab"] = query_ab(dev, idx21, big[0], against_query,
-                                   tables)
-    elif against_query:
+    elif against_query or query_variants:
         # the 46 Mbp artifact builds in a child beside the 4.6 Mbp index
         with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
             scale = cs.start_scale_build(td)
             try:
                 _seq, _idx16, idx21, tables = cs.build_indexes(cs.GENOME_N)
                 cs.finish_scale_build(scale)
-                res["query_ab"] = query_ab(dev, idx21, scale[1],
-                                           against_query, tables)
+                res["query_ab"] = query_ab(
+                    dev, idx21, [scale[1], *big], against_query, tables,
+                    query_variants, kernels)
             finally:
                 if scale[0].poll() is None:
                     os.killpg(scale[0].pid, signal.SIGKILL)

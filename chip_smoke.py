@@ -49,8 +49,10 @@ failure raises and the script exits non-zero:
      mixed). Each case prints the kernel's CUDA-event time, the plain
      path's, the kernel's launches, its bound (query_bound_ms: the
      distinct 32-byte sectors its lanes read, from its sector trace, and
-     the coalesced inputs and output, over HBM_BYTES_PER_S) and the lane
-     utilisation of its probe counts (lane_utilisation). Then
+     the coalesced inputs and output, over HBM_BYTES_PER_S), its bound at
+     the random-sector rate this run measures (random_sector_rate,
+     query_rate_bound_ms) and the lane utilisation of its probe counts
+     (lane_utilisation). Then
      nn_predict_cuda against the plain nn_predict on the card, every rank
      equal, for a seeded untrained model at phase 9's width (NN_CHUNKS x
      NN_UNITS, the k=21 index's dataset scaling), on phase 5's 1M x and on
@@ -210,6 +212,10 @@ QK_SHIFT, QK_STRIDE_CAP = 300, 2
 # the sector numbers a lane records for the bound (a lane that touches more
 # records the first QK_TRACE: the distinct count stays a lower bound)
 QK_TRACE = 128
+# phase 3b: the card's random 32-byte sector rate, as a torch gather of
+# SECTOR_RATE_LANES random int64 elements of a SECTOR_RATE_ELEMS table (4
+# GB, past the 50 MB L2) reaches it: the second bound of each query case
+SECTOR_RATE_ELEMS, SECTOR_RATE_LANES = 1 << 29, 1 << 24
 # phase 3: a full-mode SW batch whose H passes 2^21, past the int32 key
 # (the int64-key instantiation): SW_KEY64 pairs of SW_KEY64_W bases in
 # windows as long, match SW_KEY64_MATCH
@@ -462,6 +468,32 @@ def query_bound_ms(sectors: int, b: int, lane_bytes: int) -> float:
     return (32 * sectors + b * lane_bytes) / HBM_BYTES_PER_S * 1e3
 
 
+def query_rate_bound_ms(sectors: int, b: int, lane_bytes: int,
+                        sectors_per_s: float) -> float:
+    """query_bound_ms with the distinct sectors read at `sectors_per_s`,
+    the random 32-byte sector rate this run measured on the card
+    (random_sector_rate), in place of HBM_BYTES_PER_S."""
+    return (sectors / sectors_per_s + b * lane_bytes / HBM_BYTES_PER_S) * 1e3
+
+
+def random_sector_rate(dev) -> dict:
+    """The card's rate of random 32-byte sector reads as a torch gather
+    reaches it: SECTOR_RATE_LANES random int64 elements (seeded) of a
+    SECTOR_RATE_ELEMS table; their distinct sectors over the gather's
+    CUDA-event time (its coalesced index read and output write included)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    table = torch.zeros(SECTOR_RATE_ELEMS, dtype=torch.int64, device=dev)
+    idx = torch.randint(0, SECTOR_RATE_ELEMS, (SECTOR_RATE_LANES,),
+                        device=dev, generator=g)
+    distinct = int(torch.unique(idx >> 2).numel())
+    ms = _time_ms(lambda: table[idx], dev)
+    del table, idx
+    return dict(sectors_per_s=distinct / (ms / 1e3), ms=ms,
+                distinct=distinct, lanes=SECTOR_RATE_LANES)
+
+
 def shuffled(codes):
     """codes in a seeded random order. query_codes puts every random
     (mostly absent) query in the last eighth of the batch; the aligner's
@@ -482,15 +514,17 @@ def lane_utilisation(probes) -> float:
     return float(p.sum() / (32 * g.max(1)).sum())
 
 
-def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
+def _kernel_case(dev, name, kernel, plain, lane_bytes, b,
+                 sectors_per_s) -> dict:
     """One kernel-vs-plain case on the card: kernel() (which passes its
     keywords, stats and trace, to the wrapper) and plain() on the
     same CUDA tensors must agree on every lane, and the kernel's stats
     rounds must equal the plain path's ROUNDS. Returns the kernel's and the
     plain path's CUDA-event times, the kernel's launches a call, its bound
-    (query_bound_ms over the distinct sectors of its trace), the sectors
-    its lanes touched in all (and, for the pruned search, the sectors they
-    really read), the rounds, and the lane utilisation
+    (query_bound_ms over the distinct sectors of its trace) and its bound
+    at the measured sector rate (query_rate_bound_ms, sectors_per_s), the
+    sectors its lanes touched in all (and, for the pruned search, the
+    sectors they really read), the rounds, and the lane utilisation
     (lane_utilisation)."""
     import numpy as np
     import torch
@@ -518,10 +552,13 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b) -> dict:
                              f"the plain path's {rounds}: {name}")
     ms = _time_ms(kernel, dev, reps=10, warm=2)
     bound = query_bound_ms(distinct, b, lane_bytes)
+    rate_bound = query_rate_bound_ms(distinct, b, lane_bytes, sectors_per_s)
     return dict(name=name, ms=ms, plain_ms=_time_ms(plain, dev, reps=3,
                                                      warm=1),
                 launches=launched, bound_ms=bound, pct_of_bound=100 * bound
-                / ms, sectors=int(st["sectors"].sum()), distinct=distinct,
+                / ms, rate_bound_ms=rate_bound,
+                pct_of_rate_bound=100 * rate_bound / ms,
+                sectors=int(st["sectors"].sum()), distinct=distinct,
                 over=over, probes=int(st["probes"].sum()), rounds=rounds,
                 util=lane_utilisation(st["probes"].cpu()),
                 reads=None if reads is None else int(reads.sum()),
@@ -573,8 +610,63 @@ def fancy_nodes_case(dev, didx, lr) -> dict:
                 max_abs_err=0)
 
 
+def query_records_bound_ms(didx) -> dict:
+    """The least times of plquery's record tables on `didx` (on the card):
+    the bucket records read xlist and ylist (2^buckets + 1 words each) and
+    bounds (if any) once and write 32 bytes a bucket; the rank records read
+    rev and the packed genome's words the keys read (all of them, to two
+    past the last base) once and write 16 bytes a rank; over
+    HBM_BYTES_PER_S."""
+    d = didx.device_arrays()
+    nb, n = 1 << didx.buckets, didx.n
+    words = min(d["packed"].shape[0], (n - 1) // 16 + 3)
+    bucket = 2 * 8 * (nb + 1) + (0 if d["bounds"] is None else 4 * nb) \
+        + 32 * nb
+    rank = (d["rev"].element_size() + 16) * n + 8 * words
+    return {"bucket_records": bucket / HBM_BYTES_PER_S * 1e3,
+            "plquery_records": rank / HBM_BYTES_PER_S * 1e3}
+
+
+def query_records_case(dev, didx) -> dict:
+    """Phase 3b: plquery's record tables of `didx` (on the card):
+    bucket_records_cuda and plquery_records_cuda against the plain
+    ops.query.bucket_records / plquery_records on the same CUDA tensors,
+    every word equal; each timed, with its plain version's time, its bound
+    (query_records_bound_ms) and its table's bytes."""
+    import torch
+
+    from sapling_tpu_torch.ops import query, query_cuda
+
+    d = didx.device_arrays()
+    tab = (d["xlist"], d["ylist"], d["bounds"])
+    runs = {"bucket_records": (
+        lambda: query_cuda.bucket_records_cuda(*tab, buckets=didx.buckets),
+        lambda: query.bucket_records(*tab, buckets=didx.buckets)),
+        "plquery_records": (
+        lambda: query_cuda.plquery_records_cuda(d["packed"], d["rev"],
+                                                n=didx.n),
+        lambda: query.plquery_records(d["packed"], d["rev"], n=didx.n))}
+    bounds = query_records_bound_ms(didx)
+    out = {}
+    for name, (kernel, plain) in runs.items():
+        got, want = kernel(), plain()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name} kernel != plain: {int((got != want).any(1).sum())}"
+                f" of {len(got)} records differ")
+        rows, nbytes = got.shape[0], got.numel() * got.element_size()
+        del got, want
+        ms = _time_ms(kernel, dev)
+        out[name] = dict(rows=rows, bytes=nbytes, ms=ms,
+                         plain_ms=_time_ms(plain, dev, reps=3, warm=1),
+                         bound_ms=bounds[name],
+                         pct_of_bound=100 * bounds[name] / ms,
+                         max_abs_err=0)
+    return out
+
+
 def query_kernel_phase(dev, idx21, art: str,
-                       tables) -> tuple[list[dict], dict]:
+                       tables) -> tuple[list[dict], dict, dict, dict]:
     """Phase 3b: the query kernels against the plain cascade on the card,
     each case on the same CUDA tensors (_kernel_case): plquery at
     QK_LENGTHS on the k=21 index as built and without prefix arrays (every
@@ -584,10 +676,18 @@ def query_kernel_phase(dev, idx21, art: str,
     pruned search's node records (fancy_nodes_case) and the search (with
     `tables`, the host llcp / rlcp, on records built once for each index,
     outside the timed calls) at QUERY_LEN with and without prefix64 and
-    with an int64 rev, and at the last SCALE_LENGTHS. fast3 at QUERY_LEN,
-    packed at the last SCALE_LENGTHS, each binary search and the pruned
-    one with prefix64 also run in a shuffled order. Returns the cases'
-    rows and the node records' (fancy_nodes_case on the k=21 index)."""
+    with an int64 rev, and at the last SCALE_LENGTHS. plquery at QUERY_LEN
+    and the last SCALE_LENGTHS, each binary search and the pruned one with
+    prefix64 also run in a shuffled order. plquery runs on each index's
+    record tables (query_records), made before its first case; at 4.6 Mbp
+    (no rank records: rev and the genome fit the L2) every case also runs
+    on rank records made for it ("records"), and up to QUERY_LEN, shuffled,
+    under a shifted pred64 and with adaptive bounds on the fast3 probe
+    ("fast3": the NN engine's).
+    Every case's second bound reads the sector rate random_sector_rate
+    measures first. Returns the cases' rows, the node records'
+    (fancy_nodes_case on the k=21 index), plquery's record tables'
+    (query_records_case on the k=21 index) and the sector rate."""
     import numpy as np
     import torch
 
@@ -595,15 +695,18 @@ def query_kernel_phase(dev, idx21, art: str,
     from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
 
     rows = []
+    rate = random_sector_rate(dev)
 
     def plquery_cases(tag, idx, length, codes=None, **over):
-        args, kw, form, lane_bytes = plquery_inputs(idx, length, codes,
-                                                    **over)
+        args, kw, form, lane_bytes, recs = plquery_inputs(idx, length, codes,
+                                                          **over)
+        tag += " records" if over.pop("ranks", False) else ""
+        tag += " fast3" if over.pop("fast3", False) else ""
         row = _kernel_case(
             dev, f"{tag} L={length} {form}",
-            lambda **st: query_cuda.plquery_cuda(*args, **st, **kw),
+            lambda **st: query_cuda.plquery_cuda(*args, **recs, **st, **kw),
             lambda: query.plquery_batch(*args, **kw), lane_bytes,
-            len(args[5]))
+            len(args[5]), rate["sectors_per_s"])
         rows.append(dict(row, kernel="plquery", length=length, form=form))
 
     def binsearch_case(tag, didx, codes):
@@ -614,7 +717,7 @@ def query_kernel_phase(dev, idx21, art: str,
             lambda **st: query_cuda.binsearch_cuda(d["packed"], d["rev"],
                                                    qw, **st, **kw),
             lambda: query.binsearch_batch(d["packed"], d["rev"], qw, **kw),
-            lane_bytes, len(codes))
+            lane_bytes, len(codes), rate["sectors_per_s"])
         rows.append(dict(row, kernel="binsearch", length=QUERY_LEN,
                          form="packed"))
 
@@ -631,33 +734,47 @@ def query_kernel_phase(dev, idx21, art: str,
             lambda **st: query_cuda.fancy_binsearch_cuda(
                 *args, nodes=nodes, **st, **kw),
             lambda: query.fancy_binsearch_batch(*args, **kw), lane_bytes,
-            len(codes))
+            len(codes), rate["sectors_per_s"])
         rows.append(dict(row, kernel="fancy", length=kw["length"],
                          form=form))
 
     bare = without_prefix(idx21)
+    rec_row = query_records_case(dev, idx21.to(dev))
+    built = idx21.to(dev)
     for length in QK_LENGTHS:
         codes, _n_in = query_codes(idx21.codes, length)
-        for tag, idx in (("built", idx21), ("no_prefix", bare)):
-            plquery_cases(tag, idx.to(dev), length, codes)
+        for tag, idx, ranks in (("built", built, False),
+                                ("built", built, True),
+                                ("no_prefix", bare.to(dev), False)):
+            plquery_cases(tag, idx, length, codes, ranks=ranks)
+        if length <= QUERY_LEN:
+            plquery_cases("built", built, length, codes, fast3=True)
     # shuffled: the measured cases with hits and misses mixed
-    for tag, idx, length in (("built", idx21, QUERY_LEN),
-                             ("no_prefix", bare, SCALE_LENGTHS[-1])):
+    for length in (QUERY_LEN, SCALE_LENGTHS[-1]):
         codes, _n_in = query_codes(idx21.codes, length)
-        plquery_cases(f"{tag} shuffled", idx.to(dev), length,
-                      shuffled(codes))
+        for ranks in (False, True):
+            plquery_cases("built shuffled", built, length, shuffled(codes),
+                          ranks=ranks)
+    plquery_cases("built shuffled", built, QUERY_LEN,
+                  shuffled(query_codes(idx21.codes)[0]), fast3=True)
     rev64 = dataclasses.replace(idx21, rev=idx21.rev.astype(np.int64),
                                 _device={}).to(dev)
     cap = QK_STRIDE_CAP
     for length in QK_OPTION_LENGTHS:
-        plquery_cases("int64 rev", rev64, length)
-        plquery_cases("adaptive", idx21.to(dev), length,
-                      adaptive_bounds=True)
-        plquery_cases(f"pred64 +-{QK_SHIFT}", idx21.to(dev), length,
-                      shift=QK_SHIFT)
-        plquery_cases(f"pred64 +-{QK_SHIFT} stride cap {cap}",
-                      idx21.to(dev), length, shift=QK_SHIFT,
-                      max_stride_steps=cap)
+        for ranks in (False, True):
+            plquery_cases("int64 rev", rev64, length, ranks=ranks)
+            plquery_cases("adaptive", built, length, adaptive_bounds=True,
+                          ranks=ranks)
+            plquery_cases(f"pred64 +-{QK_SHIFT}", built, length,
+                          shift=QK_SHIFT, ranks=ranks)
+            plquery_cases(f"pred64 +-{QK_SHIFT} stride cap {cap}", built,
+                          length, shift=QK_SHIFT, max_stride_steps=cap,
+                          ranks=ranks)
+    # the NN engine's probe: fast3 under a caller's prediction
+    plquery_cases(f"pred64 +-{QK_SHIFT}", built, QUERY_LEN, shift=QK_SHIFT,
+                  fast3=True)
+    plquery_cases("adaptive", built, QUERY_LEN, adaptive_bounds=True,
+                  fast3=True)
     codes, _n_in = query_codes(idx21.codes)
     binsearch_case("", idx21.to(dev), codes)
     binsearch_case("shuffled ", idx21.to(dev), shuffled(codes))
@@ -680,7 +797,7 @@ def query_kernel_phase(dev, idx21, art: str,
     binsearch_case(f"{big.n} bp ", big, codes)
     binsearch_case(f"{big.n} bp shuffled ", big, shuffled(codes))
     del big
-    return rows, node_row
+    return rows, node_row, rec_row, rate
 
 
 def nn_bound_ms(b: int, c: int, s: int, sm_clock_mhz: float,
@@ -883,21 +1000,35 @@ def nn_kernel_phase(dev, idx21, sm_clock_mhz: float) -> dict:
     return out
 
 
-def plquery_inputs(idx, length: int, codes=None, shift: int = 0, **over):
+def plquery_inputs(idx, length: int, codes=None, shift: int = 0,
+                   ranks: bool = False, fast3: bool = False, **over):
     """A plquery case on `idx` (on the card): query_codes (or `codes`) as
-    plquery_batch's arguments and keywords (with `shift`, a pred64 moved
-    by up to that many ranks, seeded), the probe form and the coalesced
-    bytes a lane reads and writes: (args, kw, form, lane_bytes)."""
+    plquery_batch's arguments (q_words; with `fast3`, where the index has
+    prefix3 and the length allows, q3 too, so that the kernel and the
+    plain version take the fast3 probe) and keywords (with `shift`, a
+    pred64 moved by up to that many ranks, seeded), the kernel's probe
+    form (query_cuda.kernel_form), the coalesced bytes a lane reads and
+    writes and the index's record tables as plquery_cuda's keywords (made
+    here on first use; with `ranks`, rank records made for the case
+    whatever the index's size): (args, kw, form, lane_bytes, recs)."""
     import numpy as np
     import torch
 
+    from sapling_tpu_torch.ops import pack as packops
     from sapling_tpu_torch.ops import query_cuda
     from sapling_tpu_torch.ops.predict import predict_pwl
 
     if codes is None:
         codes, _n_in = query_codes(idx.codes, length)
     d = idx.device_arrays()
-    x, q3, q_words = idx.query_inputs(codes)
+    x, _q3, q_words = idx.query_inputs(codes)
+    if q_words is None:   # an index on the CPU packs q3 for fast3
+        q_words = idx.query_words(codes)
+    q3 = None
+    if fast3 and d["prefix3"] is not None and \
+            length <= min(idx.k, packops.P3_BASES):
+        q3 = torch.from_numpy(
+            packops.pack_queries3(codes).view(np.int64)).to(x.device)
     t = idx.table
     kw = dict(n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
               most_over=t.most_over, most_under=t.most_under,
@@ -912,11 +1043,25 @@ def plquery_inputs(idx, length: int, codes=None, shift: int = 0, **over):
             idx.n - 1)
     args = (d["packed"], d["rev"], d["xlist"], d["ylist"], q_words, x,
             d["prefix64"], d["prefix3"], q3, d["bounds"])
-    form = query_cuda.probe_form(length, idx.k, d["prefix64"],
-                                 d["prefix3"], q3)
+    recs = dict(zip(("bucket_recs", "rank_recs"), idx.query_records()))
+    if ranks and recs["rank_recs"] is None:
+        recs["rank_recs"] = query_cuda.plquery_records_cuda(
+            d["packed"], d["rev"], n=idx.n)
+    form = query_cuda.kernel_form(length, idx.k, d["prefix3"], q3,
+                                  recs["rank_recs"])
     lane_bytes = 16 + (8 if form == "fast3" else 8 * q_words.shape[0]) \
         + (8 if shift else 0)
-    return args, kw, form, lane_bytes
+    return args, kw, form, lane_bytes, recs
+
+
+def query_form(didx, inputs, length: int) -> str:
+    """The probe plquery_kernel takes for didx.query_device (an index on
+    the card) over `inputs` (its query_inputs): query_cuda.kernel_form."""
+    from sapling_tpu_torch.ops import query_cuda
+
+    return query_cuda.kernel_form(length, didx.k,
+                                  didx.device_arrays()["prefix3"], inputs[1],
+                                  didx.query_records()[1])
 
 
 def binsearch_inputs(didx, codes):
@@ -1057,14 +1202,6 @@ def _check(name, pos, ok, n_in, want, every: bool = True):
                              " positions differ from the CPU path")
 
 
-def _probe_form(idx, length: int) -> str:
-    if idx.prefix3 is not None and length <= min(idx.k, 21):
-        return "fast3"
-    if idx.prefix64 is not None and length <= 32:
-        return "prefix64"
-    return "packed"
-
-
 def sweep_phase(dev, idx21) -> list[dict]:
     """Phase 6: the length sweep on the k=21 index as built and without
     its prefix arrays; per length and index: probe form, CUDA-event ms,
@@ -1091,7 +1228,7 @@ def sweep_phase(dev, idx21) -> list[dict]:
             rounds = dict(query.ROUNDS)
             ms = _time_ms(lambda: didx.query_device(*inputs, length), dev,
                           reps=3, warm=1)
-            row[name] = dict(form=_probe_form(idx, length), ms=ms,
+            row[name] = dict(form=query_form(didx, inputs, length), ms=ms,
                              qps=N_QUERIES / (ms / 1e3),
                              stride_steps=rounds["C"],
                              bisect_rounds=rounds["D"],
@@ -1194,8 +1331,10 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
     bench_query_scale loads it), SCALE_LENGTHS queries on `dev` with the
     artifact's own table and then, after swap_table, with the retabled
     one; every in-genome query self-checks and the first N_QUERY_CHECK
-    positions equal the CPU path's; rev and packed stay the same tensors
-    across the swap."""
+    positions equal the CPU path's; the first query makes the index's
+    record tables (its launches are kept: one plquery_records); rev,
+    packed and the rank records stay the same tensors across the swap, the
+    bucket records are made anew."""
     import torch
 
     from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
@@ -1207,23 +1346,29 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
     t0 = time.perf_counter()
     arrays = didx.device_arrays()
     torch.cuda.synchronize(dev)
-    out = dict(n=didx.n, send_s=time.perf_counter() - t0,
-               device_bytes=didx.device_bytes(), rows=[], pos={})
+    out = dict(n=didx.n, send_s=time.perf_counter() - t0, rows=[], pos={})
     ptrs = {f: arrays[f].data_ptr() for f in ("rev", "packed")}
     for name, table in (("own", None),
                         ("retable", load_table(table_path, didx.n, didx.k))):
         if table is not None:
             didx.swap_table(table)
             host.swap_table(table)
-            moved = [f for f, p in ptrs.items()
-                     if didx.device_arrays()[f].data_ptr() != p]
+            now = dict(didx.device_arrays(),
+                       **{"rank records": didx.query_records()[1]})
+            moved = [f for f, p in ptrs.items() if now[f].data_ptr() != p]
             if moved:
                 raise AssertionError(f"swap_table moved {moved}")
+            if didx.query_records()[0].shape[0] != 1 << table.buckets:
+                raise AssertionError("swap_table kept the old bucket records")
         for length in SCALE_LENGTHS:
             codes, n_in = query_codes(didx.codes, length)
             inputs = didx.query_inputs(codes)
             pos, launches, _ = counted(
                 lambda: didx.query_device(*inputs, length))
+            # the first query made the index's record tables
+            out.setdefault("launches", launches)
+            ptrs.setdefault("rank records",
+                            didx.query_records()[1].data_ptr())
             pos = pos.cpu().numpy()
             ok = didx.verify_hits(codes, pos)
             tag = f"2^{didx.buckets} L={length}"
@@ -1240,6 +1385,10 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
                                     in_genome=n_in,
                                     launches=launches["plquery"]))
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["device_bytes"] = didx.device_bytes()
+    if out["launches"]["plquery_records"] != 1:
+        raise AssertionError(f"the {didx.n} bp index's first query did not "
+                             f"make its rank records: {out['launches']}")
     return out
 
 
@@ -1346,20 +1495,21 @@ def nn_phase(dev, idx21) -> dict:
     codes, n_in = query_codes(idx21.codes)
     eng = NNQueryEngine(didx, srv)
     inputs = didx.query_inputs(codes)
-    pos, launches, _ = counted(lambda: eng.query_device(*inputs))
+    nn_inputs = eng.query_inputs(codes)   # the fast3 probe's q3
+    pos, launches, _ = counted(lambda: eng.query_device(*nn_inputs))
     if (launches["nn_predict"], launches["plquery"]) != (1, 1):
         raise AssertionError(f"NN engine call launched {launches}, not one "
                              "nn_predict and one plquery")
     pos = pos.cpu().numpy()
     query.ROUNDS.update(C=0, D=0)
-    eng.query_device(*inputs, stats=True)
+    eng.query_device(*nn_inputs, stats=True)
     nn_rounds = query.ROUNDS["D"]
     query.ROUNDS.update(C=0, D=0)
     didx.query_device(*inputs, QUERY_LEN, stats=True)
     pwl_rounds = query.ROUNDS["D"]
     _check("NN engine", pos, didx.verify_hits(codes, pos), n_in,
            NNQueryEngine(idx21, host).query_positions(codes[:N_QUERY_CHECK]))
-    runs = {"nn": lambda: eng.query_device(*inputs),
+    runs = {"nn": lambda: eng.query_device(*nn_inputs),
             "pwl": lambda: didx.query_device(*inputs, QUERY_LEN)}
     times = {name: [] for name in runs}
     for _ in range(3):
@@ -1820,10 +1970,16 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 3b. the query kernels vs the plain cascade on the card
     t0 = time.perf_counter()
-    qk, fnodes = query_kernel_phase(dev, idx21, scale[1], tables)
+    qk, fnodes, recs, rate = query_kernel_phase(dev, idx21, scale[1],
+                                                tables)
     nk = nn_kernel_phase(dev, idx21, sm_clock_mhz)
     log(f"query kernel vs plain: phase 3b took "
         f"{time.perf_counter() - t0:.1f} s")
+    log(f"query kernel vs plain: the card's random 32-byte sector rate, a "
+        f"torch gather of {rate['lanes']} random int64 of "
+        f"{SECTOR_RATE_ELEMS} ({rate['distinct']} distinct sectors) in "
+        f"{rate['ms']:.4f} ms: {rate['sectors_per_s'] / 1e9:.2f}G sectors/s "
+        "(the second bound of each case)")
     for r in qk:
         log(f"query kernel vs plain: {r['kernel']} {r['name']}: "
             f"{N_QUERIES} lanes equal, rounds {r['rounds']} equal; kernel "
@@ -1831,11 +1987,19 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
             f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
             f"({r['distinct']} distinct sectors of 32 B of {r['sectors']} "
             f"the lanes touched, {r['over']} lanes past {QK_TRACE}; "
-            f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it); lane "
+            f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it), at the "
+            f"measured sector rate {r['rate_bound_ms']:.4f} ms "
+            f"({r['pct_of_rate_bound']:.1f}% of it); lane "
             f"utilisation {100 * r['util']:.1f}%"
             + ("" if r["reads"] is None else
                f"; sectors read {r['reads']} ({r['reads'] / N_QUERIES:.2f}"
                " a lane: node records and genome windows)"))
+    for name, r in recs.items():
+        log(f"query kernel vs plain: {name}, plquery's record table of the "
+            f"k=21 index: {r['rows']} records ({r['bytes']} bytes) equal to "
+            f"the plain version; build kernel {r['ms']:.4f} ms (1 launch), "
+            f"plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['pct_of_bound']:.1f}% of it)")
     log(f"query kernel vs plain: fancy_nodes, the pruned search's node "
         f"records of the k=21 index: {fnodes['n']} records "
         f"({fnodes['bytes']} bytes) equal to the plain version; build "
@@ -1916,10 +2080,11 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
             f"{r['in_genome']} in-genome, first {N_QUERY_CHECK} identical "
             f"to the CPU path; {r['launches']} plquery launch")
     log(f"scale: loaded memory-mapped without inv/lcpk, device arrays "
-        f"{sc['device_bytes'] / 1e9:.3f} GB sent in {sc['send_s']:.2f} s, "
-        f"peak device memory {sc['peak_bytes'] / 1e9:.3f} GB "
-        "(torch.cuda.max_memory_allocated); swap_table kept rev and "
-        "packed in place")
+        f"sent in {sc['send_s']:.2f} s, with plquery's record tables "
+        f"{sc['device_bytes'] / 1e9:.3f} GB (device_bytes), peak device "
+        f"memory {sc['peak_bytes'] / 1e9:.3f} GB "
+        "(torch.cuda.max_memory_allocated); swap_table kept rev, packed "
+        "and the rank records in place and made the bucket records anew")
 
     # 9. the NN predictor
     t0 = time.perf_counter()
@@ -1956,7 +2121,7 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 11. profiling, evalx, the gather microbenchmark
     last_modules_phase(dev, seq, idx21, td, al)
-    return kp, qk, fnodes, nk, al, qr, bl, nn
+    return kp, qk, fnodes, recs, nk, al, qr, bl, nn, sc
 
 
 def main() -> int:
@@ -1980,7 +2145,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         scale = start_scale_build(td)
         try:
-            kp, qk, fnodes, nk, al, qr, bl, nn = run_phases(
+            kp, qk, fnodes, recs, nk, al, qr, bl, nn, sc = run_phases(
                 td, scale, sm_clock_mhz)
         finally:
             if scale[0].poll() is None:
@@ -1997,13 +2162,16 @@ def main() -> int:
          "launches": al["launches"]["score_only"], **kp["score_only"]},
     ]
     # the query kernels' rows: phase 3b's case on phase 5's queries (k=21
-    # index as built: fast3, the binary search, the pruned search with
-    # prefix64, its node records); launches of phase 5's and phase 7's
-    # main calls. No PyTorch call computes any of the four.
+    # index as built: plquery, the binary search, the pruned search with
+    # prefix64, its node records, plquery's record tables); launches of
+    # phase 5's, 7's and 8's main calls (phase 5's first query on the card
+    # makes the bucket records, phase 8's the 46 Mbp index's rank records
+    # too). No PyTorch call computes any of them.
     qsrc = os.path.relpath(query_cuda.SOURCE, ROOT)
     for name, replaces, row, launches in (
             ("plquery", "sapling_tpu/ops/query.py:1011",
-             next(r for r in qk if r["name"] == f"built L={QUERY_LEN} fast3"),
+             next(r for r in qk if r["kernel"] == "plquery"
+                  and r["name"].startswith(f"built L={QUERY_LEN} ")),
              qr["launches"]["plquery"]),
             ("binsearch", "sapling_tpu/ops/query.py:1370",
              next(r for r in qk if r["kernel"] == "binsearch"),
@@ -2012,7 +2180,11 @@ def main() -> int:
              next(r for r in qk if r["kernel"] == "fancy"),
              bl["fancy"]["launches"]["fancy"]),
             ("fancy_nodes", "sapling_tpu/ops/query.py:1404", fnodes,
-             bl["fancy"]["launches"]["fancy_nodes"])):
+             bl["fancy"]["launches"]["fancy_nodes"]),
+            ("bucket_records", "sapling_tpu/ops/predict.py:231",
+             recs["bucket_records"], qr["launches"]["bucket_records"]),
+            ("plquery_records", "sapling_tpu/ops/query.py:1011",
+             recs["plquery_records"], sc["launches"]["plquery_records"])):
         kernels.append({
             "name": name, "route": "cuda", "source": qsrc,
             "replaces": replaces, "launches": launches,

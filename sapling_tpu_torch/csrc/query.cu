@@ -23,21 +23,27 @@
 //   probes     PROBE selects one of three forms with the same outcome:
 //                kFast3     one int64 compare against prefix3[rank] (the
 //                           value is the rank; rev is read once at the end)
-//                kPrefix64  one unsigned 64-bit compare, masked to the
-//                           length, against prefix64[rank], beside rev[rank]
-//                kPacked    rev[rank], then ceil(L/16)+1 genome words,
-//                           funnel-shifted into line, XOR, clz
-//              and finish's off-end rules;
+//                kPrefix64  up to 32 bases: one unsigned 64-bit compare,
+//                           masked to the length, against the suffix's
+//                           first 32 bases (plquery: its rank record's key;
+//                           the pruned search: its node record's)
+//                kPacked    with rank records the key, then on a tie past
+//                           32 bases, else rev[rank] and at once,
+//                           ceil(L/16)+1 genome words, funnel-shifted into
+//                           line, XOR, clz
+//              and finish's off-end rules (the plain versions' prefix64
+//              probe gives the same outcomes);
 //   cascade    the prediction probe, the optional bucket probe
 //              (adaptive_bounds), phase A (the 'most' window edge), phase B
 //              (the 'max' window edge), phase C (the stride scan for L > k,
 //              capped by max_stride_steps, with the stuck test) and phase D
 //              (bisection with the hi == lo + 2 base case).
 //
-// What bounds them: bytes, as random 32-byte sectors. A probe reads one
-// sector of prefix3, or a sector of rev and one of prefix64, or a sector of
-// rev and one or two of the packed genome; prediction reads xlist and ylist
-// (one or two sectors each). The least time of a call is the distinct
+// What bounds them: bytes, as random 32-byte sectors. A plquery
+// prediction reads one sector of the bucket records, a probe one of
+// prefix3 or of the rank records (and the genome on a tie past 32 bases)
+// or one of rev and one or two of the packed genome, as the binary
+// search's probes do. The least time of a call is the distinct
 // sectors its lanes touch, times 32 bytes, over HBM's 3.35 TB/s; with
 // `stats` the kernels count the sectors a lane touches (and can record
 // their numbers, so that the caller counts the distinct ones), and their
@@ -53,13 +59,31 @@
 //                    them bought 1.03-1.04x on a torch gather). A query
 //                    takes 2.4 probes on average (61% resolve at the
 //                    prediction probe, the deepest 10), and a warp runs as
-//                    long as its deepest lane: 40-46% of its probe slots do
-//                    a lane's probe. A front stage with a per-warp queue in
-//                    shared memory raised that to 72-78% but needed 52-78
-//                    registers a thread against 40-72 here, and ran
-//                    1.10-1.15x slower on an H100 (PERF.md): this kernel
-//                    already reads its distinct sectors at about the rate a
-//                    torch gather reaches for random sectors.
+//                    long as its deepest lane. A per-warp queue
+//                    raised the probe slots a lane uses from 40-46% to
+//                    72-78% but ran 1.10-1.15x slower (registers): time
+//                    follows the sectors a lane reads from device memory.
+//                    So a prediction reads one 32-byte bucket record
+//                    (bucket_records_kernel: xlo, xhi, ylo, and yhi - ylo
+//                    beside the bucket's bounds word), not two sectors
+//                    each of xlist and ylist and one of bounds: 1.14-1.29x
+//                    on an H100. A probe reads one 16-byte rank record
+//                    (rank_records_kernel: the suffix's first 32 bases,
+//                    genome_key, and rev), not rev and then, dependent on
+//                    it, the genome: the key decides up to 32 bases, and
+//                    past 32 unless all 32 agree, where compare_at reads
+//                    the genome. That takes a DRAM load off a probe where
+//                    rev and the genome outgrow the 50 MB L2 (46 Mbp:
+//                    1.05-1.26x); where they fit (4.6 Mbp) a probe found
+//                    both in L2 and the records ran 0.83-1.00x, so the
+//                    wrapper passes no rank records there and a probe
+//                    reads rev and the genome. The prefix3 probe (fast3,
+//                    8 bytes a rank) ran 1.03-1.06x slower than the rank
+//                    records at 16 and 21 bases on the PWL prediction (2.4
+//                    probes a query), but 1.48x faster than rev and the
+//                    genome under the NN engine's predictions (17
+//                    bisection rounds): it answers where the caller
+//                    passes q3. The prefix64 probe was dropped.
 //   binsearch_kernel Every lane's bisection over [0, n-1] starts with the
 //                    same midpoints, so the first kTreeLevels levels (and
 //                    the pre-probes of ranks 0 and n-1) are one table: each
@@ -119,6 +143,9 @@ constexpr int kSearchThreads = 512;
 constexpr int kFast3 = 0, kPrefix64 = 1, kPacked = 2;
 constexpr int kBasesPerWord = 16;
 constexpr int kWin = 7;   // query words a probe compares from registers
+// a bucket record's yhi - ylo that says "read ylist[bucket + 1]": a bucket
+// of 2^32 - 1 ranks or more (n >= 2^32), or a falling ylist
+constexpr uint32_t kWideM = 0xFFFFFFFFu;
 
 struct Args {
   const int64_t* packed;    // [packed_len] 2-bit genome words (< 2^32)
@@ -144,6 +171,11 @@ struct Args {
   const int32_t* llcp = nullptr;   // the pruned search's [n] tables
   const int32_t* rlcp = nullptr;
   const longlong2* nodes = nullptr;   // its [n] node records, 2 halves each
+  // plquery's records: [2^buckets] of 2 halves ({xlo, xhi}, {ylo, m |
+  // bounds << 32}) and [n] rank records {genome_key(rev[r]), rev[r]} (or
+  // null: a probe reads rev and the genome)
+  const longlong2* bucket_recs = nullptr;
+  const longlong2* rank_recs = nullptr;
 };
 
 struct Probe {
@@ -200,13 +232,21 @@ __device__ __forceinline__ uint64_t genome_key(const Args& a, int64_t pos) {
   return (uint64_t)hi << 32 | lo;
 }
 
-// One query's state: its inputs, read once, and its counts.
-template <int PROBE, typename REV>
+// rank r's rank record: the suffix's first 32 bases and its position
+template <typename REV>
+__device__ __forceinline__ longlong2 rank_record(const Args& a, int64_t r) {
+  const int64_t pos = rev_at<REV>(a.rev, r);
+  return make_longlong2((long long)genome_key(a, pos), pos);
+}
+
+// One query's state: its inputs, read once, and its counts. With RANKS a
+// probe reads rank records (plquery's), else rev and the genome.
+template <int PROBE, typename REV, bool RANKS = false>
 struct Lane {
   const Args& a;
   int64_t b;
-  uint64_t qword;                 // prefix64: the query's masked 64 bits
-  uint64_t qmask;
+  uint64_t qword;                 // the query's first 32 bases, masked to
+  uint64_t qmask;                 // the length (not on fast3)
   int64_t q3m, mask3;             // fast3: the masked query and its mask
   uint32_t qw[kWin];              // packed: the query's first words
   int wq;
@@ -238,18 +278,22 @@ struct Lane {
       mask3 = 0;
       for (int j = 0; j < L; ++j) mask3 |= (int64_t)7 << (60 - 3 * j);
       q3m = a.q3[b] & mask3;
-    } else if constexpr (PROBE == kPrefix64) {
-      wq = (L + kBasesPerWord - 1) / kBasesPerWord;
-      qmask = ~0ull << (64 - 2 * L);           // 1 <= L <= 32
-      const uint64_t hi = (uint32_t)a.q_words[b];
-      const uint64_t lo = wq > 1 ? (uint32_t)a.q_words[a.B + b] : 0;
-      qword = ((hi << 32) | lo) & qmask;
+      return;
+    }
+    wq = (L + kBasesPerWord - 1) / kBasesPerWord;
+    qmask = L >= 32 ? ~0ull : ~0ull << (64 - 2 * L);
+    uint64_t hi, lo;
+    if constexpr (PROBE == kPrefix64) {
+      hi = (uint32_t)a.q_words[b];
+      lo = wq > 1 ? (uint32_t)a.q_words[a.B + b] : 0;
     } else {
-      wq = (L + kBasesPerWord - 1) / kBasesPerWord;
 #pragma unroll
       for (int j = 0; j < kWin; ++j)
         if (j < wq) qw[j] = (uint32_t)a.q_words[j * a.B + b];
+      hi = qw[0];
+      lo = wq > 1 ? qw[1] : 0;
     }
+    qword = ((hi << 32) | lo) & qmask;
   }
 
   // the off-end rules (the reference's getLcp, src/sapling_api.h:115-130):
@@ -268,6 +312,8 @@ struct Lane {
     return p;
   }
 
+  // the query against the suffix at rank: from prefix3 (kFast3), its rank
+  // record (RANKS), else rev[rank] and the genome (kPacked)
   __device__ Probe probe(int64_t rank) {
     ++probes;
     if constexpr (PROBE == kFast3) {
@@ -281,16 +327,34 @@ struct Lane {
       p.off_end = false;
       p.lcp = 0;
       return p;
-    } else if constexpr (PROBE == kPrefix64) {
-      const int64_t pos = rev(rank);
-      touch(a.prefix + rank);
-      const uint64_t pw = (uint64_t)__ldg(a.prefix + rank) & qmask;
-      const uint64_t d = pw ^ qword;
-      const int64_t lcp_raw = d ? __clzll((long long)d) >> 1 : a.length;
-      return finish(pos, lcp_raw, qword > pw);
+    } else if constexpr (RANKS) {
+      const longlong2* at = a.rank_recs + rank;
+      touch(at);
+      const longlong2 r = __ldg(at);
+      Probe p;
+      if constexpr (PROBE == kPrefix64) {
+        key_decides(r.y, (uint64_t)r.x, &p);   // always, up to 32 bases
+        return p;
+      } else {
+        return key_decides(r.y, (uint64_t)r.x, &p) ? p : compare_at(r.y);
+      }
     } else {
+      static_assert(PROBE == kPacked, "the key form reads rank records");
       return compare_at(rev(rank));
     }
+  }
+
+  // The query's first min(L, 32) bases against key, the first 32 bases of
+  // the suffix at pos (genome_key; it differs from the plain version's
+  // prefix64 only past the genome's end, where finish caps the LCP): true,
+  // with *p the outcome, where they decide (some base differs, or L <=
+  // 32); false where all agree past 32 bases (compare_at decides).
+  __device__ bool key_decides(int64_t pos, uint64_t key, Probe* p) const {
+    const uint64_t pw = key & qmask;
+    const uint64_t d = pw ^ qword;
+    if (!d && a.length > 32) return false;
+    *p = finish(pos, d ? __clzll((long long)d) >> 1 : a.length, qword > pw);
+    return true;
   }
 
   // probe(rank) of the packed form with rev[rank] and genome_key(rev[rank])
@@ -300,15 +364,12 @@ struct Lane {
   __device__ Probe probe_known(int64_t rank, int64_t pos, uint64_t key) {
     ++probes;
     touch(static_cast<const REV*>(a.rev) + rank);
-    const uint64_t q = (uint64_t)qw[0] << 32 | (wq > 1 ? qw[1] : 0u);
-    const uint64_t mask = wq > 1 ? ~0ull : ~0ull << 32;
-    const uint64_t d = (q ^ key) & mask;
-    if (!d && wq > 2) return compare_at(pos);
+    Probe p;
+    if (!key_decides(pos, key, &p)) return compare_at(pos);
     const int64_t last = a.packed_len - 1, w0 = pos >> 4;   // its first window
     touch(a.packed + lmin(w0, last),
           a.packed + lmin(w0 + (wq < kWin ? wq : kWin), last));
-    return finish(pos, d ? __clzll((long long)d) >> 1 : a.length,
-                  (q & mask) > (key & mask));
+    return p;
   }
 
   // probe(rank) answered from rank's node record: the suffix's first 32
@@ -328,10 +389,9 @@ struct Lane {
         const int64_t last = a.packed_len - 1, w0 = pos >> 4;
         touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + wq, last));
       }
-      const uint64_t pw = key & qmask;
-      const uint64_t d = pw ^ qword;
-      return finish(pos, d ? __clzll((long long)d) >> 1 : a.length,
-                    qword > pw);
+      Probe p;
+      key_decides(pos, key, &p);
+      return p;
     } else {
       return probe_known(rank, pos, key);
     }
@@ -382,6 +442,9 @@ struct Lane {
   __device__ int64_t value_at(int64_t rank) {
     if constexpr (PROBE == kFast3) {
       return rank;
+    } else if constexpr (RANKS) {
+      touch(a.rank_recs + rank);
+      return __ldg(a.rank_recs + rank).y;
     } else {
       return rev(rank);
     }
@@ -424,16 +487,25 @@ struct Lane {
 };
 
 // predict_pwl: round half up of ylo + M*N/D, M = yhi - ylo, N = x - xlo,
-// D = xhi - xlo, with N split in base 2^16 so that no product leaves int64
+// D = xhi - xlo, with N split in base 2^16 so that no product leaves int64.
+// The bucket's checkpoints come from its bucket record (one sector; m past
+// 32 bits reads ylist[bucket + 1] too), which also holds its bounds word:
+// *bw.
 template <typename L>
-__device__ int64_t predict(L& lane, int64_t x) {
+__device__ int64_t predict(L& lane, int64_t x, uint32_t* bw) {
   const Args& a = lane.a;
   const int64_t bucket = x >> (2 * a.k - a.buckets);
-  const int64_t xlo = __ldg(a.xlist + bucket), xhi = __ldg(a.xlist + bucket + 1);
-  const int64_t ylo = __ldg(a.ylist + bucket), yhi = __ldg(a.ylist + bucket + 1);
-  lane.touch(a.xlist + bucket, a.xlist + bucket + 1);
-  lane.touch(a.ylist + bucket, a.ylist + bucket + 1);
-  const int64_t d = xhi - xlo, m = yhi - ylo, nn = x - xlo;
+  const longlong2* rec = a.bucket_recs + 2 * bucket;
+  lane.touch(rec, rec + 1);
+  const longlong2 xs = __ldg(rec), ys = __ldg(rec + 1);
+  const int64_t xlo = xs.x, xhi = xs.y, ylo = ys.x;
+  int64_t m = (uint32_t)ys.y;
+  *bw = (uint32_t)((uint64_t)ys.y >> 32);
+  if (m == kWideM) {
+    lane.touch(a.ylist + bucket + 1);
+    m = __ldg(a.ylist + bucket + 1) - ylo;
+  }
+  const int64_t d = xhi - xlo, nn = x - xlo;
   const int64_t abs_n = nn < 0 ? -nn : nn;
   const int64_t nh = abs_n >> 16, nl = abs_n & 0xFFFF;
   const int64_t ds = d == 0 ? 1 : d;
@@ -447,14 +519,15 @@ __device__ int64_t predict(L& lane, int64_t x) {
   return lmin(lmax(pred, 0), a.n - 1);
 }
 
-template <int PROBE, typename REV>
+template <int PROBE, typename REV, bool RANKS>
 __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant__ Args a) {
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= a.B) return;
-  Lane<PROBE, REV> lane(a, b);
+  Lane<PROBE, REV, RANKS> lane(a, b);
   const int64_t n = a.n;
   const int64_t x = a.x[b];
-  const int64_t pred = a.pred64 ? a.pred64[b] : predict(lane, x);
+  uint32_t bw = 0;   // the bucket's bounds word (adaptive)
+  const int64_t pred = a.pred64 ? a.pred64[b] : predict(lane, x, &bw);
   const int64_t e_right = lmin(pred + a.most_over, n - 1);
   const int64_t e_left = lmax(pred - a.most_under, 0);
 
@@ -467,10 +540,13 @@ __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant
   int64_t a_right = 0, a_left = 0;
   if (a.adaptive) {
     // the bucket's own max-error window, before the 'most' window; a
-    // clipped bucket (0xFFFF) takes the 'most' window
-    const int32_t* at = a.bounds + (x >> (2 * a.k - a.buckets));
-    lane.touch(at);
-    const uint32_t bw = (uint32_t)__ldg(at);
+    // clipped bucket (0xFFFF) takes the 'most' window. predict read its
+    // bounds word; a caller's prediction reads it from bounds.
+    if (a.pred64) {
+      const int32_t* at = a.bounds + (x >> (2 * a.k - a.buckets));
+      lane.touch(at);
+      bw = (uint32_t)__ldg(at);
+    }
     a_right = lmin(pred + lmin(bw >> 16, a.most_over), n - 1);
     a_left = lmax(pred - lmin(bw & 0xFFFF, a.most_under), 0);
     const Probe p1 = lane.probe(right ? a_right : a_left);
@@ -635,18 +711,44 @@ __device__ __forceinline__ FancyNode load_node(const longlong2* nodes,
   return FancyNode{(uint64_t)kp.x, kp.y, (int)lr.x, (int)(lr.x >> 32)};
 }
 
-// The records: one thread a rank r writes {genome_key(rev[r]), rev[r]} and
-// {llcp[r] | rlcp[r] << 32, 0}, both tables' entries exact.
+// The records: one thread a rank r writes its rank record {genome_key(
+// rev[r]), rev[r]} and {llcp[r] | rlcp[r] << 32, 0}, both tables' entries
+// exact.
 template <typename REV>
 __global__ void __launch_bounds__(kThreads)
     fancy_nodes_kernel(const __grid_constant__ Args a, longlong2* nodes) {
   const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (r >= a.n) return;
-  const int64_t pos = rev_at<REV>(a.rev, r);
   const uint64_t lr = (uint32_t)__ldg(a.llcp + r)
                       | (uint64_t)(uint32_t)__ldg(a.rlcp + r) << 32;
-  nodes[2 * r] = make_longlong2((long long)genome_key(a, pos), pos);
+  nodes[2 * r] = rank_record<REV>(a, r);
   nodes[2 * r + 1] = make_longlong2((long long)lr, 0);
+}
+
+// plquery's rank records: one thread a rank r writes {genome_key(rev[r]),
+// rev[r]} (16 bytes: a probe's one load).
+template <typename REV>
+__global__ void __launch_bounds__(kThreads)
+    rank_records_kernel(const __grid_constant__ Args a, longlong2* recs) {
+  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= a.n) return;
+  recs[r] = rank_record<REV>(a, r);
+}
+
+// plquery's bucket records: one thread a bucket b writes {xlist[b],
+// xlist[b + 1]} and {ylist[b], m | bounds[b] << 32} (32 bytes: a
+// prediction's one load), m = ylist[b + 1] - ylist[b] where it lies in
+// [0, kWideM), else kWideM (the kernel then reads ylist[b + 1]); bounds 0
+// without the array.
+__global__ void __launch_bounds__(kThreads)
+    bucket_records_kernel(const __grid_constant__ Args a, longlong2* recs) {
+  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= (int64_t)1 << a.buckets) return;
+  const int64_t ylo = __ldg(a.ylist + b), m = __ldg(a.ylist + b + 1) - ylo;
+  const uint64_t m32 = m >= 0 && m < (int64_t)kWideM ? (uint64_t)m : kWideM;
+  const uint64_t bw = a.bounds ? (uint32_t)__ldg(a.bounds + b) : 0u;
+  recs[2 * b] = make_longlong2(__ldg(a.xlist + b), __ldg(a.xlist + b + 1));
+  recs[2 * b + 1] = make_longlong2(ylo, (long long)(bw << 32 | m32));
 }
 
 // The llcp/rlcp-pruned search (the port's fancy_binsearch_batch; the
@@ -758,12 +860,25 @@ int launch_fancy_nodes(const Args& a, longlong2* nodes, int rev64,
   return (int)cudaGetLastError();
 }
 
-template <int PROBE>
+int launch_rank_records(const Args& a, longlong2* recs, int rev64,
+                        cudaStream_t stream) {
+  if (rev64)
+    rank_records_kernel<int64_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
+        a, recs);
+  else
+    rank_records_kernel<int32_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
+        a, recs);
+  return (int)cudaGetLastError();
+}
+
+template <int PROBE, bool RANKS>
 int launch_plquery(const Args& a, int rev64, cudaStream_t stream) {
   if (rev64)
-    plquery_kernel<PROBE, int64_t><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
+    plquery_kernel<PROBE, int64_t, RANKS><<<blocks_for(a.B), kThreads, 0,
+                                            stream>>>(a);
   else
-    plquery_kernel<PROBE, int32_t><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
+    plquery_kernel<PROBE, int32_t, RANKS><<<blocks_for(a.B), kThreads, 0,
+                                            stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -806,43 +921,64 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
 // launched. The arrays are SaplingIndex.device_arrays()' (int64 packed
 // words, xlist, ylist and prefix views; rev int32 holding uint32 bits when
 // rev64 is 0, else int64; bounds int32 holding uint32 bits); q_words is
-// int64 [ceil(L/16), B]; x, q3, pred64 and out are int64 [B]. lane_stats
+// int64 [ceil(L/16), B]; x, pred64 and out are int64 [B]. lane_stats
 // (int32 [2, B]; [3, B] for the pruned search), depth (int32 [2], zeroed)
-// and trace (int64 [B, trace_cap]) may be null. The pruned search reads
-// llcp, rlcp and prefix only through its node records (nodes, int64 [n,
-// 4], 32-byte aligned); with stats it records their sectors.
+// and trace (int64 [B, trace_cap]) may be null. plquery reads xlist,
+// ylist and bounds through its bucket records (bucket_recs, int64
+// [2^buckets, 4], 32-byte aligned; ylist also where a record says so, and
+// bounds with pred64); with q3 (int64 [B]) and prefix3 (int64 [n]) at
+// length <= 21 a probe reads prefix3 (kFast3, q_words may be null), else
+// with rank records (rank_recs, int64 [n, 2], 16-byte aligned) rev and the
+// genome's first 32 bases through them, else rev and the genome. The
+// pruned search reads llcp, rlcp and prefix only
+// through its node records (nodes, int64 [n, 4], 32-byte aligned); with
+// stats it records their sectors.
 extern "C" int plquery_launch(
     const void* packed, long long packed_len, const void* rev, int rev64,
-    const void* xlist, const void* ylist, const void* prefix,
-    const void* prefix3, const void* bounds, const void* q_words,
-    const void* q3, const void* x, const void* pred64, void* out,
-    void* lane_stats, void* depth, void* trace, long long B, long long n,
-    int length, int k, int buckets, long long most_over,
-    long long most_under, long long max_over, long long max_under,
-    long long max_stride_steps, int adaptive, int trace_cap, int probe,
-    void* stream) {
+    const void* xlist, const void* ylist, const void* prefix3,
+    const void* bounds, const void* bucket_recs, const void* rank_recs,
+    const void* q_words, const void* q3, const void* x, const void* pred64,
+    void* out, void* lane_stats,
+    void* depth, void* trace, long long B, long long n, int length, int k,
+    int buckets, long long most_over, long long most_under,
+    long long max_over, long long max_under, long long max_stride_steps,
+    int adaptive, int trace_cap, void* stream) {
   if (B <= 0) return 0;
-  const Args a{static_cast<const int64_t*>(packed), rev,
-               static_cast<const int64_t*>(xlist),
-               static_cast<const int64_t*>(ylist),
-               static_cast<const int64_t*>(prefix),
-               static_cast<const int64_t*>(prefix3),
-               static_cast<const int32_t*>(bounds),
-               static_cast<const int64_t*>(q_words),
-               static_cast<const int64_t*>(q3),
-               static_cast<const int64_t*>(x),
-               static_cast<const int64_t*>(pred64),
-               static_cast<int64_t*>(out), static_cast<int32_t*>(lane_stats),
-               static_cast<int32_t*>(depth), static_cast<int64_t*>(trace), B,
-               n, packed_len, most_over, most_under, max_over, max_under,
-               max_stride_steps, length, k, buckets, adaptive, trace_cap};
+  Args a{};
+  a.packed = static_cast<const int64_t*>(packed);
+  a.packed_len = packed_len;
+  a.rev = rev;
+  a.xlist = static_cast<const int64_t*>(xlist);
+  a.ylist = static_cast<const int64_t*>(ylist);
+  a.prefix3 = static_cast<const int64_t*>(prefix3);
+  a.bounds = static_cast<const int32_t*>(bounds);
+  a.bucket_recs = static_cast<const longlong2*>(bucket_recs);
+  a.rank_recs = static_cast<const longlong2*>(rank_recs);
+  a.q_words = static_cast<const int64_t*>(q_words);
+  a.q3 = static_cast<const int64_t*>(q3);
+  a.x = static_cast<const int64_t*>(x);
+  a.pred64 = static_cast<const int64_t*>(pred64);
+  a.out = static_cast<int64_t*>(out);
+  a.lane_stats = static_cast<int32_t*>(lane_stats);
+  a.depth = static_cast<int32_t*>(depth);
+  a.trace = static_cast<int64_t*>(trace);
+  a.B = B;
+  a.n = n;
+  a.most_over = most_over;
+  a.most_under = most_under;
+  a.max_over = max_over;
+  a.max_under = max_under;
+  a.max_stride_steps = max_stride_steps;
+  a.length = length;
+  a.k = k;
+  a.buckets = buckets;
+  a.adaptive = adaptive;
+  a.trace_cap = trace_cap;
   auto st = static_cast<cudaStream_t>(stream);
-  switch (probe) {
-    case kFast3: return launch_plquery<kFast3>(a, rev64, st);
-    case kPrefix64: return launch_plquery<kPrefix64>(a, rev64, st);
-    case kPacked: return launch_plquery<kPacked>(a, rev64, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (q3) return launch_plquery<kFast3, false>(a, rev64, st);
+  if (!rank_recs) return launch_plquery<kPacked, false>(a, rev64, st);
+  return length <= 32 ? launch_plquery<kPrefix64, true>(a, rev64, st)
+                      : launch_plquery<kPacked, true>(a, rev64, st);
 }
 
 extern "C" int binsearch_launch(const void* packed, long long packed_len,
@@ -918,4 +1054,35 @@ extern "C" int fancy_nodes_launch(const void* packed, long long packed_len,
   a.n = n;
   return launch_fancy_nodes(a, static_cast<longlong2*>(nodes), rev64,
                             static_cast<cudaStream_t>(stream));
+}
+
+// plquery's records: bucket_recs is int64 [2^buckets, 4], 32-byte aligned,
+// of xlist and ylist (int64 [2^buckets + 1]) and bounds (int32 [2^buckets],
+// or null); rank_recs int64 [n, 2], 16-byte aligned, of packed and rev.
+extern "C" int bucket_records_launch(const void* xlist, const void* ylist,
+                                     const void* bounds, void* bucket_recs,
+                                     int buckets, void* stream) {
+  Args a{};
+  a.xlist = static_cast<const int64_t*>(xlist);
+  a.ylist = static_cast<const int64_t*>(ylist);
+  a.bounds = static_cast<const int32_t*>(bounds);
+  a.buckets = buckets;
+  auto st = static_cast<cudaStream_t>(stream);
+  bucket_records_kernel<<<blocks_for((int64_t)1 << buckets), kThreads, 0,
+                          st>>>(a, static_cast<longlong2*>(bucket_recs));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rank_records_launch(const void* packed, long long packed_len,
+                                   const void* rev, int rev64,
+                                   void* rank_recs, long long n,
+                                   void* stream) {
+  if (n <= 0) return 0;
+  Args a{};
+  a.packed = static_cast<const int64_t*>(packed);
+  a.packed_len = packed_len;
+  a.rev = rev;
+  a.n = n;
+  return launch_rank_records(a, static_cast<longlong2*>(rank_recs), rev64,
+                             static_cast<cudaStream_t>(stream));
 }

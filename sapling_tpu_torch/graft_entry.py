@@ -5,8 +5,9 @@ entry(device)            -> (fn, example_args): the flagship forward step,
                             a batched PWL suffix-array query (predict ->
                             escalating error window -> binary search),
                             ops.query_cuda.plquery_cuda (the plquery
-                            kernel on the card, one launch a call) with
-                            its arguments on `device`.
+                            kernel on the card, one launch a call, on the
+                            index's record tables) with its arguments on
+                            `device`.
 dryrun_multichip(n, dev) -> inside an initialised process group of n
                             ranks: the dp-sharded query step, the
                             index-sharded query step (rank-range shards,
@@ -50,11 +51,13 @@ def entry(device="cuda"):
                            rng=np.random.default_rng(5))
     t = idx.table
     dev = idx.device_arrays()
+    bucket_recs, rank_recs = idx.query_records()
     fn = functools.partial(
         plquery_cuda,
         n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
         most_over=t.most_over, most_under=t.most_under,
         max_over=t.max_over, max_under=t.max_under,
+        bucket_recs=bucket_recs, rank_recs=rank_recs,
     )
     x = torch.from_numpy(idx.kmerize_batch(codes2d)).to(idx.device)
     example_args = (dev["packed"], dev["rev"], dev["xlist"], dev["ylist"],

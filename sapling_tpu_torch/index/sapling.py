@@ -24,8 +24,10 @@ from ..config import IndexConfig, QueryConfig
 from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
-from ..ops.query_cuda import (binsearch_cuda, fancy_binsearch_cuda,
-                              fancy_nodes_cuda, plquery_cuda)
+from ..ops.query_cuda import (binsearch_cuda, bucket_records_cuda,
+                              fancy_binsearch_cuda, fancy_nodes_cuda,
+                              plquery_cuda, plquery_records_cuda,
+                              reads_rank_records)
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -76,6 +78,9 @@ class SaplingIndex:
     # the pruned search's node records of the last llcp/rlcp pair
     # (fancy_nodes)
     _fancy: tuple = field(default=(), repr=False)
+    # plquery's record tables on the card and the device arrays they were
+    # made of (query_records)
+    _records: dict = field(default_factory=dict, repr=False)
 
     # --- construction -------------------------------------------------------
 
@@ -301,15 +306,49 @@ class SaplingIndex:
             return torch.from_numpy(a).to(self.device)
 
     def device_bytes(self) -> int:
-        """Bytes of the arrays device_arrays() keeps on self.device."""
+        """Bytes of the arrays device_arrays() keeps on self.device and,
+        on the card, of plquery's record tables (query_records)."""
         return sum(t.numel() * t.element_size()
-                   for t in self.device_arrays().values() if t is not None)
+                   for t in (*self.device_arrays().values(),
+                             *self.query_records()) if t is not None)
+
+    def query_records(self):
+        """plquery's record tables on the card: (bucket records, int64
+        [2^buckets, 4], of the table; rank records, int64 [n, 2], of rev and
+        the genome, or None where rev and the genome fit the card's L2 and
+        a probe reads them: ops.query_cuda.reads_rank_records), made from
+        the device arrays with one launch each (ops.query_cuda.
+        bucket_records_cuda, plquery_records_cuda) on the first call and
+        kept while those arrays stay (swap_table makes the bucket records
+        anew). (None, None) on the CPU, where the plain cascade reads the
+        arrays."""
+        if self.device.type == "cpu":
+            return None, None
+        dev = self.device_arrays()
+        r = self._records
+
+        def stale(name, made_of):
+            return not (name in r and all(
+                a is b for a, b in zip(r[name], made_of)))
+
+        made_of = (dev["packed"], dev["rev"])
+        if stale("rank_of", made_of):
+            r.update(rank=plquery_records_cuda(*made_of, n=self.n)
+                     if reads_rank_records(dev["rev"], dev["packed"])
+                     else None, rank_of=made_of)
+        made_of = (dev["xlist"], dev["ylist"], dev["bounds"])
+        if stale("bucket_of", made_of):
+            r.update(bucket=bucket_records_cuda(*made_of,
+                                                buckets=self.buckets),
+                     bucket_of=made_of)
+        return r["bucket"], r["rank"]
 
     def swap_table(self, table: PwlTable) -> None:
         """Replace the PWL table in place (e.g. a
         tools/retable_index.py bucket-count A/B). If the device arrays
         exist already, only the table's (xlist, ylist, bounds) are sent
-        again: rev, packed and the prefix arrays stay the same tensors."""
+        again: rev, packed and the prefix arrays stay the same tensors; the
+        bucket records (query_records), if made, are made anew of them."""
         self.table = table
         self.buckets = table.buckets
         if self._device:
@@ -318,6 +357,8 @@ class SaplingIndex:
                 ylist=self._put(table.ylist.astype(np.int64)),
                 bounds=(None if table.bounds is None
                         else self._put(table.bounds.view(np.int32))))
+        if self._records:
+            self.query_records()
 
     # --- queries -------------------------------------------------------------
 
@@ -330,17 +371,22 @@ class SaplingIndex:
         return torch.from_numpy(
             packops.pack_queries(codes2d).astype(np.int64)).to(self.device)
 
-    def query_inputs(self, codes2d: np.ndarray):
+    def query_inputs(self, codes2d: np.ndarray, fast3: bool | None = None):
         """Host-side packing of a [B, L] code batch into the query's device
         inputs on `self.device`: (x, q3, q_words). x holds the int64
-        adjusted k-mers [B]. The fast3 path answers when the index has
-        prefix3 and L <= min(k, 21): q3 is then the int64 3-bit packed
-        queries [B] and q_words None; otherwise q3 is None and q_words the
-        int64 packed words [ceil(L/16), B]."""
+        adjusted k-mers [B]. The fast3 probe answers when the index has
+        prefix3, L <= min(k, 21) and `fast3` (default: on the CPU, as the
+        plain cascade takes it, not on the card, where the kernel's other
+        probes ran faster under the PWL prediction; the NN engine asks for
+        it): q3 is then the int64 3-bit packed queries [B] and q_words
+        None; otherwise q3 is None and q_words the int64 packed words
+        [ceil(L/16), B]."""
         dev = self.device_arrays()
         length = int(codes2d.shape[1])
+        if fast3 is None:
+            fast3 = self.device.type == "cpu"
         q3 = q_words = None
-        if (dev["prefix3"] is not None
+        if (fast3 and dev["prefix3"] is not None
                 and length <= min(self.k, packops.P3_BASES)):
             q3 = torch.from_numpy(
                 packops.pack_queries3(codes2d).view(np.int64)).to(self.device)
@@ -355,14 +401,16 @@ class SaplingIndex:
                      stats: bool = False) -> torch.Tensor:
         """plQuery over prepared device inputs (query_inputs) -> int64 [B]
         positions on `self.device`, -1 = not found: the plquery kernel on
-        the card, the plain cascade on the CPU (ops.query_cuda.
-        plquery_cuda; `stats` adds the call's rounds to ops.query.ROUNDS).
-        Of `qcfg`, the query reads max_stride_steps and adaptive_bounds;
-        the compaction flags change only the batch a lane runs in on the
-        TPU, never a result, and are ignored here."""
+        the card, on the index's record tables (query_records), the plain
+        cascade on the CPU (ops.query_cuda.plquery_cuda; `stats` adds the
+        call's rounds to ops.query.ROUNDS). Of `qcfg`, the query reads
+        max_stride_steps and adaptive_bounds; the compaction flags change
+        only the batch a lane runs in on the TPU, never a result, and are
+        ignored here."""
         qcfg = qcfg or QueryConfig()
         dev = self.device_arrays()
         t = self.table
+        bucket_recs, rank_recs = self.query_records()
         return plquery_cuda(
             dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
             x, dev["prefix64"], dev["prefix3"], q3, dev["bounds"],
@@ -370,7 +418,8 @@ class SaplingIndex:
             most_over=t.most_over, most_under=t.most_under,
             max_over=t.max_over, max_under=t.max_under,
             max_stride_steps=qcfg.max_stride_steps,
-            adaptive_bounds=qcfg.adaptive_bounds, stats=stats)
+            adaptive_bounds=qcfg.adaptive_bounds, bucket_recs=bucket_recs,
+            rank_recs=rank_recs, stats=stats)
 
     def query_positions(self, codes2d: np.ndarray,
                         qcfg: QueryConfig | None = None) -> np.ndarray:

@@ -182,15 +182,23 @@ class NNQueryEngine:
         self.idx = index
         self.srv = serving.to(index.device)
 
+    def query_inputs(self, codes2d: np.ndarray):
+        """SaplingIndex.query_inputs with the fast3 probe's q3 where the
+        index has prefix3, on the card too: under the NN's wide windows (17
+        bisection rounds against PWL's 7 at 4.6 Mbp) one prefix3 load a
+        probe ran 1.48x faster on an H100 than rev and the genome."""
+        return self.idx.query_inputs(codes2d, fast3=True)
+
     def query_device(self, x: torch.Tensor, q3: torch.Tensor | None,
                      q_words: torch.Tensor | None,
                      stats: bool = False) -> torch.Tensor:
         """plQuery of k-base queries over prepared device inputs
-        (SaplingIndex.query_inputs), ranks predicted by the NN -> int64
+        (query_inputs), ranks predicted by the NN -> int64
         [B] positions on the index's device, -1 = not found (on the card
         two launches: the nn_predict kernel, then the plquery kernel
         through its pred64 seam; `stats` as in
-        SaplingIndex.query_device)."""
+        SaplingIndex.query_device; the index's rank records, no bucket
+        records: the NN predicts)."""
         idx, srv = self.idx, self.srv
         dev = idx.device_arrays()
         with torch.no_grad():
@@ -201,7 +209,7 @@ class NNQueryEngine:
             n=idx.n, length=idx.k, k=idx.k, buckets=idx.buckets,
             most_over=srv.most_over, most_under=srv.most_under,
             max_over=srv.max_over, max_under=srv.max_under, pred64=pred,
-            stats=stats)
+            rank_recs=idx.query_records()[1], stats=stats)
 
     def query_positions(self, codes2d: np.ndarray) -> np.ndarray:
         length = int(codes2d.shape[1])
@@ -210,5 +218,4 @@ class NNQueryEngine:
                 "NN engine serves length == k queries (the model is "
                 "trained on the k-mer stream); use the PWL engine for "
                 "other lengths")
-        return self.query_device(
-            *self.idx.query_inputs(codes2d)).cpu().numpy()
+        return self.query_device(*self.query_inputs(codes2d)).cpu().numpy()

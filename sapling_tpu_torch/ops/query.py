@@ -5,7 +5,8 @@ plquery_batch, binsearch_batch and fancy_binsearch_batch as the
 hand-written kernels of ops.query_cuda (csrc/query.cu, one thread a
 query, one launch a call), which return the same bits; these run on the
 CPU and in the index-sharded engine (whose `take` gathers are
-collectives).
+collectives). The kernels' record tables (plquery_records,
+bucket_records, fancy_nodes) have plain twins here too.
 
 The reference's query (src/sapling_api.h:159-248) walks one query at a
 time. Here every lane of a [B] batch takes the same decision sequence,
@@ -519,12 +520,12 @@ def fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words, *, n: int,
                        res)
 
 
-def fancy_nodes(packed, rev, llcp, rlcp, *, n: int) -> torch.Tensor:
-    """The pruned search's node records (csrc/query.cu's fancy_nodes_kernel
-    builds the same on the card): int64 [n, 4], a rank r's row the first 32
-    bases of the suffix at rev[r] (two aligned genome words, big-endian
-    2-bit codes, word indexes clamped to the array as probe_at clamps
-    them; the uint64's bits), rev[r], llcp[r] | rlcp[r] << 32, and 0."""
+def plquery_records(packed, rev, *, n: int) -> torch.Tensor:
+    """plquery's rank records (csrc/query.cu's rank_records_kernel builds
+    the same on the card): int64 [n, 2], a rank r's row the first 32 bases
+    of the suffix at rev[r] (two aligned genome words, big-endian 2-bit
+    codes, word indexes clamped to the array as probe_at clamps them; the
+    uint64's bits) and rev[r]."""
     pos = gather64(rev, torch.arange(n, device=packed.device))
     sh = (pos & 15) << 1
     last = packed.shape[0] - 1
@@ -533,6 +534,37 @@ def fancy_nodes(packed, rev, llcp, rlcp, *, n: int) -> torch.Tensor:
     hi, lo = (((w[j] << sh) & _MASK32) | (w[j + 1] >> (32 - sh))
               for j in range(2))
     key = torch.where(hi >= 1 << 31, hi - (1 << 32), hi) * (1 << 32) + lo
-    lcps = (rlcp[:n].long() << 32) | (llcp[:n].long() & _MASK32)
-    return torch.stack([key, pos, lcps, torch.zeros_like(pos)], dim=1)
+    return torch.stack([key, pos], dim=1)
 
+
+# a bucket record's m that says "read ylist[bucket + 1]" (csrc/query.cu's
+# kWideM)
+WIDE_M = _MASK32
+
+
+def bucket_records(xlist, ylist, bounds=None, *, buckets: int
+                   ) -> torch.Tensor:
+    """plquery's bucket records (csrc/query.cu's bucket_records_kernel
+    builds the same on the card): int64 [2^buckets, 4], a bucket b's row
+    xlist[b], xlist[b + 1], ylist[b] and m | bounds[b] << 32 (the uint64's
+    bits), m = ylist[b + 1] - ylist[b] where it lies in [0, WIDE_M), else
+    WIDE_M; bounds 0 without the array."""
+    nb = 1 << buckets
+    ylo = ylist[:nb]
+    m = ylist[1:nb + 1] - ylo
+    m32 = torch.where((m >= 0) & (m < WIDE_M), m, WIDE_M)
+    bw = (torch.zeros_like(ylo) if bounds is None
+          else bounds[:nb].long() & _MASK32)
+    word = torch.where(bw >= 1 << 31, bw - (1 << 32), bw) * (1 << 32) + m32
+    return torch.stack([xlist[:nb], xlist[1:nb + 1], ylo, word], dim=1)
+
+
+def fancy_nodes(packed, rev, llcp, rlcp, *, n: int) -> torch.Tensor:
+    """The pruned search's node records (csrc/query.cu's fancy_nodes_kernel
+    builds the same on the card): int64 [n, 4], a rank r's row its rank
+    record (plquery_records: the first 32 bases of the suffix at rev[r],
+    rev[r]), llcp[r] | rlcp[r] << 32, and 0."""
+    lcps = (rlcp[:n].long() << 32) | (llcp[:n].long() & _MASK32)
+    return torch.cat([plquery_records(packed, rev, n=n),
+                      torch.stack([lcps, torch.zeros_like(lcps)], dim=1)],
+                     dim=1)

@@ -1,7 +1,13 @@
 """Wrapper of the hand-written CUDA query kernels (csrc/query.cu).
 
 `plquery_kernel` runs `ops.query.plquery_batch` (predict, the prediction
-probe, the optional bucket probe, phases A-D), `binsearch_kernel` runs
+probe, the optional bucket probe, phases A-D; a prediction one 32-byte
+bucket record of `bucket_records_kernel`, a probe one 8-byte prefix3 word
+where the caller passes q3 (fast3), else one 16-byte rank record of
+`rank_records_kernel` where rev and the genome outgrow the card's L2
+(reads_rank_records), else rev and the genome; tables made once for an
+index, as `ops.query.bucket_records` and `plquery_records` make them),
+`binsearch_kernel` runs
 `ops.query.binsearch_batch` (the bisection's first levels from a table in
 shared memory) and `fancy_binsearch_kernel` runs
 `ops.query.fancy_binsearch_batch` (the llcp/rlcp-pruned search, a round
@@ -48,10 +54,11 @@ from .sw_cuda import bind_lib, build_kernel
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc", "query.cu")
-PROBES = {"fast3": 0, "prefix64": 1, "packed": 2}   # query.cu's kFast3...
+PROBES = {"prefix64": 1, "packed": 2}   # query.cu's kPrefix64, kPacked
 
 # kernel launches, counted where each kernel is launched
-LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0, "fancy_nodes": 0}
+LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0, "fancy_nodes": 0,
+            "bucket_records": 0, "plquery_records": 0}
 # the last stats=True call on the card: int32 [B] probes and sectors a
 # lane (and the pruned search's reads), the deepest phase C / phase D step
 # counts, and with trace=K the int64 [B, K] sector numbers
@@ -61,13 +68,15 @@ _LIB = None
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
-    "plquery_launch": [_P, _LL, _P, _I] + [_P] * 13 + [_LL, _LL, _I, _I, _I]
-    + [_LL] * 5 + [_I, _I, _I, _P],
+    "plquery_launch": [_P, _LL, _P, _I] + [_P] * 14 + [_LL, _LL, _I, _I, _I]
+    + [_LL] * 5 + [_I, _I, _P],
     "binsearch_launch": [_P, _LL, _P, _I] + [_P] * 5 + [_LL, _LL, _I, _I,
                                                          _P],
     "fancy_binsearch_launch": [_P, _LL, _P, _I] + [_P] * 9
     + [_LL, _LL, _I, _I, _I, _P],
     "fancy_nodes_launch": [_P, _LL, _P, _I, _P, _P, _P, _LL, _P],
+    "bucket_records_launch": [_P, _P, _P, _P, _I, _P],
+    "rank_records_launch": [_P, _LL, _P, _I, _P, _LL, _P],
 }
 
 
@@ -86,12 +95,36 @@ def _lib() -> ctypes.CDLL:
 
 def probe_form(length: int, k: int, prefix, prefix3, q3) -> str:
     """The probe plquery_batch takes: fast3 for length <= min(k, 21) with
-    prefix3 and q3, prefix64 up to 32 bases, else the packed genome."""
+    prefix3 and q3 (plquery_kernel too), prefix64 up to 32 bases, else the
+    packed genome."""
     if prefix3 is not None and q3 is not None and length <= min(k, P3_BASES):
         return "fast3"
     if prefix is not None and length <= 32:
         return "prefix64"
     return "packed"
+
+
+def kernel_form(length: int, k: int, prefix3, q3, rank_recs) -> str:
+    """The probe plquery_kernel takes: fast3 where plquery_batch takes it
+    (probe_form), else the rank records' 32-base key up to 32 bases
+    ("key"), past 32 the key and on a tie the genome ("records"), without
+    rank records rev and the genome ("packed")."""
+    if probe_form(length, k, None, prefix3, q3) == "fast3":
+        return "fast3"
+    if rank_recs is None:
+        return "packed"
+    return "key" if length <= 32 else "records"
+
+
+def reads_rank_records(rev, packed) -> bool:
+    """Whether plquery on the card reads rank records for these arrays:
+    where rev and the packed genome outgrow the card's L2, so that a probe
+    reading them would wait on device memory twice (46 Mbp on an H100:
+    1.05-1.26x faster on the records); where they fit (4.6 Mbp: 0.83-1.00x)
+    a probe finds both in L2."""
+    l2 = torch.cuda.get_device_properties(rev.device).L2_cache_size
+    return (rev.numel() * rev.element_size()
+            + packed.numel() * packed.element_size()) > l2
 
 
 def _check(name, t, dtypes, shape, device, at_least=False):
@@ -142,21 +175,110 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(name, t, to: int) -> None:
+    if t.data_ptr() % to:
+        raise ValueError(f"{name} must start on a {to}-byte boundary")
+
+
+def _launched(name: str, rc: int) -> None:
+    """Raise unless a launch returned cudaSuccess; count it."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    with _LOCK:
+        LAUNCHES[name] += 1
+
+
+def bucket_records_cuda(xlist, ylist, bounds=None, *, buckets: int):
+    """ops.query.bucket_records (plquery's int64 [2^buckets, 4] bucket
+    records, a prediction's one 32-byte load) on bucket_records_kernel for
+    tensors on the card: xlist and ylist int64 [2^buckets + 1], bounds
+    int32 [2^buckets] or None; tensors on the CPU take the plain version."""
+    dev = xlist.device
+    if dev.type == "cpu":
+        return query.bucket_records(xlist, ylist, bounds, buckets=buckets)
+    if dev.type != "cuda":
+        raise ValueError(f"bucket_records_cuda: unsupported device {dev}")
+    nb = 1 << buckets
+    _check("xlist", xlist, _I64, (nb + 1,), dev, at_least=True)
+    _check("ylist", ylist, _I64, (nb + 1,), dev, at_least=True)
+    if bounds is not None:
+        _check("bounds", bounds, (torch.int32,), (nb,), dev, at_least=True)
+    recs = torch.empty((nb, 4), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = launch_bucket_records(
+            _lib(), torch.cuda.current_stream(dev).cuda_stream, xlist, ylist,
+            bounds, recs, buckets=buckets)
+    _launched("bucket_records", rc)
+    return recs
+
+
+def plquery_records_cuda(packed, rev, *, n: int):
+    """ops.query.plquery_records (plquery's int64 [n, 2] rank records, a
+    probe's one 16-byte load) on rank_records_kernel for tensors on the
+    card: packed int64, rev int32 (uint32 bits) or int64 [n]; tensors on
+    the CPU take the plain version."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return query.plquery_records(packed, rev, n=n)
+    if dev.type != "cuda":
+        raise ValueError(f"plquery_records_cuda: unsupported device {dev}")
+    _check("packed", packed, _I64, (1,), dev, at_least=True)
+    _check("rev", rev, _REV, (n,), dev, at_least=True)
+    recs = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = launch_rank_records(
+            _lib(), torch.cuda.current_stream(dev).cuda_stream, packed, rev,
+            recs, n=n)
+    _launched("plquery_records", rc)
+    return recs
+
+
+def launch_bucket_records(lib, stream, xlist, ylist, bounds, recs, *,
+                          buckets: int) -> int:
+    """bucket_records_launch of `lib` on checked tensors, on `stream`;
+    returns its cudaError_t."""
+    return lib.bucket_records_launch(xlist.data_ptr(), ylist.data_ptr(),
+                                     _ptr(bounds), recs.data_ptr(), buckets,
+                                     stream)
+
+
+def launch_rank_records(lib, stream, packed, rev, recs, *, n: int) -> int:
+    """rank_records_launch of `lib` on checked tensors, on `stream`;
+    returns its cudaError_t."""
+    return lib.rank_records_launch(
+        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
+        int(rev.dtype == torch.int64), recs.data_ptr(), n, stream)
+
+
 def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
                  prefix3=None, q3=None, bounds=None, *, n: int, length: int,
                  k: int, buckets: int, most_over: int, most_under: int,
                  max_over: int, max_under: int,
                  max_stride_steps: int = 1 << 20,
                  adaptive_bounds: bool = False, pred64=None,
+                 bucket_recs=None, rank_recs=None,
                  stats: bool = False, trace: int = 0):
     """ops.query.plquery_batch with the same arguments (but `take`) and
     results, on plquery_kernel for tensors on the card (stats, trace: see
     the module's docstring).
 
     On the card every tensor is contiguous on one device: packed, xlist,
-    ylist, prefix, prefix3, q3, x and pred64 int64, rev int32 (uint32
-    bits) or int64, bounds int32, q_words int64 [ceil(L/16), B]; pred64
-    holds ranks in [0, n). Returns int64 [B] positions, -1 = not found."""
+    ylist, prefix3, q3, x and pred64 int64, rev int32 (uint32 bits) or
+    int64, bounds int32, q_words int64 [ceil(L/16), B]; pred64 holds ranks
+    in [0, n); prefix is not read. The probe is the caller's choice
+    (kernel_form): fast3 where it passes q3 and prefix3 (as plquery_batch
+    takes it; faster under deep cascades such as the NN engine's), else
+    rank records or rev and the genome. `bucket_recs` are the bucket
+    records bucket_records_cuda made of the same xlist, ylist and bounds
+    (read without pred64), `rank_recs` the rank records
+    plquery_records_cuda made of the same packed and rev; a call on the
+    card without bucket records makes them first (one more launch), and
+    without rank records makes them where reads_rank_records says the
+    kernel reads them (one more), so a caller that queries more than once
+    passes them (SaplingIndex.query_records). Rank records passed are read
+    whatever the arrays' size. On the CPU neither is read: the plain
+    version reads the arrays. Returns int64 [B] positions, -1 = not
+    found."""
     if x.device.type == "cpu":
         return query.plquery_batch(
             packed, rev, xlist, ylist, q_words, x, prefix, prefix3, q3,
@@ -171,71 +293,82 @@ def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
         raise ValueError("adaptive_bounds=True needs the bounds array")
     if length < 1:
         raise ValueError(f"query length {length} < 1")
-    b = x.shape[0]
-    form = probe_form(length, k, prefix, prefix3, q3)
-    if form != "fast3" and q_words is None:
+    fast3 = probe_form(length, k, prefix, prefix3, q3) == "fast3"
+    if not fast3 and q_words is None:
         raise ValueError(f"length {length} at k={k} takes the general "
                          "path, which needs q_words")
+    b = x.shape[0]
     nb = 1 << buckets
     _check("x", x, _I64, (b,), dev)
     _check("xlist", xlist, _I64, (nb + 1,), dev, at_least=True)
     _check("ylist", ylist, _I64, (nb + 1,), dev, at_least=True)
     _check("rev", rev, _REV, (n,), dev, at_least=True)
+    if fast3:
+        _check("prefix3", prefix3, _I64, (n,), dev, at_least=True)
+        _check("q3", q3, _I64, (b,), dev)
+        rank_recs = None
+    else:
+        q3 = None
+        # the kernel clamps word indexes to the array, as probe_at does
+        _check("packed", packed, _I64, (1,), dev, at_least=True)
+        _check("q_words", q_words, _I64, (-(-length // BASES_PER_WORD), b),
+               dev)
+        if rank_recs is None and reads_rank_records(rev, packed):
+            rank_recs = plquery_records_cuda(packed, rev, n=n)
+        if rank_recs is not None:
+            _check("rank_recs", rank_recs, _I64, (n, 2), dev)
+            _aligned("rank_recs", rank_recs, 16)
     if adaptive_bounds:
         _check("bounds", bounds, (torch.int32,), (nb,), dev, at_least=True)
     if pred64 is not None:
         _check("pred64", pred64, _I64, (b,), dev)
-    if form == "fast3":
-        _check("prefix3", prefix3, _I64, (n,), dev, at_least=True)
-        _check("q3", q3, _I64, (b,), dev)
     else:
-        wq = -(-length // BASES_PER_WORD)
-        _check("q_words", q_words, _I64, (wq, b), dev)
-        if form == "prefix64":
-            _check("prefix", prefix, _I64, (n,), dev, at_least=True)
-        else:
-            # the kernel clamps word indexes to the array, as probe_at does
-            _check("packed", packed, _I64, (1,), dev, at_least=True)
+        if bucket_recs is None:
+            bucket_recs = bucket_records_cuda(xlist, ylist, bounds,
+                                              buckets=buckets)
+        _check("bucket_recs", bucket_recs, _I64, (nb, 4), dev)
+        _aligned("bucket_recs", bucket_recs, 32)
     out = torch.empty(b, dtype=torch.int64, device=dev)
     lane, depth, tr = stats_buffers(b, dev, stats, trace)
     if b:
         with torch.cuda.device(dev):
             rc = launch_plquery(
                 _lib(), torch.cuda.current_stream(dev).cuda_stream, packed,
-                rev, xlist, ylist, q_words, x, prefix, prefix3, q3, bounds,
-                pred64, out, lane, depth, tr, n=n, length=length, k=k,
-                buckets=buckets, most_over=most_over, most_under=most_under,
+                rev, xlist, ylist, q_words, x, prefix3, q3, bounds, pred64,
+                out, lane, depth, tr, n=n, length=length, k=k,
+                buckets=buckets,
+                most_over=most_over, most_under=most_under,
                 max_over=max_over, max_under=max_under,
                 max_stride_steps=max_stride_steps,
-                adaptive_bounds=adaptive_bounds, form=form)
-        if rc != 0:
-            raise RuntimeError(f"plquery kernel launch failed: cudaError {rc}")
-        with _LOCK:
-            LAUNCHES["plquery"] += 1
+                adaptive_bounds=adaptive_bounds, bucket_recs=bucket_recs,
+                rank_recs=rank_recs)
+        _launched("plquery", rc)
     if stats:
         _read_stats(lane, depth, tr)
     return out
 
 
 def launch_plquery(lib, stream, packed, rev, xlist, ylist, q_words, x,
-                   prefix, prefix3, q3, bounds, pred64, out, lane, depth,
-                   trace, *,
+                   prefix3, q3, bounds, pred64, out, lane, depth, trace, *,
                    n: int, length: int, k: int, buckets: int, most_over: int,
                    most_under: int, max_over: int, max_under: int,
                    max_stride_steps: int, adaptive_bounds: bool,
-                   form: str) -> int:
+                   bucket_recs=None, rank_recs=None) -> int:
     """plquery_launch of `lib` on checked tensors (None for an unused
-    one), on `stream`; returns its cudaError_t."""
+    one; q3 only where the fast3 probe answers), on `stream`; returns its
+    cudaError_t. The kernel takes its probe from q3, rank_recs and the
+    length (kernel_form)."""
     return lib.plquery_launch(
         _ptr(packed), 0 if packed is None else packed.shape[0],
         rev.data_ptr(), int(rev.dtype == torch.int64), xlist.data_ptr(),
-        ylist.data_ptr(), _ptr(prefix), _ptr(prefix3),
-        _ptr(bounds) if adaptive_bounds else None, _ptr(q_words), _ptr(q3),
-        x.data_ptr(), _ptr(pred64), out.data_ptr(), _ptr(lane), _ptr(depth),
-        _ptr(trace), x.shape[0], n, length, k, buckets, most_over,
-        most_under, max_over, max_under, max_stride_steps,
-        int(adaptive_bounds), 0 if trace is None else trace.shape[1],
-        PROBES[form], stream)
+        ylist.data_ptr(), _ptr(prefix3),
+        _ptr(bounds) if adaptive_bounds else None, _ptr(bucket_recs),
+        _ptr(rank_recs), _ptr(q_words), _ptr(q3), x.data_ptr(),
+        _ptr(pred64), out.data_ptr(), _ptr(lane), _ptr(depth), _ptr(trace),
+        x.shape[0], n,
+        length, k, buckets, most_over, most_under, max_over, max_under,
+        max_stride_steps, int(adaptive_bounds),
+        0 if trace is None else trace.shape[1], stream)
 
 
 def launch_binsearch(lib, stream, packed, rev, q_words, out, lane, depth,
@@ -275,11 +408,7 @@ def binsearch_cuda(packed, rev, q_words, *, n: int, length: int,
             rc = launch_binsearch(
                 _lib(), torch.cuda.current_stream(dev).cuda_stream, packed,
                 rev, q_words, out, lane, depth, tr, n=n, length=length)
-        if rc != 0:
-            raise RuntimeError(
-                f"binsearch kernel launch failed: cudaError {rc}")
-        with _LOCK:
-            LAUNCHES["binsearch"] += 1
+        _launched("binsearch", rc)
     if stats:
         _read_stats(lane, depth, tr)
     return out
@@ -338,10 +467,7 @@ def fancy_nodes_cuda(packed, rev, llcp, rlcp, *, n: int):
         rc = launch_fancy_nodes(
             _lib(), torch.cuda.current_stream(dev).cuda_stream, packed, rev,
             llcp, rlcp, nodes, n=n)
-    if rc != 0:
-        raise RuntimeError(f"fancy nodes kernel launch failed: cudaError {rc}")
-    with _LOCK:
-        LAUNCHES["fancy_nodes"] += 1
+    _launched("fancy_nodes", rc)
     return nodes
 
 
@@ -377,8 +503,7 @@ def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
     if nodes is None:
         nodes = fancy_nodes_cuda(packed, rev, llcp, rlcp, n=n)
     _check("nodes", nodes, _I64, (n, 4), dev)
-    if nodes.data_ptr() % 32:
-        raise ValueError("nodes must start on a 32-byte boundary")
+    _aligned("nodes", nodes, 32)
     out = torch.empty(b, dtype=torch.int64, device=dev)
     lane, depth, tr = stats_buffers(b, dev, stats, trace, rows=3)
     if b:
@@ -387,11 +512,7 @@ def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
                 _lib(), torch.cuda.current_stream(dev).cuda_stream, packed,
                 rev, llcp, rlcp, prefix, nodes, q_words, out, lane, depth,
                 tr, n=n, length=length, form=form)
-        if rc != 0:
-            raise RuntimeError(
-                f"fancy binsearch kernel launch failed: cudaError {rc}")
-        with _LOCK:
-            LAUNCHES["fancy"] += 1
+        _launched("fancy", rc)
     if stats:
         _read_stats(lane, depth, tr)
     return out

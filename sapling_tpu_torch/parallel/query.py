@@ -75,7 +75,9 @@ class ShardedQueryEngine:
         """(x, q3, q_words, B): this rank's lanes of a [B, L] batch on
         index.device (pack_lanes)."""
         length = int(codes2d.shape[1])
-        use3 = (self.index.prefix3 is not None
+        # the card's kernel has no fast3 probe (SaplingIndex.query_inputs)
+        use3 = (self.index.device.type == "cpu"
+                and self.index.prefix3 is not None
                 and length <= min(self.index.k, packops.P3_BASES))
         return pack_lanes(self.index, codes2d, self.mesh, use3)
 
@@ -86,12 +88,14 @@ class ShardedQueryEngine:
         idx = self.index
         dev = idx.device_arrays()
         t = idx.table
+        bucket_recs, rank_recs = idx.query_records()
         return plquery_cuda(
             dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
             x, dev["prefix64"], dev["prefix3"], q3, n=idx.n, length=length,
             k=idx.k, buckets=idx.buckets, most_over=t.most_over,
             most_under=t.most_under, max_over=t.max_over,
-            max_under=t.max_under, max_stride_steps=max_stride_steps)
+            max_under=t.max_under, max_stride_steps=max_stride_steps,
+            bucket_recs=bucket_recs, rank_recs=rank_recs)
 
     def query_positions(self, codes2d: np.ndarray,
                         max_stride_steps: int = 1 << 20) -> np.ndarray:

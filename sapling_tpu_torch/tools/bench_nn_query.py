@@ -104,11 +104,12 @@ def main(argv):
     codes2d = idx.codes[starts[:, None] + np.arange(K)]
     inputs = idx.query_inputs(codes2d)
     eng = NNQueryEngine(idx, srv)
+    nn_inputs = eng.query_inputs(codes2d)
     pwl_qps = time_engine(
         "PWL", lambda stats=False: idx.query_device(*inputs, K, stats=stats),
         idx, codes2d, iters, rng)
     nn_qps = time_engine(
-        "NN", lambda stats=False: eng.query_device(*inputs, stats=stats),
+        "NN", lambda stats=False: eng.query_device(*nn_inputs, stats=stats),
         idx, codes2d, iters, rng)
     with torch.no_grad():
         pred_s = [timed(lambda: srv.predict_ranks(inputs[0]), idx.device,

@@ -23,6 +23,8 @@ from sapling_tpu_torch.index.sapling import SaplingIndex
 from sapling_tpu_torch.io.fasta import Genome, write_fasta
 from sapling_tpu_torch.sim.genomes import benchmark_genome
 
+from .test_torch_query_cu_on_cpu import lib  # noqa: F401  (the fixture)
+
 ARRAYS = ("packed", "rev", "inv", "codes", "prefix64", "prefix3",
           "lcpk_fwd", "lcpk_bwd", "rev_hi", "inv_hi")
 SCALARS = ("n", "k", "buckets", "chr_ends")
@@ -191,3 +193,60 @@ def test_entry_points_default_to_the_card(genome, tmp_path):
     with pytest.raises(no_gpu):
         sapling_example.main(["sapling_example", fa, "k=16", "nb=8",
                               "nq=50", "qLen=16"])
+
+
+def test_swap_table_rebuilds_the_bucket_records(genome, monkeypatch, lib):
+    """plquery's record tables of an index that stands as if on the card
+    (its device arrays host tensors, so the record builders take their
+    plain versions): made on the first query_records call and kept;
+    swap_table makes the bucket records anew of the new table (its bucket
+    count and bounds) and keeps the rank records; device_bytes counts
+    both. The mocked plquery kernel on the records after the swap equals
+    the plain cascade on the swapped arrays and an index built with that
+    table, on every lane."""
+    from sapling_tpu_torch.index import sapling
+    from sapling_tpu_torch.ops import query, query_cuda
+
+    from .test_torch_query_cu_on_cpu import _kw
+
+    seq, ends = genome
+    g = Genome(seq=seq, chr_ends=ends)
+    idx = SaplingIndex.build(g, IndexConfig(k=21, buckets=10), device="cpu")
+    other = SaplingIndex.build(g, IndexConfig(k=21, buckets=8),
+                               keep_aligner_arrays=False, device="cpu")
+    monkeypatch.setattr(idx, "device", torch.device("cuda"))
+    monkeypatch.setattr(SaplingIndex, "_put",
+                        lambda self, a: torch.from_numpy(np.array(a)))
+    monkeypatch.setattr(sapling, "reads_rank_records", lambda rev, pk: True)
+    bucket, rank = idx.query_records()
+    assert idx.query_records() == (bucket, rank)
+    assert bucket.shape == (1 << 10, 4) and rank.shape == (idx.n, 2)
+    idx.swap_table(other.table)
+    assert idx._records["bucket"] is not bucket
+    bucket, rank2 = idx.query_records()
+    assert rank2 is rank
+    dev = idx.device_arrays()
+    assert bucket.equal(query.bucket_records(
+        dev["xlist"], dev["ylist"], dev["bounds"], buckets=8))
+    assert bucket.shape == (1 << 8, 4)
+    assert idx.device_bytes() == sum(
+        t.numel() * t.element_size()
+        for t in (*dev.values(), bucket, rank) if t is not None)
+    rng = np.random.default_rng(8)
+    for length, adaptive in ((21, False), (21, True), (45, False)):
+        starts = rng.integers(0, idx.n - length, 1500)
+        codes = idx.codes[starts[:, None] + np.arange(length)]
+        x, q3, _ = other.query_inputs(codes)   # on the CPU
+        args = (dev["packed"], dev["rev"], dev["xlist"], dev["ylist"],
+                other.query_words(codes), x, dev["prefix64"],
+                dev["prefix3"], q3, dev["bounds"])
+        kw = _kw(idx, length, adaptive_bounds=adaptive)
+        out = torch.empty(len(codes), dtype=torch.int64)
+        assert query_cuda.launch_plquery(
+            lib, None, *args[:6], None, None, args[9], None, out, None, None,
+            None, bucket_recs=bucket, rank_recs=rank, **kw) == 0
+        want = query.plquery_batch(*args, **kw)
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
+        if not adaptive:
+            np.testing.assert_array_equal(out.numpy(),
+                                          other.query_positions(codes))

@@ -118,7 +118,8 @@ def test_nn_engine_on_the_card_equals_the_cpu_path(dev, trained):
         packops.encode_bases(g[pos[:, None] + np.arange(idx.k)]),
         rng.integers(0, 4, (5000, idx.k)).astype(np.uint8)])
     eng = NNQueryEngine(didx, srv)
-    inputs = didx.query_inputs(codes)
+    inputs = eng.query_inputs(codes)
+    assert inputs[1] is not None   # the fast3 probe's q3
     before = (nn_predict_cuda.LAUNCHES["nn_predict"],
               query_cuda.LAUNCHES["plquery"])
     got = eng.query_device(*inputs).cpu().numpy()

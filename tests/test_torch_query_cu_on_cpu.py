@@ -81,9 +81,10 @@ def lib(tmp_path_factory):
         pytest.skip("the mock needs a g++ with C++20 <barrier>")
     cpp, so = d / "query_on_cpu.cpp", d / "libquery_on_cpu.so"
     with open(query_cuda.SOURCE) as f:
-        # plquery, the pruned search and its node records launch at two
-        # rev types each, the binary search from one launcher
-        cpp.write_text(mock_source(f.read(), 7))
+        # plquery, the pruned search, its node records and plquery's rank
+        # records launch at two rev types each, the binary search and the
+        # bucket records from one launcher
+        cpp.write_text(mock_source(f.read(), 10))
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     "-Wno-unknown-pragmas", "-I", MOCK_DIR, "-o", str(so),
                     str(cpp)], check=True)
@@ -111,11 +112,55 @@ def _check_trace(trace, sectors, arrays):
     assert (inside == rec).all()
 
 
-def _kernel_plquery(lib, args, kw):
-    """The kernel on plquery_batch's arguments (host tensors): (positions,
-    int32 [2, B] probes and sectors a lane, [C, D] deepest steps), its
-    sector trace checked."""
-    (packed, rev, xlist, ylist, q_words, x, prefix, prefix3, q3,
+_MADE = {}   # the mocked record tables of the last arrays (_mock_records)
+
+
+def _made(name, arrays, build):
+    """build() of these host tensors (the same objects, unwritten since),
+    kept for the next call with them: the mock runs a thread a rank."""
+    key = tuple(None if t is None else (id(t), t._version) for t in arrays)
+    if name not in _MADE or _MADE[name][0] != key:
+        # the tensors stay referenced, so their ids are not reused
+        _MADE[name] = (key, arrays, build())
+    return _MADE[name][2]
+
+
+def _mock_records(lib, xlist, ylist, bounds, packed, rev, *, buckets, n,
+                  ranks=True):
+    """plquery's record tables through launch_bucket_records /
+    launch_rank_records (the mocked record kernels) on host tensors, held
+    equal to the plain ops.query.bucket_records / plquery_records word for
+    word: (bucket records, rank records, or None without `ranks`)."""
+    def bucket():
+        recs = torch.full((1 << buckets, 4), -9, dtype=torch.int64)
+        assert query_cuda.launch_bucket_records(
+            lib, None, xlist, ylist, bounds, recs, buckets=buckets) == 0
+        assert recs.equal(query.bucket_records(xlist, ylist, bounds,
+                                               buckets=buckets))
+        return recs
+
+    def rank_records():
+        recs = torch.full((n, 2), -9, dtype=torch.int64)
+        assert query_cuda.launch_rank_records(lib, None, packed, rev, recs,
+                                              n=n) == 0
+        assert recs.equal(query.plquery_records(packed, rev, n=n))
+        return recs
+
+    return (_made("bucket", (xlist, ylist, bounds), bucket),
+            _made("rank", (packed, rev), rank_records) if ranks else None)
+
+
+def _kernel_plquery(lib, args, kw, form="records"):
+    """The kernel on plquery_batch's arguments (host tensors; q_words
+    given) and on the record tables of the mocked record kernels
+    (_mock_records), with the probe `form`: "fast3" (prefix3, with args'
+    q3), "records" (rank records) or "arrays" (rev and the genome):
+    (positions, int32 [2, B] probes and sectors a lane, [C, D] deepest
+    steps, the int64 [B, TRACE] sector trace), the trace checked to hold
+    only sectors of the arrays the kernel reads: the records, prefix3 and
+    rev on fast3, rev without rank records, the packed genome, ylist for a
+    wide bucket and bounds with pred64."""
+    (packed, rev, xlist, ylist, q_words, x, _prefix, prefix3, q3,
      bounds) = args
     kw = dict(kw)
     pred64 = kw.pop("pred64", None)
@@ -126,36 +171,58 @@ def _kernel_plquery(lib, args, kw):
     lane = torch.full((2, b), -1, dtype=torch.int32)
     depth = torch.zeros(2, dtype=torch.int32)
     trace = torch.full((b, TRACE), -5, dtype=torch.int64)
-    form = query_cuda.probe_form(kw["length"], kw["k"], prefix, prefix3, q3)
+    bucket, rank = _mock_records(lib, xlist, ylist, bounds, packed, rev,
+                                 buckets=kw["buckets"], n=kw["n"],
+                                 ranks=form == "records")
+    bucket = None if pred64 is not None else bucket
+    fast3 = form == "fast3"
+    assert not fast3 or q3 is not None
     rc = query_cuda.launch_plquery(
-        lib, None, packed, rev, xlist, ylist, q_words, x, prefix, prefix3,
-        q3, bounds, pred64, out, lane, depth, trace, form=form, **kw)
+        lib, None, packed, rev, xlist, ylist, None if fast3 else q_words, x,
+        prefix3, q3 if fast3 else None, bounds, pred64, out, lane, depth,
+        trace, bucket_recs=bucket, rank_recs=rank, **kw)
     assert rc == 0
-    _check_trace(trace, lane[1], (packed, rev, xlist, ylist, prefix, prefix3,
-                                  bounds))
-    return out, lane, depth.tolist()
+    _check_trace(trace, lane[1], (
+        bucket, ylist, bounds if pred64 is not None else None, rank,
+        rev if rank is None else None, None if fast3 else packed,
+        prefix3 if fast3 else None))
+    return out, lane, depth.tolist(), trace
+
+
+def _forms(args, kw):
+    """The kernel's probe forms a case runs: fast3 where plquery_batch
+    takes it, rank records always, and rev and the genome where the index
+    has no prefix arrays (the plain version's packed probe)."""
+    fast3 = query_cuda.probe_form(kw["length"], kw["k"], args[6], args[7],
+                                  args[8]) == "fast3"
+    return (("fast3",) if fast3 else ()) + ("records",) + (
+        ("arrays",) if args[6] is None else ())
 
 
 def _check_plquery(lib, args, kw, want_c=None):
     """Kernel == plquery_batch on every lane, and its stats' deepest steps
-    == the plain path's ROUNDS; returns the positions and the rounds."""
+    == the plain path's ROUNDS, at each of the case's probe forms
+    (_forms); returns the positions and the rounds."""
     query.ROUNDS.update(C=0, D=0)
     want = query.plquery_batch(*args, **kw)
     rounds = dict(query.ROUNDS)
-    got, lane, (c, d) = _kernel_plquery(lib, args, kw)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert (c, d) == (rounds["C"], rounds["D"])
-    assert (lane[0] >= 1).all() and (lane[1] >= lane[0]).all()
-    if want_c is not None:
-        assert (c > 0) == want_c, rounds
+    for form in _forms(args, kw):
+        got, lane, (c, d), _ = _kernel_plquery(lib, args, kw, form)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        assert (c, d) == (rounds["C"], rounds["D"])
+        assert (lane[0] >= 1).all() and (lane[1] >= lane[0]).all()
+        if want_c is not None:
+            assert (c > 0) == want_c, rounds
     return got.numpy(), rounds
 
 
 def _args(idx, codes, with_bounds=False):
+    """plquery_batch's arguments on idx (on the CPU), q_words always (the
+    kernel reads them; the plain version takes q3 where fast3 answers)."""
     dev = idx.device_arrays()
-    x, q3, q_words = idx.query_inputs(codes)
-    return (dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
-            x, dev["prefix64"], dev["prefix3"], q3,
+    x, q3, _ = idx.query_inputs(codes)
+    return (dev["packed"], dev["rev"], dev["xlist"], dev["ylist"],
+            idx.query_words(codes), x, dev["prefix64"], dev["prefix3"], q3,
             dev["bounds"] if with_bounds else None)
 
 
@@ -183,13 +250,28 @@ def _bare(idx):
     return out
 
 
+def _prediction_args(xlist, ylist, x, n):
+    """plquery_batch's arguments that read the prediction back: a genome of
+    n A's whose rev is the identity and one-base queries of A, so that the
+    prediction probe matches at every rank and answers the predicted rank
+    (ylist / xlist / x int64 arrays; no bounds)."""
+    t = [torch.from_numpy(np.ascontiguousarray(a, np.int64))
+         for a in (xlist, ylist, x)]
+    b = len(x)
+    return (torch.zeros(n // 16 + 16, dtype=torch.int64),
+            torch.arange(n, dtype=torch.int32), t[0], t[1],
+            torch.zeros((1, b), dtype=torch.int64), t[2], None, None, None,
+            None)
+
+
 def test_prediction_kernel_source_matches_predict_pwl(lib):
     """The kernel's prediction, read through an index whose every rank
     matches the query (so the prediction probe answers) and whose rev is
-    the identity (so the position is the predicted rank): equal to
-    ops.predict.predict_pwl on crafted checkpoints, with ties that round
-    half up on both sides of xlo, empty buckets (d == 0), x below its
-    bucket's xlo, and predictions clipped at 0 and n - 1."""
+    the identity (so the position is the predicted rank:
+    _prediction_args): equal to ops.predict.predict_pwl on crafted
+    checkpoints, with ties that round half up on both sides of xlo, empty
+    buckets (d == 0), x below its bucket's xlo, and predictions clipped at
+    0 and n - 1."""
     k, buckets, n, b = 21, 6, 1 << 16, 4000
     nb = 1 << buckets
     rng = np.random.default_rng(17)
@@ -205,21 +287,17 @@ def test_prediction_kernel_source_matches_predict_pwl(lib):
     ylist[10:] += ylist[9] + 3 - ylist[10]
     x = rng.integers(0, nb << shift, b)
     x[:80] = xlist[9] + rng.integers(-2, 3, 80)
-    t = {name: torch.from_numpy(np.ascontiguousarray(a, np.int64))
-         for name, a in (("x", x), ("xlist", xlist), ("ylist", ylist))}
-    want = predict_pwl(t["x"], t["xlist"], t["ylist"], 2 * k, buckets, n)
-    q3 = torch.full((b,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
-    prefix3 = torch.full((n,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
-    rev = torch.arange(n, dtype=torch.int32)
-    args = (None, rev, t["xlist"], t["ylist"], None, t["x"], None, prefix3,
-            q3, None)
-    kw = dict(n=n, length=21, k=k, buckets=buckets, most_over=5,
+    args = _prediction_args(xlist, ylist, x, n)
+    want = predict_pwl(args[5], args[2], args[3], 2 * k, buckets, n)
+    kw = dict(n=n, length=1, k=k, buckets=buckets, most_over=5,
               most_under=5, max_over=9, max_under=9)
-    got, _, _ = _kernel_plquery(lib, args, kw)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for form in ("records", "arrays"):
+        got, _, _, _ = _kernel_plquery(lib, args, kw, form)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
     np.testing.assert_array_equal(
         got.numpy(), query.plquery_batch(*args, **kw).numpy())
     assert 0 in got and n - 1 in got
+    assert b == len(got)
 
 
 def test_prediction_wide_products_kernel_source(lib):
@@ -278,18 +356,196 @@ def test_prediction_wide_products_kernel_source(lib):
            * np.abs(nn).astype(np.float64) / np.maximum(d[bucket], 1))
     off = est.astype(np.int64) - np.array(exact)
     assert (off[est < 2.0 ** 50] != 0).any()
-    t = {name: torch.from_numpy(np.ascontiguousarray(a, np.int64))
-         for name, a in (("x", x), ("xlist", xlist), ("ylist", ylist))}
-    want = predict_pwl(t["x"], t["xlist"], t["ylist"], 2 * k, buckets, n)
+    args = _prediction_args(xlist, ylist, x, n)
+    want = predict_pwl(args[5], args[2], args[3], 2 * k, buckets, n)
     assert ((want > 0) & (want < n - 1)).sum() > b // 2
-    q3 = torch.full((b,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
-    prefix3 = torch.full((n,), 0x5A5A5A5A5A5A5A5, dtype=torch.int64)
-    args = (None, torch.arange(n, dtype=torch.int32), t["xlist"], t["ylist"],
-            None, t["x"], None, prefix3, q3, None)
-    kw = dict(n=n, length=21, k=k, buckets=buckets, most_over=5,
+    kw = dict(n=n, length=1, k=k, buckets=buckets, most_over=5,
               most_under=5, max_over=9, max_under=9)
-    got, _, _ = _kernel_plquery(lib, args, kw)
+    # rev and the genome: the rank records of 2^22 ranks take the mock a
+    # thread each (the other prediction tests read them)
+    got, _, _, _ = _kernel_plquery(lib, args, kw, "arrays")
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def _wide_table(k, buckets, n, seed):
+    """Checkpoints whose buckets span past 32 bits of ranks: even buckets
+    rise by 2^32 - 2 (the largest yhi - ylo a bucket record holds), 2^32 -
+    1, 2^32, 2^33 + 3 and 2^40 (the record then says "read ylist"), each
+    centred on a rank inside [0, n); odd ones fall back (negative), the
+    last two rise by 0 and 5. x at and around each bucket's middle and its
+    xlo. Returns (xlist, ylist, x) as int64 arrays."""
+    nb, shift = 1 << buckets, 2 * k - buckets
+    rng = np.random.default_rng(seed)
+    xlist = (np.arange(nb + 1, dtype=np.int64) << shift) + rng.integers(
+        0, 1 << 20, nb + 1)
+    xlist[nb] = (nb << shift) - 1
+    rises = [(1 << 32) - 2, (1 << 32) - 2, (1 << 32) - 1, (1 << 32) - 1,
+             1 << 32, (1 << 33) + 3, 1 << 40]
+    ylist = np.full(nb + 1, n // 3, dtype=np.int64)
+    for j, v in enumerate(rises[:nb // 2 - 1]):
+        ylist[2 * j] -= v // 2
+        ylist[2 * j + 1] += v - v // 2
+    ylist[nb] += 5
+    d = np.diff(xlist)
+    m = np.diff(ylist)
+    mid = xlist[:nb] + d // 2
+    # around the middle: a rank step every d / |m| k-mers
+    steps = np.maximum(d // np.maximum(np.abs(m), 1), 1)
+    x = np.concatenate([mid[:, None] + steps[:, None]
+                        * rng.integers(-n // 2, n // 2, (nb, 60)),
+                        xlist[:nb, None] + rng.integers(-3, 4, (nb, 6))],
+                       axis=1).ravel()
+    x = x[(x >= 0) & (x < nb << shift)]
+    return xlist, ylist, x
+
+
+def test_prediction_wide_buckets_kernel_source(lib):
+    """The kernel's prediction (read as above) on buckets whose yhi - ylo
+    lies at a bucket record's edges: 2^32 - 2 in the record, 2^32 - 1,
+    2^32, past 2^33 and 2^40, and falling, through ylist: equal to
+    predict_pwl on every lane, and most lanes predict inside (0, n - 1)."""
+    k, buckets, n = 21, 4, 1 << 16
+    xlist, ylist, x = _wide_table(k, buckets, n, seed=3)
+    args = _prediction_args(xlist, ylist, x, n)
+    t = dict(xlist=args[2], ylist=args[3], x=args[5])
+    recs = query.bucket_records(t["xlist"], t["ylist"], buckets=buckets)
+    m32 = recs[:, 3] & 0xFFFFFFFF
+    assert int(m32[0]) == (1 << 32) - 2
+    assert (m32 == query.WIDE_M).sum() >= 9   # 2^32 - 1 and past, falling
+    want = predict_pwl(t["x"], t["xlist"], t["ylist"], 2 * k, buckets, n)
+    bucket = t["x"] >> (2 * k - buckets)
+    for i in range(0, 14, 2):   # the rising buckets predict inside
+        inside = ((want > 0) & (want < n - 1))[bucket == i]
+        assert inside.float().mean() > 0.15, i
+    kw = dict(n=n, length=1, k=k, buckets=buckets, most_over=5,
+              most_under=5, max_over=9, max_under=9)
+    got, _, _, trace = _kernel_plquery(lib, args, kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # a wide bucket's lanes read ylist, the others only their record
+    ylist_lo, ylist_hi = _sector(t["ylist"], 0), _sector(t["ylist"], 16)
+    read_ylist = ((trace >= ylist_lo) & (trace <= ylist_hi)).any(1)
+    assert read_ylist.equal((m32 == query.WIDE_M)[bucket])
+
+
+@pytest.mark.parametrize("rev64", [False, True], ids=["rev32", "rev64"])
+@pytest.mark.parametrize("pad", [16, 1, 0])
+def test_record_kernels_source(lib, dup_genome, pad, rev64):
+    """plquery's record tables, plain (ops.query.plquery_records,
+    bucket_records) and the mocked record kernels, word for word: the rank
+    records are the node records' first half (the suffix's first 32
+    bases, rev) at every pad; the bucket records hold xlist[b],
+    xlist[b + 1], ylist[b] and yhi - ylo | bounds << 32, with the largest
+    yhi - ylo a record holds (2^32 - 2), WIDE_M past it and for a falling
+    ylist, and bounds words 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF and 0 (and
+    0 without bounds)."""
+    seq = dup_genome[:2500]
+    n = len(seq)
+    codes = packops.encode_bases(seq)
+    sa = build_suffix_data(seq, np.int32).sa
+    rev = torch.from_numpy(sa.astype(np.int64 if rev64 else np.int32))
+    packed = torch.from_numpy(
+        packops.pack_codes(codes, pad_words=pad).astype(np.int64))
+    llcp, rlcp = _tables(seq)
+    buckets = 5
+    xlist, ylist, _x = _wide_table(21, buckets, n, seed=pad)
+    xlist, ylist = torch.from_numpy(xlist), torch.from_numpy(ylist)
+    rng = np.random.default_rng(pad)
+    bw = rng.integers(0, 1 << 32, 1 << buckets, dtype=np.uint64).astype(
+        np.uint32)
+    bw[:4] = [0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 0]
+    bounds = torch.from_numpy(bw.view(np.int32))
+    for bnd in (bounds, None):
+        recs, ranks = _mock_records(lib, xlist, ylist, bnd, packed, rev,
+                                    buckets=buckets, n=n)
+        got = recs.numpy().view(np.uint64)
+        np.testing.assert_array_equal(recs[:, 0].numpy(), xlist[:-1])
+        np.testing.assert_array_equal(recs[:, 1].numpy(), xlist[1:])
+        np.testing.assert_array_equal(recs[:, 2].numpy(), ylist[:-1])
+        m = np.diff(ylist.numpy())
+        inline = (m >= 0) & (m < query.WIDE_M)
+        np.testing.assert_array_equal(
+            got[:, 3] & np.uint64(0xFFFFFFFF),
+            np.where(inline, m, query.WIDE_M).astype(np.uint64))
+        assert inline.sum() >= 6 and (~inline).sum() >= 9
+        assert int(m[0]) == (1 << 32) - 2 and inline[0]
+        np.testing.assert_array_equal(
+            got[:, 3] >> np.uint64(32),
+            bw.astype(np.uint64) if bnd is not None else 0)
+    assert ranks.equal(query.fancy_nodes(packed, rev, llcp, rlcp,
+                                         n=n)[:, :2])
+    np.testing.assert_array_equal(ranks[:, 1].numpy(), sa)
+
+
+@pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
+def test_adaptive_bounds_words_kernel_source(lib, k21, prefix):
+    """adaptive_bounds with the bucket records' bounds words at their
+    edges (0xFFFFFFFF and 0xFFFF halves: the 'most' window; 0: the
+    prediction alone; a wide over and a narrow under, and the reverse),
+    with the table's own prediction and, through pred64 (which reads the
+    bounds array), a shifted one."""
+    idx = k21 if prefix else _bare(k21)
+    dev = idx.device_arrays()
+    bw = dev["bounds"].clone()
+    edges = torch.tensor([-1, 0, 0xFFFF, -65536, 0x00400001, 0x00010040],
+                         dtype=torch.int32)
+    bw[::3] = edges.repeat(bw[::3].numel() // 6 + 1)[:bw[::3].numel()]
+    for length in (21, 33):
+        codes = _queries(idx.codes, 1500, length, seed=71 + length)
+        args = _args(idx, codes, with_bounds=True)[:-1] + (bw,)
+        _check_plquery(lib, args, _kw(idx, length,
+                                      QueryConfig(adaptive_bounds=True)))
+        pred = _shifted_pred(idx, codes, 200, seed=length)
+        _check_plquery(lib, args, _kw(idx, length, QueryConfig(
+            adaptive_bounds=True), pred64=pred))
+
+
+@pytest.mark.parametrize("form", ["records", "arrays", "fast3"])
+def test_plquery_trace_reads_records(lib, k21, form):
+    """The sectors a plquery lane reads, from its trace: with the table's
+    prediction one bucket record; then with rank records one a probe (and
+    the hi == lo + 2 base case's), the packed genome only on a tie of all
+    32 bases past 32 (never up to 32), never rev; without them rev a probe
+    (and the base case's) and the genome's windows; on fast3 prefix3 a
+    probe and rev once for a hit; never prefix64, xlist, ylist or bounds
+    (adaptive bounds come with the bucket record)."""
+    dev = k21.device_arrays()
+
+    def span(t):
+        return (_sector(t, 0), _sector(t, t.numel() - 1))
+
+    for length in (11, 21) if form == "fast3" else (11, 21, 32, 33, 45):
+        codes = _mixed_codes(k21.codes, 2000, length, seed=length)
+        args = _args(k21, codes, with_bounds=True)
+        kw = _kw(k21, length, QueryConfig(adaptive_bounds=True))
+        got, lane, _, trace = _kernel_plquery(lib, args, kw, form)
+        probes, sectors = lane[0].long(), lane[1].long()
+        hits = {}
+        for name in ("packed", "rev", "prefix64", "prefix3", "xlist",
+                     "ylist", "bounds"):
+            lo, hi = span(dev[name])
+            hits[name] = ((trace >= lo) & (trace <= hi)).sum(1)
+        for name in ("prefix64", "xlist", "ylist", "bounds"):
+            assert int(hits[name].sum()) == 0, name
+        genome, rev = hits["packed"], hits["rev"]
+        if form == "fast3":
+            assert hits["prefix3"].equal(probes) and genome.sum() == 0
+            assert rev.equal((got >= 0).long())
+            assert (sectors == 1 + probes + rev).all()
+            continue
+        assert hits["prefix3"].sum() == 0
+        if form == "records":
+            assert rev.sum() == 0
+            rest = sectors - genome - probes - 1
+            if length <= 32:
+                assert genome.sum() == 0
+            elif length == 33:
+                assert (genome > 0).any()
+        else:
+            assert (genome >= probes).all()
+            rest = rev - probes
+            assert (sectors == 1 + rev + genome).all()
+        # the base case's record or rev sector, or none
+        assert ((rest >= 0) & (rest <= 1)).all() and (rest == 1).any()
 
 
 @pytest.mark.parametrize("gen,k,buckets,length", GRID)
@@ -297,7 +553,9 @@ def test_prediction_wide_products_kernel_source(lib):
 def test_plquery_kernel_source_matches_plain(lib, gen, k, buckets, length,
                                              prefix):
     """tests/test_torch_query.py's grid, with and without prefix arrays
-    (fast3, prefix64 and packed probes)."""
+    (the plain version's fast3, prefix64 and packed probes; the kernel on
+    rank records and, without prefix arrays, also on rev and the
+    genome)."""
     seq = gen()
     idx = _index(seq, k, buckets, prefix_lookup=prefix)
     codes = _queries(seq, 2000, length, seed=99)
@@ -342,7 +600,8 @@ def k21():
 @pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
 def test_boundary_queries_kernel_source(lib, k21, prefix):
     """Poly-A, poly-T, genome-tail and absent queries through every probe
-    form (fast3 11/21, prefix64 31/32, packed 45)."""
+    form (the plain version's fast3 11/21, prefix64 31/32, packed 45; the
+    kernel's key up to 32 bases, records and arrays past)."""
     idx = k21 if prefix else _bare(k21)
     for length in (11, 21, 31, 32, 45):
         codes = _boundary_queries(idx, length, 1500, seed=length)
@@ -526,8 +785,9 @@ def test_binsearch_tree_kernel_source(lib, n):
 
 def test_wrappers_take_the_plain_path_on_the_cpu(k21):
     """plquery_cuda / binsearch_cuda / fancy_binsearch_cuda /
-    fancy_nodes_cuda on host tensors are the plain versions, and launch
-    nothing; an index on the CPU makes no node records."""
+    fancy_nodes_cuda / bucket_records_cuda / plquery_records_cuda on host
+    tensors are the plain versions, and launch nothing; an index on the
+    CPU makes no node records and no plquery records."""
     codes = _queries(k21.codes, 300, 33, seed=1)
     args, kw = _args(k21, codes), _kw(k21, 33)
     before = dict(query_cuda.LAUNCHES)
@@ -553,6 +813,14 @@ def test_wrappers_take_the_plain_path_on_the_cpu(k21):
                                        rlcp, n=k21.n).equal(
         query.fancy_nodes(dev["packed"], dev["rev"], llcp, rlcp, n=k21.n))
     assert k21.fancy_nodes(llcp, rlcp) is None
+    assert query_cuda.bucket_records_cuda(
+        dev["xlist"], dev["ylist"], dev["bounds"], buckets=k21.buckets).equal(
+        query.bucket_records(dev["xlist"], dev["ylist"], dev["bounds"],
+                             buckets=k21.buckets))
+    assert query_cuda.plquery_records_cuda(dev["packed"], dev["rev"],
+                                           n=k21.n).equal(
+        query.plquery_records(dev["packed"], dev["rev"], n=k21.n))
+    assert k21.query_records() == (None, None)
     assert query_cuda.LAUNCHES == before
 
 

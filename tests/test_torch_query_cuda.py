@@ -57,9 +57,9 @@ def _index(seq, dev, prefix=True, pos_dtype="auto"):
     return idx.to(dev)
 
 
-def _call(fn, idx, codes, qcfg=None, pred64=None, **over):
+def _call(fn, idx, codes, qcfg=None, pred64=None, fast3=False, **over):
     dev = idx.device_arrays()
-    x, q3, q_words = idx.query_inputs(codes)
+    x, q3, q_words = idx.query_inputs(codes, fast3=fast3)
     t = idx.table
     qcfg = qcfg or QueryConfig()
     kw = dict(n=idx.n, length=codes.shape[1], k=idx.k, buckets=idx.buckets,
@@ -75,17 +75,30 @@ def _call(fn, idx, codes, qcfg=None, pred64=None, **over):
 
 def _same(idx, codes, **kw):
     """Kernel == plain on the card, and the kernel's rounds == the plain
-    path's; one launch a call."""
+    path's, on the index's record tables (at this size no rank records: a
+    probe reads rev and the genome), on rank records made for the test,
+    and where the index has prefix3 and the length allows on the fast3
+    probe; one launch a call."""
     query.ROUNDS.update(C=0, D=0)
     want = _call(query.plquery_batch, idx, codes, **kw)
     rounds = dict(query.ROUNDS)
-    query.ROUNDS.update(C=0, D=0)
-    before = query_cuda.LAUNCHES["plquery"]
-    got = _call(query_cuda.plquery_cuda, idx, codes, stats=True, **kw)
-    torch.cuda.synchronize()
-    assert query_cuda.LAUNCHES["plquery"] == before + 1
-    assert torch.equal(got, want), int((got != want).sum())
-    assert dict(query.ROUNDS) == rounds
+    bucket_recs, rank_recs = idx.query_records()
+    assert rank_recs is None
+    d = idx.device_arrays()
+    made = query_cuda.plquery_records_cuda(d["packed"], d["rev"], n=idx.n)
+    fast3 = idx.query_inputs(codes, fast3=True)[1] is not None
+    for ranks, f3 in ((None, False), (made, False)) + (
+            ((None, True),) if fast3 else ()):
+        query.ROUNDS.update(C=0, D=0)
+        before = dict(query_cuda.LAUNCHES)
+        got = _call(query_cuda.plquery_cuda, idx, codes, stats=True,
+                    bucket_recs=bucket_recs, rank_recs=ranks, fast3=f3,
+                    **kw)
+        torch.cuda.synchronize()
+        assert query_cuda.LAUNCHES == dict(before,
+                                           plquery=before["plquery"] + 1)
+        assert torch.equal(got, want), int((got != want).sum())
+        assert dict(query.ROUNDS) == rounds
     return got, rounds
 
 
@@ -121,6 +134,96 @@ def test_plquery_kernel_rank_storage(dev, seq, pos_dtype):
     assert idx.device_arrays()["rev"].dtype == want
     for length in (21, 45):
         _same(idx, _queries(seq, 20_000, length, seed=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_dtype", ["uint32", "int64"])
+def test_record_kernels_match_plain(dev, seq, pos_dtype):
+    """plquery's record tables on the card (bucket_records_cuda,
+    plquery_records_cuda) equal to the plain ops.query.bucket_records /
+    plquery_records on the same CUDA tensors, one launch each: the
+    index's, a packed genome without pad words, and checkpoints whose
+    buckets rise by 2^32 - 2 (in the record), 2^32 - 1 and past, or fall,
+    with bounds words 0xFFFFFFFF and 0; a query without the records makes
+    the bucket records first (two launches; rank records only past the
+    card's L2, ops.query_cuda.reads_rank_records)."""
+    idx = _index(seq, dev, pos_dtype=pos_dtype)
+    d = idx.device_arrays()
+    unpadded = torch.from_numpy(packops.pack_codes(
+        idx.codes, pad_words=0).astype(np.int64)).to(dev)
+    for packed in (d["packed"], unpadded):
+        before = query_cuda.LAUNCHES["plquery_records"]
+        got = query_cuda.plquery_records_cuda(packed, d["rev"], n=idx.n)
+        assert query_cuda.LAUNCHES["plquery_records"] == before + 1
+        assert torch.equal(got, query.plquery_records(packed, d["rev"],
+                                                      n=idx.n))
+    ylist = d["ylist"].clone()
+    ylist[1::4] += (1 << 32) - 2
+    ylist[2::4] += (1 << 32) - 1
+    ylist[3::4] -= 1 << 40
+    bounds = d["bounds"].clone()
+    bounds[::2] = -1
+    bounds[1::4] = 0
+    for b in (bounds, None):
+        got = query_cuda.bucket_records_cuda(d["xlist"], ylist, b,
+                                             buckets=idx.buckets)
+        want = query.bucket_records(d["xlist"], ylist, b,
+                                    buckets=idx.buckets)
+        assert got.shape == (1 << idx.buckets, 4) and torch.equal(got, want)
+    assert int(((want[:, 3] & 0xFFFFFFFF) == query.WIDE_M).sum()) > 1000
+    codes = _queries(seq, 5000, 33, seed=12)
+    before = dict(query_cuda.LAUNCHES)
+    got = _call(query_cuda.plquery_cuda, idx, codes)
+    assert query_cuda.LAUNCHES == {k: v + (k in ("plquery", "bucket_records"))
+                                   for k, v in before.items()}
+    assert torch.equal(got, _call(query.plquery_batch, idx, codes))
+
+
+@pytest.mark.cuda
+def test_rank_records_past_the_l2(dev, seq, monkeypatch):
+    """Where reads_rank_records says so (here forced, as past the card's
+    L2), the index makes rank records once (one more launch on its first
+    query) and the kernel reads them: equal to the plain cascade at every
+    probe form."""
+    monkeypatch.setattr(query_cuda, "reads_rank_records", lambda rev, p: True)
+    from sapling_tpu_torch.index import sapling
+    monkeypatch.setattr(sapling, "reads_rank_records", lambda rev, p: True)
+    idx = _index(seq, dev, prefix=False)
+    before = dict(query_cuda.LAUNCHES)
+    bucket, rank = idx.query_records()
+    assert rank.shape == (idx.n, 2)
+    assert query_cuda.LAUNCHES == {k: v + (k in ("bucket_records",
+                                                 "plquery_records"))
+                                   for k, v in before.items()}
+    for length in (16, 33, 101):
+        codes = _queries(seq, 20_000, length, seed=20 + length)
+        got = idx.query_device(*idx.query_inputs(codes), length)
+        assert torch.equal(got, _call(query.plquery_batch, idx, codes))
+    assert query_cuda.LAUNCHES["plquery_records"] == before[
+        "plquery_records"] + 1
+
+
+@pytest.mark.cuda
+def test_swap_table_rebuilds_the_bucket_records(dev, seq):
+    """swap_table on an index whose record tables exist: the bucket records
+    made anew of the new table (one launch), the rank records kept, and the
+    positions after the swap equal to an index built with that table."""
+    idx = _index(seq, dev)
+    other = SaplingIndex.build(seq, IndexConfig(k=21, buckets=12),
+                               keep_aligner_arrays=False, device="cpu")
+    codes = _queries(seq, 20_000, 21, seed=13)
+    idx.query_device(*idx.query_inputs(codes), 21)
+    bucket, rank = idx.query_records()
+    before = dict(query_cuda.LAUNCHES)
+    idx.swap_table(other.table)
+    assert query_cuda.LAUNCHES == dict(
+        before, bucket_records=before["bucket_records"] + 1)
+    bucket2, rank2 = idx.query_records()
+    assert rank2 is rank and bucket2.shape == (1 << 12, 4)
+    got = idx.query_positions(codes)
+    np.testing.assert_array_equal(got, other.query_positions(codes))
+    assert query_cuda.LAUNCHES["bucket_records"] == before[
+        "bucket_records"] + 1
 
 
 @pytest.mark.cuda
@@ -318,9 +421,10 @@ def test_fancy_kernel_small_genomes(dev):
 @pytest.mark.cuda
 def test_entry_points_launch_the_kernels(dev, seq, tables):
     """SaplingIndex.query_device and binsearch_device (both searches)
-    launch once a call, the pruned search's node records once for a pair
-    of tables (again after a table is written in place); an empty batch
-    launches nothing."""
+    launch once a call, plquery's bucket records once for the index (on
+    its first query; no rank records at this size), the pruned search's
+    node records once for a pair of tables (again after a table is written
+    in place); an empty batch launches nothing."""
     idx = _index(seq, dev)
     codes = _queries(seq, 1000, 21, seed=8)
     llcp, rlcp = (t.to(dev) for t in tables)
@@ -330,7 +434,8 @@ def test_entry_points_launch_the_kernels(dev, seq, tables):
     want = idx.binsearch_device(idx.query_words(codes), 21, llcp, rlcp)
     idx.query_device(*idx.query_inputs(codes[:0]), 21)
     torch.cuda.synchronize()
-    assert query_cuda.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert query_cuda.LAUNCHES == {k: v + (k != "plquery_records")
+                                   for k, v in before.items()}
     got = idx.binsearch_device(idx.query_words(codes), 21, llcp, rlcp)
     assert torch.equal(got, want)
     assert query_cuda.LAUNCHES["fancy"] == before["fancy"] + 2
@@ -388,3 +493,21 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev, seq, tables):
         query_cuda.fancy_binsearch_cuda(d["packed"], d["rev"], llcp, rlcp,
                                         qw, n=idx.n, length=33,
                                         nodes=shifted)
+    bucket = idx.query_records()[0]
+    rank = query_cuda.plquery_records_cuda(d["packed"], d["rev"], n=idx.n)
+    kw = dict(n=idx.n, length=33, k=idx.k, buckets=idx.buckets,
+              most_over=1, most_under=1, max_over=2, max_under=2)
+    args = (d["packed"], d["rev"], d["xlist"], d["ylist"], qw, x)
+    for bad in (dict(bucket_recs=bucket[:-1], rank_recs=rank),
+                dict(bucket_recs=bucket, rank_recs=rank[:-1]),
+                dict(bucket_recs=bucket.int(), rank_recs=rank)):
+        with pytest.raises(ValueError):                  # records' shape
+            query_cuda.plquery_cuda(*args, **bad, **kw)
+    off16 = torch.empty(4 * len(bucket) + 2, dtype=torch.int64,
+                        device=dev)[2:].view(-1, 4)
+    off8 = torch.empty(2 * idx.n + 1, dtype=torch.int64,
+                       device=dev)[1:].view(idx.n, 2)
+    for bad in (dict(bucket_recs=off16, rank_recs=rank),
+                dict(bucket_recs=bucket, rank_recs=off8)):
+        with pytest.raises(ValueError):                  # records' alignment
+            query_cuda.plquery_cuda(*args, **bad, **kw)
