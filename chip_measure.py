@@ -4,7 +4,7 @@
     python3 chip_measure.py [out.json] [--against=path/to/other/sw.cu]
     python3 chip_measure.py [out.json] --against-query=path/to/query.cu ...
         [--query-variants=no_bucket_records,blocks6]
-        [--query-kernels=plquery,binsearch,fancy]
+        [--query-kernels=plquery,binsearch,fancy,records]
         [--big=path/to/artifact.stpu.npz ...]
     python3 chip_measure.py [out.json] --against-nn=path/to/nn_predict.cu ...
         [--nn-variants=tile=1024,align=8]
@@ -42,15 +42,17 @@ and queries (same seeds) and measures:
   baselines: the plain and the llcp/rlcp-pruned binary search on the
            21-base queries, three timings and one profiled call each.
 
-With --against-query (one or more) or --query-variants, it measures only
-this instead:
+With --against-query (one or more), --query-variants or --query-kernels,
+it measures only this instead:
 
   query_ab: each other version of csrc/query.cu (the same C entry points,
-           or those of a version from before plquery's record tables or
-           the pruned search's node records, each called as it was; built
-           with the same flags), and this tree's changed by each of
-           --query-variants (QUERY_VARIANTS: the prediction read from
-           xlist / ylist, 6 blocks an SM), timed in turns with this
+           or those of a version from before plquery's record tables,
+           the pruned search's node records or the 32-bit genome's record
+           builders, each called as it was; built with the same flags;
+           one that does not build is left out), and this tree's changed
+           by each of --query-variants (QUERY_VARIANTS: the prediction
+           read from xlist / ylist, 6 blocks an SM, the record builders'
+           variants), timed in turns with this
            tree's (other, this, this, other, AB_ROUNDS times; CUDA events)
            on the same CUDA tensors, their positions held equal, in these
            cases of --query-kernels (default all), each in chip_smoke's
@@ -60,18 +62,23 @@ this instead:
            prefix arrays) and each --big artifact at L=21 and 101, the
            binary search at L=21 on each, and the llcp/rlcp-pruned search
            at L=21 with and without prefix64 and at L=101 without on the
-           4.6 Mbp index and at L=21 and 101 on each artifact (its tables
-           from its LCP: scale_tables); plquery's probe sources (rank
+           4.6 Mbp index and at L=21 and 101 on each artifact up to
+           REAL_TABLES_N ranks (its tables from its LCP:
+           chip_smoke.scale_tables); the record builders (records_ab:
+           plquery's rank records and the node records on each index,
+           past REAL_TABLES_N of seeded tables, with their bounds, the
+           genome sectors a rank reads and the build's peak memory);
+           plquery's probe sources (rank
            records, rev and the genome, fast3) in turns (probe_sources),
            the NN engine's call included; each
            case's bounds (chip_smoke.query_bound_ms over this build's
            sector trace, and query_rate_bound_ms at the random sector
            rate the run measures, chip_smoke.random_sector_rate) and lane
            utilisation (chip_smoke.lane_utilisation), an older plquery's
-           own distinct sectors and bounds, and for the pruned search the
-           sectors a lane read and its node records' build time and
-           bytes; each artifact's device bytes (arrays and record tables)
-           and peak device memory; and of each build the registers, stack
+           own distinct sectors and bounds, and for the pruned search its
+           node records' build time and bytes; each artifact's device
+           bytes (arrays and record tables) and peak device memory; and
+           of each build the registers, stack
            and spills of every kernel (nvcc's -Xptxas -v log) and the CALL
            instructions in its SASS by target (cuobjdump): the int64
            division subroutine's.
@@ -275,16 +282,21 @@ def build_report(lib_path: str) -> dict:
             return f"nn_predict_kernel<{shared}{width}>"
         if "bucket_records_kernel" in mangled:
             return "bucket_records_kernel"
+        m = re.search(r"records_kernelI([il])Li(\d)E", mangled)
+        if m:
+            rev = {"i": "int32", "l": "int64"}[m.group(1)]
+            kind = ("rank records", "node records",
+                    "nodes from rank records")[int(m.group(2))]
+            return f"records_kernel<{rev}, {kind}>"
         m = re.search(r"(plquery_kernel|fancy_binsearch_kernel|"
                       r"fancy_nodes_kernel|binsearch_kernel|"
-                      r"rank_records_kernel)"
-                      r"I(?:Li(\d+)E)?([il])(?:Lb([01])E)?E", mangled)
+                      r"rank_records_kernel|records_kernel)"
+                      r"I(?:Li(\d+)E)?([il])?(?:Lb([01])E)?E", mangled)
         if not m:
             return mangled
-        rev = {"i": "int32", "l": "int64"}[m.group(3)]
-        ranks = {None: "", "0": ", false", "1": ", true"}[m.group(4)]
-        return (f"{m.group(1)}<{m.group(2) + ', ' if m.group(2) else ''}"
-                f"{rev}{ranks}>")
+        args = [m.group(2), {"i": "int32", "l": "int64", None: None}[
+            m.group(3)], {"0": "false", "1": "true", None: None}[m.group(4)]]
+        return f"{m.group(1)}<{', '.join(a for a in args if a)}>"
 
     out = {}
     with open(lib_path[:-3] + ".log") as f:
@@ -342,6 +354,18 @@ TABLES_FANCY = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                 ctypes.c_int] + [ctypes.c_void_p] * 8 + [
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p]
+# fancy_binsearch_launch of a query.cu from the node records to the 32-bit
+# genome's builders: TABLES_FANCY's arguments and the node records
+NODES_FANCY = TABLES_FANCY[:12] + [ctypes.c_void_p] + TABLES_FANCY[12:]
+# the record builders' entry points of such a query.cu (the int64 words)
+OLD_BUILDERS = {
+    "rank_records_launch": [ctypes.c_void_p, ctypes.c_longlong,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_longlong, ctypes.c_void_p],
+    "fancy_nodes_launch": [ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_longlong, ctypes.c_void_p]}
 # plquery_launch of a query.cu from before plquery's record tables (it
 # reads xlist, ylist, bounds, rev, prefix64 and the genome)
 ARRAYS_PLQUERY = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -354,23 +378,28 @@ ARRAYS_PLQUERY = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
 def bind_query(path: str):
     """A query library with its C entry points typed: this tree's, or an
     older one's. One from before plquery's record tables (no
-    rank_records_launch) takes ARRAYS_PLQUERY's arguments
-    (with_query_lib calls it through plquery_arrays); one from
-    before the node records (no fancy_nodes_launch) takes TABLES_FANCY's
-    for its pruned search (launch_fancy_tables); the first version has no
-    pruned search."""
+    bucket_records_launch) takes ARRAYS_PLQUERY's arguments
+    (with_query_lib calls it through plquery_arrays); one from before this
+    tree's record builders (no records_launch) has their int64-word entry
+    points (OLD_BUILDERS, if any: record_call) and takes for its pruned
+    search NODES_FANCY's arguments, or from before the node records (no
+    fancy_nodes_launch) TABLES_FANCY's (fancy_older); the first version
+    has no pruned search."""
     from sapling_tpu_torch.ops import query_cuda, sw_cuda
 
     has = ctypes.CDLL(path)
-    sig = {k: v for k, v in query_cuda.SIGNATURES.items() if hasattr(has, k)}
-    arrays = "rank_records_launch" not in sig
-    tables = "fancy_nodes_launch" not in sig
+    sig = {k: v for k, v in {**query_cuda.SIGNATURES, **OLD_BUILDERS}.items()
+           if hasattr(has, k)}
+    arrays = not hasattr(has, "bucket_records_launch")
+    older = not hasattr(has, "records_launch")
+    tables = not hasattr(has, "fancy_nodes_launch")
     if arrays:
         sig["plquery_launch"] = ARRAYS_PLQUERY
-    if tables and "fancy_binsearch_launch" in sig:
-        sig["fancy_binsearch_launch"] = TABLES_FANCY
+    if older and "fancy_binsearch_launch" in sig:
+        sig["fancy_binsearch_launch"] = TABLES_FANCY if tables else NODES_FANCY
     lib = sw_cuda.bind_lib(path, sig)
-    lib.arrays_plquery, lib.tables_fancy = arrays, tables
+    lib.arrays_plquery, lib.older_fancy, lib.tables_fancy = (arrays, older,
+                                                             tables)
     return lib
 
 
@@ -419,25 +448,40 @@ def plquery_arrays(lib, fast3_q3=None):
     return call
 
 
-def launch_fancy_tables(lib, stream, packed, rev, llcp, rlcp, prefix, _nodes,
-                        q_words, out, lane, depth, trace, *, n: int,
-                        length: int, form: str) -> int:
-    """query_cuda.launch_fancy for a library from before the node records:
-    the same call without them."""
+def fancy_older(lib):
+    """query_cuda.fancy_binsearch_cuda for a library from before this
+    tree's pruned-search entry point (it also takes rev, llcp, rlcp and
+    prefix, and from the node records on the records): the same call,
+    without stats (older libraries are timed, not traced)."""
     import torch
 
     from sapling_tpu_torch.ops.query_cuda import PROBES, _ptr
 
-    return lib.fancy_binsearch_launch(
-        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
-        int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
-        _ptr(prefix) if form == "prefix64" else None, q_words.data_ptr(),
-        out.data_ptr(), _ptr(lane), _ptr(depth), _ptr(trace),
-        q_words.shape[1], n, length, 0 if trace is None else trace.shape[1],
-        PROBES[form], stream)
+    def call(packed, rev, llcp, rlcp, q_words, *, n, length, prefix=None,
+             nodes=None, stats=False, trace=0):
+        if stats or trace:
+            raise ValueError("an older pruned search runs without stats")
+        dev, b = q_words.device, q_words.shape[1]
+        form = "prefix64" if prefix is not None and length <= 32 else "packed"
+        out = torch.empty(b, dtype=torch.int64, device=dev)
+        rc = lib.fancy_binsearch_launch(
+            packed.data_ptr(), packed.shape[0], rev.data_ptr(),
+            int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
+            _ptr(prefix) if form == "prefix64" else None,
+            *(() if lib.tables_fancy else (nodes.data_ptr(),)),
+            q_words.data_ptr(), out.data_ptr(), None, None, None, b, n,
+            length, 0, PROBES[form if lib.tables_fancy else
+                              "prefix64" if length <= 32 else "packed"],
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fancy kernel launch failed: cudaError {rc}")
+        return out
+
+    return call
 
 
-# this tree's csrc/query.cu changed: {name: (pattern, replacement)}
+# this tree's csrc/query.cu changed: {name: (pattern, replacement) or a
+# list of them}
 # (query_variant): the prediction reading xlist, ylist and bounds as the
 # first design read them, not its bucket record; plquery_kernel held to 6
 # blocks of 256 an SM (40 registers a thread)
@@ -457,6 +501,57 @@ QUERY_VARIANTS = {
 """),
     "blocks6": (r"__launch_bounds__\(kThreads\) plquery_kernel",
                 "__launch_bounds__(kThreads, 6) plquery_kernel"),
+    # the record builders: node records stored from registers (two 16-byte
+    # stores a lane, half of each sector a store); the streams through the
+    # default cache policy; the int64 words (the caller passes them,
+    # record_call); the 32-bit genome as a persisting L2 access-policy
+    # window for the launch
+    "no_stage": (
+        r"    // the warp's 32 records into its stage.*?stage\[c\]\);\n",
+        """    if (r < a.n) {
+      stream_store(out + 2 * r, rec);
+      stream_store(out + 2 * r + 1, make_longlong2((long long)lcps, 0));
+    }
+"""),
+    "cached": [(r"  return __ldcs\(p\);", "  return __ldg(p);"),
+               (r"  __stcs\(p, v\);", "  *p = v;")],
+    "genome64": (r"__ldg\(a\.genome32 \+ ",
+                 "__ldg(reinterpret_cast<const int64_t*>(a.genome32) + "),
+    "l2_window": (
+        r"  records_kernel<REV, KIND><<<.*?"
+        r"  return \(int\)cudaGetLastError\(\);\n",
+        """  int dev = 0, max_window = 0, max_persist = 0;
+  size_t limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_window, cudaDevAttrMaxAccessPolicyWindowSize,
+                         dev);
+  cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize,
+                         dev);
+  cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
+  const size_t bytes = (size_t)a.packed_len * 4;
+  const size_t window = bytes < (size_t)max_window ? bytes : max_window;
+  const size_t persist = window < (size_t)max_persist ? window : max_persist;
+  cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, persist);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
+  attr[0].val.accessPolicyWindow.base_ptr = (void*)a.genome32;
+  attr[0].val.accessPolicyWindow.num_bytes = window;
+  attr[0].val.accessPolicyWindow.hitRatio = (float)persist / (float)window;
+  attr[0].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+  attr[0].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, records_kernel<REV, KIND>, a, out);
+  if (e == cudaSuccess) e = cudaStreamSynchronize(stream);
+  cudaCtxResetPersistingL2Cache();
+  cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, limit);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+"""),
 }
 
 
@@ -467,10 +562,13 @@ def query_variant(name: str) -> str:
 
     from sapling_tpu_torch.ops import query_cuda, sw_cuda
 
-    pattern, repl = QUERY_VARIANTS[name]
+    changes = QUERY_VARIANTS[name]
     with open(query_cuda.SOURCE) as f:
-        src, n = re.subn(pattern, lambda _m: repl, f.read(), flags=re.S)
-    assert n == 1, f"{name}: {n} matches in csrc/query.cu"
+        src = f.read()
+    for pattern, repl in (changes if isinstance(changes, list)
+                          else [changes]):
+        src, n = re.subn(pattern, lambda _m, r=repl: r, src, flags=re.S)
+        assert n == 1, f"{name}: {n} matches of {pattern!r} in csrc/query.cu"
     os.makedirs(sw_cuda.BUILD_DIR, exist_ok=True)
     path = os.path.join(sw_cuda.BUILD_DIR, f"query_{name}.cu")
     with open(path, "w") as f:
@@ -481,43 +579,27 @@ def query_variant(name: str) -> str:
 def with_query_lib(lib, fn, fast3_q3=None):
     """fn() with query_cuda's launches going to the library `lib` (an older
     one's plquery through plquery_arrays, with fast3_q3, its pruned search
-    through launch_fancy_tables)."""
+    through fancy_older)."""
     from sapling_tpu_torch.ops import query_cuda
 
-    saved = query_cuda._LIB, query_cuda.launch_fancy, query_cuda.plquery_cuda
+    saved = (query_cuda._LIB, query_cuda.fancy_binsearch_cuda,
+             query_cuda.plquery_cuda)
     query_cuda._LIB = lib
-    if getattr(lib, "tables_fancy", False):
-        query_cuda.launch_fancy = launch_fancy_tables
+    if getattr(lib, "older_fancy", False):
+        query_cuda.fancy_binsearch_cuda = fancy_older(lib)
     if getattr(lib, "arrays_plquery", False):
         query_cuda.plquery_cuda = plquery_arrays(lib, fast3_q3)
     try:
         return fn()
     finally:
-        (query_cuda._LIB, query_cuda.launch_fancy,
+        (query_cuda._LIB, query_cuda.fancy_binsearch_cuda,
          query_cuda.plquery_cuda) = saved
-
-
-def scale_tables(big):
-    """The llcp / rlcp tables of the scale artifact's genome, on the host:
-    its LCP (Kasai, over the artifact's own suffix array rev), then
-    build_llcp_rlcp (a sparse table of ~5 GB at 46 Mbp)."""
-    import numpy as np
-
-    from sapling_tpu_torch.index.suffix_array import build_llcp_rlcp
-    from sapling_tpu_torch.native import lcp_kasai
-    from sapling_tpu_torch.ops import pack as packops
-
-    rev = np.asarray(big.rev)
-    _inv, lcp = lcp_kasai(packops.decode_bases(big.codes),
-                          rev.astype(np.int64) if rev.dtype == np.uint32
-                          else rev)
-    return build_llcp_rlcp(np.asarray(lcp, np.int64), big.n)
 
 
 # plquery's query lengths on the 4.6 Mbp index (the aligner's seeds are 16
 # bases); on the artifacts chip_smoke.SCALE_LENGTHS
 PLQUERY_LENGTHS = (16, 21, 101)
-QUERY_KERNELS = ("plquery", "binsearch", "fancy")
+QUERY_KERNELS = ("plquery", "binsearch", "fancy", "records")
 
 
 def nn_engine_case(didx, codes):
@@ -595,7 +677,8 @@ def query_cases(dev, idx21, bigs, tables, big_tables, kernels):
 
     if "fancy" in kernels:
         lr = [torch.from_numpy(a).to(dev) for a in tables]
-        big_lrs = [[torch.from_numpy(a).to(dev) for a in t]
+        big_lrs = [None if t is None else
+                   [torch.from_numpy(a).to(dev) for a in t]
                    for t in big_tables]
     didx, bare = idx21.to(dev), cs.without_prefix(idx21).to(dev)
     cases = []
@@ -627,7 +710,7 @@ def query_cases(dev, idx21, bigs, tables, big_tables, kernels):
             if "binsearch" in kernels:
                 cases.append(binsearch(big_tag, big,
                                        codes_of(big, cs.QUERY_LEN)))
-            if "fancy" in kernels:
+            if "fancy" in kernels and big_lrs[i] is not None:
                 cases += [fancy(big_tag, big, big_lrs[i],
                                 codes_of(big, length))
                           for length in cs.SCALE_LENGTHS]
@@ -664,8 +747,6 @@ def trace_bound(call, b: int, lane_bytes: int, sectors_per_s: float):
                                                     sectors_per_s),
                util=cs.lane_utilisation(probes), probes=int(probes.sum()),
                sectors=int(st["sectors"].sum()))
-    if "reads" in st:
-        row["reads"] = int(st["reads"].sum())
     del tr, st
     query_cuda.LAST_STATS.clear()
     return row
@@ -790,6 +871,235 @@ def probe_sources(dev, idx21, bigs, nn_case, sectors_per_s) -> list[dict]:
     return rows
 
 
+# the variants of QUERY_VARIANTS that change only the record builders
+RECORD_VARIANTS = ("no_stage", "cached", "genome64", "l2_window")
+# those that change only the genome's gathers
+GATHER_VARIANTS = ("genome64", "l2_window")
+# the builders' record kinds (the first two as query_cuda.LAUNCHES names
+# them): node records as SaplingIndex.fancy_nodes makes them (from the
+# index's rank records where it holds them), and gathered from the genome
+# where it holds rank records too
+RECORD_KINDS = ("plquery_records", "fancy_nodes", "fancy_nodes_gathered")
+# up to this many ranks an artifact's node records are made of its own
+# llcp / rlcp tables (scale_tables); past it of seeded random int32 tables
+# of the same size: the builders copy the two words, their values move no
+# byte, and the 230 Mbp tables' sparse table takes ~26 GB of the host
+REAL_TABLES_N = 50_000_000
+REAL_TABLES = "its llcp / rlcp"
+
+
+def record_tables(big):
+    """The llcp / rlcp tables the node records of artifact `big` are made
+    of on the host: scale_tables up to REAL_TABLES_N ranks, else seeded
+    random int32 in [0, 100] (a note says which)."""
+    import numpy as np
+
+    if big.n <= REAL_TABLES_N:
+        return cs.scale_tables(big), REAL_TABLES
+    rng = np.random.default_rng(cs.SEED)
+    return tuple(rng.integers(0, 101, big.n, dtype=np.int32)
+                 for _ in range(2)), "seeded random llcp / rlcp"
+
+
+def record_call(lib, kind, didx, lr, variant=None):
+    """One build of `kind` (RECORD_KINDS) on `didx` (on the card) through
+    query library `lib`, as a function -> the records: a library with the
+    32-bit genome's entry point (records_launch) through this tree's
+    wrappers, as SaplingIndex calls them (the int64 words narrowed on the
+    card first; "fancy_nodes" from the index's rank records where it
+    holds them); an older one (rank_records_launch / fancy_nodes_launch,
+    the int64 words, always gathering) through its own entry points. The
+    variant "genome64" (the int64 words) calls records_launch with them."""
+    import torch
+
+    from sapling_tpu_torch.ops import query_cuda
+
+    d = didx.device_arrays()
+    n, dev = didx.n, d["rev"].device
+    rev64 = int(d["rev"].dtype == torch.int64)
+    nodes = kind != "plquery_records"
+    tabs = lr if nodes else (None, None)
+    ranks = didx.query_records()[1] if kind == "fancy_nodes" else None
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def out():
+        return torch.empty((n, 4 if nodes else 2), dtype=torch.int64,
+                           device=dev)
+
+    def checked(rc):
+        if rc:
+            raise RuntimeError(f"{kind} launch failed: cudaError {rc}")
+
+    if not hasattr(lib, "records_launch"):
+        def old():
+            recs = out()
+            checked(lib.fancy_nodes_launch(
+                d["packed"].data_ptr(), d["packed"].shape[0],
+                d["rev"].data_ptr(), rev64, lr[0].data_ptr(),
+                lr[1].data_ptr(), recs.data_ptr(), n, stream()) if nodes
+                else lib.rank_records_launch(
+                    d["packed"].data_ptr(), d["packed"].shape[0],
+                    d["rev"].data_ptr(), rev64, recs.data_ptr(), n,
+                    stream()))
+            return recs
+        return old
+    if variant == "genome64":
+        def direct():
+            recs = out()
+            checked(query_cuda.launch_records(lib, stream(), d["packed"],
+                                              d["rev"], *tabs, recs, n=n))
+            return recs
+        return direct
+    if nodes:
+        return lambda: with_query_lib(lib, lambda: query_cuda.fancy_nodes_cuda(
+            d["packed"], d["rev"], *lr, n=n, rank_recs=ranks))
+    return lambda: with_query_lib(lib, lambda: query_cuda.plquery_records_cuda(
+        d["packed"], d["rev"], n=n))
+
+
+def key_sectors(didx) -> dict:
+    """The 32-byte sectors of the genome that a rank's key reads (three
+    words from rev[r] >> 4, clamped to the array), on average over the
+    ranks of `didx` (on the card): as int64 words (the plain version's and
+    the first builders') and as 32-bit words; with the genome's bytes in
+    each form and the card's L2 size."""
+    import torch
+
+    d = didx.device_arrays()
+    words = d["packed"].shape[0]
+    out = dict(l2_bytes=torch.cuda.get_device_properties(
+        d["rev"].device).L2_cache_size)
+    for name, width in (("int64", 8), ("int32", 4)):
+        total, step = 0, 1 << 26
+        for i in range(0, didx.n, step):
+            pos = d["rev"][i:i + step].long()
+            if d["rev"].dtype == torch.int32:
+                pos &= 0xFFFFFFFF
+            w0 = torch.clamp(pos >> 4, max=words - 1)
+            w2 = torch.clamp((pos >> 4) + 2, max=words - 1)
+            total += int(((w2 * width + width - 1 >> 5)
+                          - (w0 * width >> 5) + 1).sum())
+        out[name] = dict(sectors_a_rank=total / didx.n,
+                         genome_bytes=words * width)
+    return out
+
+
+def genome32_ms(didx, dev) -> dict:
+    """The two ways to the builders' 32-bit genome on `didx` (on the
+    card): the int64 device words narrowed as query_cuda.genome32 narrows
+    them (CUDA events) and
+    a send of the host's uint32 words as int32 (host clock around the copy
+    and a sync; median of AB_ROUNDS)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    words = didx.device_arrays()["packed"]
+    host = np.ascontiguousarray(didx.packed).view(np.int32)
+    sent = []
+    for _ in range(AB_ROUNDS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        torch.from_numpy(host).to(dev)
+        torch.cuda.synchronize(dev)
+        sent.append((time.perf_counter() - t0) * 1e3)
+    return dict(narrowed=cs._time_ms(lambda: words.to(torch.int32), dev),
+                sent=statistics.median(sent))
+
+
+def records_ab(dev, indexes, libs, names, variants) -> list[dict]:
+    """The record builders (RECORD_KINDS) of every library in `libs`
+    (their sources `names`; the first is this tree's, those of `variants`
+    last) on each (index, llcp / rlcp tables on the card, tables note) of
+    `indexes`: each other library's build in turns with the first's
+    (in_turns), their records held equal word for word; the first's build
+    alone timed too (median of AB_ROUNDS), its bound
+    (chip_smoke.query_records_bound_ms / fancy_nodes_bound_ms: rev, the
+    tables and the genome's int64 words read once, the records written
+    once), the peak device memory a build adds, the records' bytes, and
+    the genome sectors a rank's key reads (key_sectors). Where the index
+    holds rank records, its node records copied from them are timed in
+    turns with this tree's gathered ones too, and GATHER_VARIANTS run only
+    on the gathered kind."""
+    import statistics
+
+    import torch
+
+    rows = []
+    tags = dict(zip(names[len(names) - len(variants):], variants))
+    for didx, lr, note in indexes:
+        sectors = key_sectors(didx)
+        log(f"records {didx.n} bp: a rank's key reads "
+            f"{sectors['int64']['sectors_a_rank']:.4f} sectors of the int64"
+            f" genome ({sectors['int64']['genome_bytes'] / 1e6:.1f} MB), "
+            f"{sectors['int32']['sectors_a_rank']:.4f} of the 32-bit one "
+            f"({sectors['int32']['genome_bytes'] / 1e6:.1f} MB); L2 "
+            f"{sectors['l2_bytes'] / 1e6:.1f} MB")
+        sectors["genome32_ms"] = genome32_ms(didx, dev)
+        log(f"records {didx.n} bp: the 32-bit genome narrowed on the card "
+            f"{sectors['genome32_ms']['narrowed']:.4f} ms (CUDA events), "
+            f"sent from the host's uint32 words "
+            f"{sectors['genome32_ms']['sent']:.4f} ms (host clock, synced; "
+            f"median of {AB_ROUNDS})")
+        copies = didx.query_records()[1] is not None
+        for kind in RECORD_KINDS:
+            if kind == "fancy_nodes_gathered" and not copies:
+                continue
+            bound = (cs.query_records_bound_ms(didx)[kind]
+                     if kind == "plquery_records"
+                     else cs.fancy_nodes_bound_ms(didx))
+            first = record_call(libs[0], kind, didx, lr)
+            torch.cuda.synchronize(dev)
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            want = first()
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev) - before
+            nbytes = want.numel() * want.element_size()
+            alone = [cs._time_ms(first, dev) for _ in range(AB_ROUNDS)]
+            copied = kind == "fancy_nodes" and copies
+            row = dict(n=didx.n, kind=kind, tables=note, bound_ms=bound,
+                       bytes=nbytes, peak_bytes=peak, sectors=sectors,
+                       ms=alone, median=statistics.median(alone),
+                       copied=copied, against={})
+            log(f"records {didx.n} bp {kind} ({note}"
+                + (", copied from its rank records" if copied else "")
+                + f"): {names[0]} "
+                f"{row['median']:.4f} ms alone (median of {AB_ROUNDS}, "
+                f"{min(alone):.4f}-{max(alone):.4f}); bound {bound:.4f} ms "
+                f"({100 * bound / row['median']:.1f}% of it); records "
+                f"{nbytes / 1e9:.3f} GB, the build's peak over them "
+                f"{(peak - nbytes) / 1e6:.1f} MB")
+            against = [(record_call(lib, kind, didx, lr, tags.get(src)), src)
+                       for lib, src in zip(libs[1:], names[1:])
+                       if not (kind == "fancy_nodes" and copies
+                               and tags.get(src) in GATHER_VARIANTS)]
+            if kind == "fancy_nodes" and copies:
+                against.append((record_call(libs[0], "fancy_nodes_gathered",
+                                            didx, lr),
+                                f"{names[0]} gathered"))
+            for other, src in against:
+                if not torch.equal(other(), want):
+                    raise AssertionError(f"{src} {kind} records differ from "
+                                         f"{names[0]}'s: {didx.n} bp")
+                t_o, t_f = in_turns(other, first, dev)
+                med_o, med_f = statistics.median(t_o), statistics.median(t_f)
+                row["against"][src] = dict(ms=t_o, this_ms=t_f, median=med_o,
+                                           this_median=med_f)
+                log(f"records {didx.n} bp {kind}: {src} {med_o:.4f} ms "
+                    f"({min(t_o):.4f}-{max(t_o):.4f}; "
+                    f"{100 * bound / med_o:.1f}% of the bound) in turns "
+                    f"with {names[0]} {med_f:.4f} ms "
+                    f"({min(t_f):.4f}-{max(t_f):.4f}; "
+                    f"{100 * bound / med_f:.1f}%): {med_o / med_f:.3f}x")
+            del want
+            rows.append(row)
+    return rows
+
+
 def query_ab(dev, idx21, arts: list[str], others: list[str], tables,
              variants=(), kernels=QUERY_KERNELS) -> dict:
     """Each of `others` (query.cu versions) and this tree's source changed
@@ -808,10 +1118,23 @@ def query_ab(dev, idx21, arts: list[str], others: list[str], tables,
     from sapling_tpu_torch.ops import query_cuda, sw_cuda
     from sapling_tpu_torch.tools.bench_query_scale import load_for_queries
 
-    others = list(others) + [query_variant(v) for v in variants]
-    srcs = [query_cuda.SOURCE, *others]
+    def build(src):
+        try:
+            return sw_cuda.build_kernel(src)
+        except Exception as e:   # a variant nvcc refuses is left out
+            if src == query_cuda.SOURCE:
+                raise
+            log(f"query_ab: {src} does not build, left out: {e}")
+            return None
+
+    named = dict(zip([query_variant(v) for v in variants], variants))
+    srcs = [query_cuda.SOURCE, *others, *named]
     with ThreadPoolExecutor(len(srcs)) as pool:
-        paths = list(pool.map(sw_cuda.build_kernel, srcs))
+        paths = list(pool.map(build, srcs))
+    srcs, paths = zip(*((s, p) for s, p in zip(srcs, paths) if p))
+    others = [s for s in srcs[1:] if s not in named]
+    variants = [named[s] for s in srcs[1:] if s in named]
+    others += [s for s in srcs[1:] if s in named]
     builds = {src: build_report(path) for src, path in zip(srcs, paths)}
     for src, rep in builds.items():
         log(f"query_ab build {src}: " + json.dumps(rep))
@@ -837,35 +1160,49 @@ def query_ab(dev, idx21, arts: list[str], others: list[str], tables,
             f"{mem['peak_bytes'] / 1e9:.3f} GB over what was there before")
         out["memory"].append(mem)
         bigs.append(big)
-        if "fancy" in kernels:
+        if "fancy" in kernels or "records" in kernels:
             t0 = time.perf_counter()
-            big_tables.append(scale_tables(big))
-            log(f"query_ab: the {big.n} bp artifact's llcp/rlcp tables on "
-                f"the host in {time.perf_counter() - t0:.1f} s")
-    cases = query_cases(dev, idx21, bigs, tables, big_tables, kernels)
+            big_tables.append(record_tables(big))
+            log(f"query_ab: the {big.n} bp artifact's tables "
+                f"({big_tables[-1][1]}) on the host in "
+                f"{time.perf_counter() - t0:.1f} s")
+    if "records" in kernels:
+        out["records"] = records_ab(
+            dev, [(idx21.to(dev), [torch.from_numpy(a).to(dev)
+                                   for a in tables], REAL_TABLES),
+                  *((big, [torch.from_numpy(a).to(dev) for a in t], note)
+                    for big, (t, note) in zip(bigs, big_tables))],
+            libs, srcs, variants)
+    cases = query_cases(dev, idx21, bigs, tables,
+                        [t if note == REAL_TABLES else None
+                         for t, note in big_tables], kernels)
     if "plquery" in kernels:
         out["probe_sources"] = probe_sources(
             dev, idx21, bigs, next(c for c in cases if "srv" in c),
             rate["sectors_per_s"])
+    # the record builders' variants change no query kernel: the query
+    # cases run against the others alone
+    pairs = [(src, lib) for src, lib, v in zip(
+        others, libs[1:], [None] * (len(others) - len(variants)) + variants)
+        if v not in RECORD_VARIANTS]
     for case in cases:
         name, call, b = case["name"], case["call"], case["lanes"]
         mine = call()
         q3 = case.get("fast3_q3")
-        for src, lib in zip(others, libs[1:]):
+        for src, lib in pairs:
             theirs = with_query_lib(lib, call, q3)
             if not torch.equal(theirs, mine):
                 raise AssertionError(f"{src} disagrees with this tree: {name}")
         row = dict(name=name, against={}, **trace_bound(
             call, b, case["lane_bytes"], rate["sectors_per_s"]))
         extra = ""
-        if "reads" in row:
+        if "build" in case:
             row["build_ms"] = cs._time_ms(case["build"], dev, reps=3, warm=1)
             row["build_bytes"] = case["build_bytes"]
-            extra = (f"; sectors a lane: {row['sectors'] / b:.2f} of the "
-                     f"first design, {row['reads'] / b:.2f} read; node "
+            extra = (f"; {row['sectors'] / b:.2f} sectors read a lane; node "
                      f"records {row['build_bytes']} bytes built in "
                      f"{row['build_ms']:.4f} ms")
-        for src, lib in zip(others, libs[1:]):
+        for src, lib in pairs:
             with_lib = lambda: with_query_lib(lib, call, q3)   # noqa: E731
             if not (getattr(lib, "arrays_plquery", False)
                     and case.get("kernel") == "plquery"):
@@ -1350,8 +1687,9 @@ def main(argv: list[str]) -> int:
         opt("against"), opt("against-query"), opt("big"), opt("against-nn"),
         [v for o in opt("nn-variants") for v in o.split(",")])
     query_variants = [v for o in opt("query-variants") for v in o.split(",")]
-    kernels = [v for o in opt("query-kernels") for v in o.split(",")] \
-        or QUERY_KERNELS
+    kernels = [v for o in opt("query-kernels") for v in o.split(",")]
+    query_only = bool(against_query or query_variants or kernels)
+    kernels = kernels or QUERY_KERNELS
     argv = [a for a in argv if not a.startswith("--")]
     out_path = argv[0] if argv else os.path.join(
         cs.ROOT, "chiprun_out", "measure.json")
@@ -1367,7 +1705,7 @@ def main(argv: list[str]) -> int:
         _seq, _idx16, idx21, _t = cs.build_indexes(cs.GENOME_N)
         res["nn_ab"] = nn_ab(dev, idx21, against_nn, sm_clock_mhz,
                              nn_variants)
-    elif against_query or query_variants:
+    elif query_only:
         # the 46 Mbp artifact builds in a child beside the 4.6 Mbp index
         with tempfile.TemporaryDirectory(prefix="chip_measure_") as td:
             scale = cs.start_scale_build(td)

@@ -38,12 +38,17 @@ failure raises and the script exits non-zero:
      QK_SHIFT ranks, and that with the stride cap QK_STRIDE_CAP, at
      QK_OPTION_LENGTHS; phase 8's artifact at SCALE_LENGTHS; and
      binsearch_cuda against binsearch_batch on phase 5's queries and on
-     phase 8's artifact; fancy_nodes_cuda (the pruned search's node
-     records) against the plain fancy_nodes, every word, with its time,
-     bound and bytes, and fancy_binsearch_cuda, on records built once for
-     each index outside the timed calls, against fancy_binsearch_batch on
-     phase 5's queries with prefix64, without, with an int64 rev, at
-     L=101 (packed) and shuffled, with the sectors it read a lane;
+     phase 8's artifact; the record builders, fancy_nodes_cuda (the
+     pruned search's node records) and plquery_records_cuda (plquery's
+     rank records), against the plain fancy_nodes / plquery_records,
+     every word, with their times, bounds and bytes, on the k=21 index
+     and on phase 8's artifact (its node records of its own llcp / rlcp
+     tables, scale_tables, gathered and copied from its rank records);
+     and fancy_binsearch_cuda, on records built
+     once for each index outside the timed calls, against
+     fancy_binsearch_batch on phase 5's queries with prefix64, without,
+     with an int64 rev, at L=101 (packed) and shuffled (its trace the
+     node records and genome windows it reads);
      fast3 at L=21, packed at L=101 and
      the binary searches also in a shuffled order (hits and misses
      mixed). Each case prints the kernel's CUDA-event time, the plain
@@ -85,8 +90,8 @@ failure raises and the script exits non-zero:
      binsearch and fancy kernels) on phase 5's queries; in-genome queries
      must self-check and the first 100,000 positions must equal the CPU
      path's; the pruned search's first call also builds its node records
-     (the fancy_nodes kernel), once: the timed calls launch the search
-     alone.
+     (the records kernel, counted as fancy_nodes), once: the timed calls
+     launch the search alone.
   8. scale: phase 2's artifact loaded memory-mapped without inv and the
      aligner's run arrays (SaplingIndex.load(skip, mmap), codes copied
      into RAM), 1,000,000 queries of 21 and of 101 bases (7/8 from the
@@ -523,8 +528,7 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b,
     plain path's CUDA-event times, the kernel's launches a call, its bound
     (query_bound_ms over the distinct sectors of its trace) and its bound
     at the measured sector rate (query_rate_bound_ms, sectors_per_s), the
-    sectors its lanes touched in all (and, for the pruned search, the
-    sectors they really read), the rounds, and the lane utilisation
+    sectors its lanes touched in all, the rounds, and the lane utilisation
     (lane_utilisation)."""
     import numpy as np
     import torch
@@ -540,7 +544,6 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b,
     launched = sum(query_cuda.LAUNCHES.values()) - sum(launches.values())
     st = dict(query_cuda.LAST_STATS)
     tr = st.pop("trace")
-    reads = st.pop("reads", None)
     distinct = int(torch.unique(tr[tr >= 0]).numel())
     over = int((st["sectors"] > QK_TRACE).sum())
     del tr
@@ -561,8 +564,24 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b,
                 sectors=int(st["sectors"].sum()), distinct=distinct,
                 over=over, probes=int(st["probes"].sum()), rounds=rounds,
                 util=lane_utilisation(st["probes"].cpu()),
-                reads=None if reads is None else int(reads.sum()),
                 max_abs_err=0)
+
+
+def scale_tables(big):
+    """The llcp / rlcp tables of the scale artifact's genome, on the host:
+    its LCP (Kasai, over the artifact's own suffix array rev), then
+    build_llcp_rlcp (a sparse table of ~5 GB at 46 Mbp)."""
+    import numpy as np
+
+    from sapling_tpu_torch.index.suffix_array import build_llcp_rlcp
+    from sapling_tpu_torch.native import lcp_kasai
+    from sapling_tpu_torch.ops import pack as packops
+
+    rev = np.asarray(big.rev)
+    _inv, lcp = lcp_kasai(packops.decode_bases(big.codes),
+                          rev.astype(np.int64) if rev.dtype == np.uint32
+                          else rev)
+    return build_llcp_rlcp(np.asarray(lcp, np.int64), big.n)
 
 
 def fancy_nodes_bound_ms(didx) -> float:
@@ -577,9 +596,10 @@ def fancy_nodes_bound_ms(didx) -> float:
         / HBM_BYTES_PER_S * 1e3
 
 
-def fancy_nodes_case(dev, didx, lr) -> dict:
+def fancy_nodes_case(dev, didx, lr, rank_recs=None) -> dict:
     """Phase 3b: the pruned search's node records of `didx` (on the card)
-    and the tables lr: fancy_nodes_cuda against the plain
+    and the tables lr: fancy_nodes_cuda (with rank_recs, the index's rank
+    records, their first halves copied from them) against the plain
     ops.query.fancy_nodes on the same CUDA tensors, every word equal;
     both timed, the bound (fancy_nodes_bound_ms) and the records' bytes."""
     import torch
@@ -590,7 +610,8 @@ def fancy_nodes_case(dev, didx, lr) -> dict:
             *lr)
 
     def kernel():
-        return query_cuda.fancy_nodes_cuda(*args, n=didx.n)
+        return query_cuda.fancy_nodes_cuda(*args, n=didx.n,
+                                           rank_recs=rank_recs)
 
     def plain():
         return query.fancy_nodes(*args, n=didx.n)
@@ -676,7 +697,10 @@ def query_kernel_phase(dev, idx21, art: str,
     pruned search's node records (fancy_nodes_case) and the search (with
     `tables`, the host llcp / rlcp, on records built once for each index,
     outside the timed calls) at QUERY_LEN with and without prefix64 and
-    with an int64 rev, and at the last SCALE_LENGTHS. plquery at QUERY_LEN
+    with an int64 rev, and at the last SCALE_LENGTHS; the record builders
+    again on phase 8's artifact (fancy_nodes_case with its own tables,
+    scale_tables, gathered and copied from its rank records, and
+    query_records_case). plquery at QUERY_LEN
     and the last SCALE_LENGTHS, each binary search and the pruned one with
     prefix64 also run in a shuffled order. plquery runs on each index's
     record tables (query_records), made before its first case; at 4.6 Mbp
@@ -687,7 +711,10 @@ def query_kernel_phase(dev, idx21, art: str,
     Every case's second bound reads the sector rate random_sector_rate
     measures first. Returns the cases' rows, the node records'
     (fancy_nodes_case on the k=21 index), plquery's record tables'
-    (query_records_case on the k=21 index) and the sector rate."""
+    (query_records_case on the k=21 index), the sector rate and the
+    artifact's builders' rows ({"fancy_nodes": ..., "fancy_nodes_copied":
+    (from its rank records), **query_records_case}, with the host seconds
+    of its tables, "tables_s")."""
     import numpy as np
     import torch
 
@@ -796,8 +823,15 @@ def query_kernel_phase(dev, idx21, art: str,
     codes, _n_in = query_codes(big.codes)
     binsearch_case(f"{big.n} bp ", big, codes)
     binsearch_case(f"{big.n} bp shuffled ", big, shuffled(codes))
-    del big
-    return rows, node_row, rec_row, rate
+    t0 = time.perf_counter()
+    lr = [torch.from_numpy(a).to(dev) for a in scale_tables(big)]
+    scale_rows = dict(tables_s=time.perf_counter() - t0,
+                      fancy_nodes=fancy_nodes_case(dev, big, lr),
+                      fancy_nodes_copied=fancy_nodes_case(
+                          dev, big, lr, big.query_records()[1]),
+                      **query_records_case(dev, big))
+    del big, lr
+    return rows, node_row, rec_row, rate, scale_rows
 
 
 def nn_bound_ms(b: int, c: int, s: int, sm_clock_mhz: float,
@@ -1970,8 +2004,8 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
 
     # 3b. the query kernels vs the plain cascade on the card
     t0 = time.perf_counter()
-    qk, fnodes, recs, rate = query_kernel_phase(dev, idx21, scale[1],
-                                                tables)
+    qk, fnodes, recs, rate, big_recs = query_kernel_phase(
+        dev, idx21, scale[1], tables)
     nk = nn_kernel_phase(dev, idx21, sm_clock_mhz)
     log(f"query kernel vs plain: phase 3b took "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1991,9 +2025,9 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
             f"measured sector rate {r['rate_bound_ms']:.4f} ms "
             f"({r['pct_of_rate_bound']:.1f}% of it); lane "
             f"utilisation {100 * r['util']:.1f}%"
-            + ("" if r["reads"] is None else
-               f"; sectors read {r['reads']} ({r['reads'] / N_QUERIES:.2f}"
-               " a lane: node records and genome windows)"))
+            + (f"; {r['sectors'] / N_QUERIES:.2f} sectors read a lane: node"
+               " records and genome windows" if r["kernel"] == "fancy"
+               else ""))
     for name, r in recs.items():
         log(f"query kernel vs plain: {name}, plquery's record table of the "
             f"k=21 index: {r['rows']} records ({r['bytes']} bytes) equal to "
@@ -2006,6 +2040,19 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
         f"kernel {fnodes['ms']:.4f} ms (1 launch), plain "
         f"{fnodes['plain_ms']:.3f} ms; bound {fnodes['bound_ms']:.4f} ms "
         f"({fnodes['pct_of_bound']:.1f}% of it)")
+    for name in ("fancy_nodes", "fancy_nodes_copied", "plquery_records",
+                 "bucket_records"):
+        r = big_recs[name]
+        log(f"query kernel vs plain: {name} of phase 8's {SCALE_N} bp "
+            f"artifact" + (f" (its llcp / rlcp tables on the host in "
+                           f"{big_recs['tables_s']:.1f} s)"
+                           if name == "fancy_nodes" else
+                           " (from its rank records)"
+                           if name == "fancy_nodes_copied" else "")
+            + f": {r.get('rows', r.get('n'))} records ({r['bytes']} bytes) "
+            f"equal to the plain version; build kernel {r['ms']:.4f} ms (1 "
+            f"launch), plain {r['plain_ms']:.3f} ms; bound "
+            f"{r['bound_ms']:.4f} ms ({r['pct_of_bound']:.1f}% of it)")
     log(f"nn kernel vs plain: nn_predict, an untrained model of "
         f"{nk['chunks']} chunks x {nk['units']} units (seed {SEED}): "
         f"{nk['lanes']} ranks equal (phase 5's {N_QUERIES} x, all "

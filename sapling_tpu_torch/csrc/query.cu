@@ -68,7 +68,7 @@
 //                    beside the bucket's bounds word), not two sectors
 //                    each of xlist and ylist and one of bounds: 1.14-1.29x
 //                    on an H100. A probe reads one 16-byte rank record
-//                    (rank_records_kernel: the suffix's first 32 bases,
+//                    (records_kernel: the suffix's first 32 bases,
 //                    genome_key, and rev), not rev and then, dependent on
 //                    it, the genome: the key decides up to 32 bases, and
 //                    past 32 unless all 32 agree, where compare_at reads
@@ -104,7 +104,7 @@
 //                    it is decided. The probe's LCP is the capped one
 //                    (finish), as the plain version feeds it back. A round
 //                    is one dependent load of one 32-byte node record a
-//                    rank (fancy_nodes_kernel builds them once for an index
+//                    rank (records_kernel builds them once for an index
 //                    and its tables): the suffix's first 32 bases
 //                    (genome_key), rev, llcp and rlcp. So the test and the
 //                    probe read the same sector, and a probe reads the
@@ -121,12 +121,36 @@
 //                    state alone, a prefetch of both candidate next
 //                    records, the record's LCP half read first, and a
 //                    long probe's genome read from base 32 on.
+//   records_kernel   The builders of those records, once for an index (and
+//                    its tables): a rank r reads rev[r] (and llcp[r],
+//                    rlcp[r]) once, in order, writes its 16 (32) bytes
+//                    once, in order, and gathers its key's three genome
+//                    words from rev[r] >> 4: a random place, dependent on
+//                    rev[r]. The first builders read the genome as int64
+//                    words (1.5 sectors a key, 23 MB at 46 Mbp) and wrote a
+//                    node record as two 16-byte stores, half of each sector
+//                    a store. Now the genome is read as 32-bit words (1.25
+//                    sectors a key, 11.5 MB: 1.22-1.26x at 46 Mbp on an
+//                    NVIDIA H100 80GB HBM3 at 700 W), a warp's node
+//                    records are staged in shared memory and stored as 64
+//                    consecutive 16-byte chunks, whole sectors a store
+//                    (1.42-1.52x), and the streams are loaded and stored
+//                    evict-first (ld/st .cs, 1.00-1.03x), so that the
+//                    genome stays in L2 while they pass. Past the L2 (230
+//                    Mbp: a 57.5 MB genome) the gathers miss and set the
+//                    time, so node records copy their first halves from
+//                    the index's rank records where it holds them, a
+//                    stream and no gather (2.2x there). Measured and
+//                    dropped: four ranks a thread, their gathers issued
+//                    together (1.00-1.04x the time of one: the resident
+//                    warps keep enough in flight), and a persisting L2
+//                    window over the genome (1.25-2.5x slower).
 //
-// The binary search and the pruned one keep each lane's decision sequence
-// and its probe and sector counts (a probe answered from shared memory or
-// a node record records the sectors the first designs read), so the bound
-// does not move with the design; the pruned search also counts the
-// sectors it really reads.
+// The binary search keeps each lane's decision sequence and its probe and
+// sector counts (a probe answered from shared memory records the sectors
+// the first design read), so its bound does not move with the design; the
+// pruned search records the sectors it really reads: a node record each
+// round and compare_at's genome windows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,7 +176,6 @@ struct Args {
   const void* rev;          // [n] int32 holding uint32 bits, or int64
   const int64_t* xlist;     // [2^buckets + 1]
   const int64_t* ylist;
-  const int64_t* prefix;    // prefix64 as int64 [n], or null
   const int64_t* prefix3;   // [n], or null
   const int32_t* bounds;    // [2^buckets] uint32 bits (over << 16 | under)
   const int64_t* q_words;   // [ceil(L/16), B] word-major, or null (fast3)
@@ -176,6 +199,9 @@ struct Args {
   // null: a probe reads rev and the genome)
   const longlong2* bucket_recs = nullptr;
   const longlong2* rank_recs = nullptr;
+  // the record builders' genome: the packed words as 32 bits (uint32 bits
+  // in int32), packed_len of them
+  const int32_t* genome32 = nullptr;
 };
 
 struct Probe {
@@ -218,25 +244,25 @@ __device__ __forceinline__ int64_t rev_at(const void* rev, int64_t rank) {
     return __ldg(static_cast<const int64_t*>(rev) + rank);
 }
 
-// compare_at's first two aligned genome words at text position pos, as one
-// key: the suffix's first 32 bases (word indexes clamped as there)
-__device__ __forceinline__ uint64_t genome_key(const Args& a, int64_t pos) {
+// the suffix at pos's first 32 bases from the genome words w = words
+// pos >> 4 .. + 2, as one big-endian key
+__device__ __forceinline__ uint64_t key_of(const uint32_t w[3], int64_t pos) {
   const int sh = (int)(pos & 15) << 1;
-  const int64_t last = a.packed_len - 1, w0 = pos >> 4;
-  uint32_t w[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    w[j] = (uint32_t)__ldg(a.packed + lmin(w0 + j, last));
+  // sh == 0 takes nothing from the next word (a shift by 32 is undefined)
   const uint32_t hi = sh ? (w[0] << sh) | (w[1] >> (32 - sh)) : w[0];
   const uint32_t lo = sh ? (w[1] << sh) | (w[2] >> (32 - sh)) : w[1];
   return (uint64_t)hi << 32 | lo;
 }
 
-// rank r's rank record: the suffix's first 32 bases and its position
-template <typename REV>
-__device__ __forceinline__ longlong2 rank_record(const Args& a, int64_t r) {
-  const int64_t pos = rev_at<REV>(a.rev, r);
-  return make_longlong2((long long)genome_key(a, pos), pos);
+// compare_at's first two aligned genome words at text position pos, as one
+// key: the suffix's first 32 bases (word indexes clamped as there)
+__device__ __forceinline__ uint64_t genome_key(const Args& a, int64_t pos) {
+  const int64_t last = a.packed_len - 1, w0 = pos >> 4;
+  uint32_t w[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    w[j] = (uint32_t)__ldg(a.packed + lmin(w0 + j, last));
+  return key_of(w, pos);
 }
 
 // One query's state: its inputs, read once, and its counts. With RANKS a
@@ -251,7 +277,6 @@ struct Lane {
   uint32_t qw[kWin];              // packed: the query's first words
   int wq;
   int probes = 0, sectors = 0;
-  int genome_sectors = 0;   // with stats, those compare_at read
 
   // with stats, count (and with a trace, record) the sectors of [p, last];
   // returns their count (0 without stats)
@@ -372,28 +397,20 @@ struct Lane {
     return p;
   }
 
-  // probe(rank) answered from rank's node record: the suffix's first 32
-  // bases (key, as genome_key gives them) and pos = rev[rank]. Up to 32
-  // bases (kPrefix64, with prefix64 or without) the key decides as
-  // prefix64[rank] does (the two differ only past the genome's end, where
-  // finish caps the LCP); past 32 (kPacked) as probe_known. Records the
-  // sectors the first design's probe(rank) read: rev[rank], then
-  // prefix64[rank] or compare_at's genome window.
-  __device__ Probe probe_node(int64_t rank, int64_t pos, uint64_t key) {
+  // a probe answered from a node record: the suffix's first 32 bases (key,
+  // as genome_key gives them) and its position pos. Up to 32 bases
+  // (kPrefix64) the key decides as prefix64 does (the two differ only past
+  // the genome's end, where finish caps the LCP); past 32 (kPacked) it
+  // decides unless all 32 bases agree, where compare_at reads the genome
+  // (and records its windows' sectors).
+  __device__ Probe probe_node(int64_t pos, uint64_t key) {
+    ++probes;
+    Probe p;
     if constexpr (PROBE == kPrefix64) {
-      ++probes;
-      touch(static_cast<const REV*>(a.rev) + rank);
-      if (a.prefix) {
-        touch(a.prefix + rank);
-      } else {
-        const int64_t last = a.packed_len - 1, w0 = pos >> 4;
-        touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + wq, last));
-      }
-      Probe p;
       key_decides(pos, key, &p);
       return p;
     } else {
-      return probe_known(rank, pos, key);
+      return key_decides(pos, key, &p) ? p : compare_at(pos);
     }
   }
 
@@ -413,8 +430,7 @@ struct Lane {
 #pragma unroll
       for (int j = 0; j <= kWin; ++j)
         if (j <= nw) w[j] = (uint32_t)__ldg(a.packed + lmin(w0 + j, last));
-      genome_sectors +=
-          touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + nw, last));
+      touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + nw, last));
 #pragma unroll
       for (int j = 0; j < kWin; ++j) {
         if (j >= nw) break;
@@ -711,28 +727,88 @@ __device__ __forceinline__ FancyNode load_node(const longlong2* nodes,
   return FancyNode{(uint64_t)kp.x, kp.y, (int)lr.x, (int)(lr.x >> 32)};
 }
 
-// The records: one thread a rank r writes its rank record {genome_key(
-// rev[r]), rev[r]} and {llcp[r] | rlcp[r] << 32, 0}, both tables' entries
-// exact.
-template <typename REV>
-__global__ void __launch_bounds__(kThreads)
-    fancy_nodes_kernel(const __grid_constant__ Args a, longlong2* nodes) {
-  const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= a.n) return;
-  const uint64_t lr = (uint32_t)__ldg(a.llcp + r)
-                      | (uint64_t)(uint32_t)__ldg(a.rlcp + r) << 32;
-  nodes[2 * r] = rank_record<REV>(a, r);
-  nodes[2 * r + 1] = make_longlong2((long long)lr, 0);
+// The record builders: a warp's stage of node records, and what a builder
+// makes: plquery's rank records, or node records of the genome or of the
+// index's rank records.
+constexpr size_t kStageBytes = (size_t)kThreads * 2 * sizeof(longlong2);
+constexpr int kRankRecords = 0, kNodeRecords = 1, kNodesFromRanks = 2;
+
+// a stream the builders read or write once, evict-first (ld/st .cs): the
+// genome they gather from stays in L2 while the streams pass through
+template <typename T>
+__device__ __forceinline__ T stream_load(const T* p) {
+  return __ldcs(p);
+}
+template <typename T>
+__device__ __forceinline__ void stream_store(T* p, const T& v) {
+  __stcs(p, v);
 }
 
-// plquery's rank records: one thread a rank r writes {genome_key(rev[r]),
-// rev[r]} (16 bytes: a probe's one load).
 template <typename REV>
+__device__ __forceinline__ int64_t rev_stream(const void* rev, int64_t r) {
+  if constexpr (sizeof(REV) == 4)
+    return (int64_t)(uint32_t)stream_load(static_cast<const int32_t*>(rev) +
+                                          r);
+  else
+    return stream_load(static_cast<const long long*>(rev) + r);
+}
+
+// word i of the builders' 32-bit genome, clamped to the array as
+// compare_at clamps it
+__device__ __forceinline__ uint32_t genome_word(const Args& a, int64_t i) {
+  return (uint32_t)__ldg(a.genome32 + lmin(i, a.packed_len - 1));
+}
+
+// One thread a rank r: the rank record {genome_key(rev[r]), rev[r]}
+// (kRankRecords: plquery's, a probe's one 16-byte load), or the node
+// record, that and {llcp[r] | rlcp[r] << 32, 0} (the pruned search's, a
+// round's one 32-byte load), its first half gathered from the genome
+// (kNodeRecords) or read from the index's rank records (kNodesFromRanks,
+// REV unused: a stream, no gather). All exact: the same words as the
+// plain versions.
+template <typename REV, int KIND>
 __global__ void __launch_bounds__(kThreads)
-    rank_records_kernel(const __grid_constant__ Args a, longlong2* recs) {
+    records_kernel(const __grid_constant__ Args a, longlong2* out) {
+  const int lane = threadIdx.x & 31;
   const int64_t r = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= a.n) return;
-  recs[r] = rank_record<REV>(a, r);
+  int64_t pos = 0;
+  uint64_t key = 0, lcps = 0;
+  // the streams: the rank's rev word or rank record (and llcp, rlcp); a
+  // rank past n gathers genome words 0 .. 2 and writes nothing
+  if (r < a.n) {
+    if constexpr (KIND == kNodesFromRanks) {
+      const longlong2 rec = stream_load(a.rank_recs + r);
+      key = (uint64_t)rec.x;
+      pos = rec.y;
+    } else {
+      pos = rev_stream<REV>(a.rev, r);
+    }
+    if constexpr (KIND != kRankRecords)
+      lcps = (uint32_t)stream_load(a.llcp + r)
+             | (uint64_t)(uint32_t)stream_load(a.rlcp + r) << 32;
+  }
+  if constexpr (KIND != kNodesFromRanks) {   // the gather
+    uint32_t w[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) w[i] = genome_word(a, (pos >> 4) + i);
+    key = key_of(w, pos);
+  }
+  const longlong2 rec = make_longlong2((long long)key, pos);
+  if constexpr (KIND == kRankRecords) {
+    if (r < a.n) stream_store(out + r, rec);
+  } else {
+    // the warp's 32 records into its stage, then out as 64 consecutive
+    // 16-byte chunks (the warp's ranks are consecutive), 32 a store
+    longlong2* stage = reinterpret_cast<longlong2*>(shared_bytes())
+                       + 2 * (threadIdx.x - lane);
+    stage[2 * lane] = rec;
+    stage[2 * lane + 1] = make_longlong2((long long)lcps, 0);
+    __syncwarp();
+    const int64_t r0 = r - lane;
+#pragma unroll
+    for (int c = lane; c < 64; c += 32)
+      if (r0 + (c >> 1) < a.n) stream_store(out + 2 * r0 + c, stage[c]);
+  }
 }
 
 // plquery's bucket records: one thread a bucket b writes {xlist[b],
@@ -758,49 +834,42 @@ __global__ void __launch_bounds__(kThreads)
 // lo+1's value, unverified, or moves lo or hi to mid, on the table entry
 // alone where it differs from the boundary LCP, else on a probe. At most
 // bit_length(n - 1) + 2 rounds, as in the plain version (a lane is decided
-// within them). Every rank is read from its node record; PROBE is
-// kPrefix64 up to 32 bases (prefix may be null: the trace then records the
-// packed form's windows) and kPacked past 32. Stats count probes and the
-// first design's sectors (rows 0 and 1), and in row 2 the sectors read:
-// the records and compare_at's genome windows; there are no host rounds
-// to match, so depth stays 0.
-template <int PROBE, typename REV>
+// within them). Every rank is read from its node record (so no rev, llcp
+// or rlcp is read: the Lane's rev type is unused); PROBE is kPrefix64 up
+// to 32 bases and kPacked past 32. Stats count probes and the sectors
+// read: a node record a pre-probe, a round or the base case, and
+// compare_at's genome windows; there are no host rounds to match, so depth
+// stays 0.
+template <int PROBE>
 __global__ void __launch_bounds__(kThreads)
     fancy_binsearch_kernel(const __grid_constant__ Args a) {
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= a.B) return;
-  Lane<PROBE, REV> lane(a, b);
-  const REV* rev = static_cast<const REV*>(a.rev);
+  Lane<PROBE, int32_t> lane(a, b);
   const int n = (int)a.n;
-  int records = 0;
-  auto done = [&](int64_t res) {
-    if (a.lane_stats)
-      a.lane_stats[2 * a.B + b] = records + lane.genome_sectors;
-    lane.done(res, 0, 0);
+  auto node = [&](int rank) {
+    lane.touch(a.nodes + 2 * (int64_t)rank);   // one 32-byte sector
+    return load_node(a.nodes, rank);
   };
-  FancyNode nd = load_node(a.nodes, 0);
-  ++records;
-  const Probe p0 = lane.probe_node(0, nd.pos, nd.key);
-  if (p0.match) return done(p0.val);
-  nd = load_node(a.nodes, n - 1);
-  ++records;
-  const Probe p1 = lane.probe_node(n - 1, nd.pos, nd.key);
-  if (p1.match) return done(p1.val);
+  FancyNode nd = node(0);
+  const Probe p0 = lane.probe_node(nd.pos, nd.key);
+  if (p0.match) return lane.done(p0.val, 0, 0);
+  nd = node(n - 1);
+  const Probe p1 = lane.probe_node(nd.pos, nd.key);
+  if (p1.match) return lane.done(p1.val, 0, 0);
   int lo = 0, hi = n - 1, lo_lcp = (int)p0.lcp, hi_lcp = (int)p1.lcp;
   int trips = 2;
   while (((n - 1) >> (trips - 2)) != 0) ++trips;
   for (int t = 0; t < trips; ++t) {
     if (hi == lo + 1) break;
     if (hi == lo + 2) {   // rank lo + 1's position, unprobed
-      lane.touch(rev + lo + 1);
-      ++records;
-      return done(__ldg(a.nodes + 2 * (int64_t)(lo + 1)).y);
+      const longlong2* at = a.nodes + 2 * (int64_t)(lo + 1);
+      lane.touch(at);
+      return lane.done(__ldg(at).y, 0, 0);
     }
     const int mid = lo + ((hi - lo) >> 1);
-    nd = load_node(a.nodes, mid);
-    ++records;
+    nd = node(mid);
     if (lo_lcp >= hi_lcp) {
-      lane.touch(a.llcp + mid);
       if (nd.llcp > lo_lcp) {
         lo = mid;
         continue;
@@ -811,7 +880,6 @@ __global__ void __launch_bounds__(kThreads)
         continue;
       }
     } else {
-      lane.touch(a.rlcp + mid);
       if (nd.rlcp < hi_lcp) {
         lo = mid;
         lo_lcp = nd.rlcp;
@@ -823,8 +891,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     // the entry equals the boundary LCP
-    const Probe p = lane.probe_node(mid, nd.pos, nd.key);
-    if (p.match) return done(p.val);
+    const Probe p = lane.probe_node(nd.pos, nd.key);
+    if (p.match) return lane.done(p.val, 0, 0);
     if (p.smaller) {
       lo = mid;
       lo_lcp = (int)p.lcp;
@@ -833,41 +901,22 @@ __global__ void __launch_bounds__(kThreads)
       hi_lcp = (int)p.lcp;
     }
   }
-  done(-1);
+  lane.done(-1, 0, 0);
 }
 
 int blocks_for(int64_t B) { return (int)((B + kThreads - 1) / kThreads); }
 
 template <int PROBE>
-int launch_fancy(const Args& a, int rev64, cudaStream_t stream) {
-  if (rev64)
-    fancy_binsearch_kernel<PROBE, int64_t><<<blocks_for(a.B), kThreads, 0,
-                                             stream>>>(a);
-  else
-    fancy_binsearch_kernel<PROBE, int32_t><<<blocks_for(a.B), kThreads, 0,
-                                             stream>>>(a);
+int launch_fancy(const Args& a, cudaStream_t stream) {
+  fancy_binsearch_kernel<PROBE><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int launch_fancy_nodes(const Args& a, longlong2* nodes, int rev64,
-                      cudaStream_t stream) {
-  if (rev64)
-    fancy_nodes_kernel<int64_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
-        a, nodes);
-  else
-    fancy_nodes_kernel<int32_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
-        a, nodes);
-  return (int)cudaGetLastError();
-}
-
-int launch_rank_records(const Args& a, longlong2* recs, int rev64,
-                        cudaStream_t stream) {
-  if (rev64)
-    rank_records_kernel<int64_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
-        a, recs);
-  else
-    rank_records_kernel<int32_t><<<blocks_for(a.n), kThreads, 0, stream>>>(
-        a, recs);
+template <typename REV, int KIND>
+int launch_records(const Args& a, longlong2* out, cudaStream_t stream) {
+  const int blocks = blocks_for(a.n);
+  const size_t smem = KIND == kRankRecords ? 0 : kStageBytes;
+  records_kernel<REV, KIND><<<blocks, kThreads, smem, stream>>>(a, out);
   return (int)cudaGetLastError();
 }
 
@@ -922,7 +971,7 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
 // words, xlist, ylist and prefix views; rev int32 holding uint32 bits when
 // rev64 is 0, else int64; bounds int32 holding uint32 bits); q_words is
 // int64 [ceil(L/16), B]; x, pred64 and out are int64 [B]. lane_stats
-// (int32 [2, B]; [3, B] for the pruned search), depth (int32 [2], zeroed)
+// (int32 [2, B]), depth (int32 [2], zeroed)
 // and trace (int64 [B, trace_cap]) may be null. plquery reads xlist,
 // ylist and bounds through its bucket records (bucket_recs, int64
 // [2^buckets, 4], 32-byte aligned; ylist also where a record says so, and
@@ -930,9 +979,9 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
 // length <= 21 a probe reads prefix3 (kFast3, q_words may be null), else
 // with rank records (rank_recs, int64 [n, 2], 16-byte aligned) rev and the
 // genome's first 32 bases through them, else rev and the genome. The
-// pruned search reads llcp, rlcp and prefix only
-// through its node records (nodes, int64 [n, 4], 32-byte aligned); with
-// stats it records their sectors.
+// pruned search reads rev, llcp and rlcp only through its node records
+// (nodes, int64 [n, 4], 32-byte aligned), and the genome on a 32-base tie
+// past 32 bases; with stats it records the sectors of both.
 extern "C" int plquery_launch(
     const void* packed, long long packed_len, const void* rev, int rev64,
     const void* xlist, const void* ylist, const void* prefix3,
@@ -1007,19 +1056,14 @@ extern "C" int binsearch_launch(const void* packed, long long packed_len,
 }
 
 extern "C" int fancy_binsearch_launch(
-    const void* packed, long long packed_len, const void* rev, int rev64,
-    const void* llcp, const void* rlcp, const void* prefix,
-    const void* nodes, const void* q_words, void* out, void* lane_stats,
-    void* depth, void* trace, long long B, long long n, int length,
-    int trace_cap, int probe, void* stream) {
+    const void* packed, long long packed_len, const void* nodes,
+    const void* q_words, void* out, void* lane_stats, void* depth,
+    void* trace, long long B, long long n, int length, int trace_cap,
+    int probe, void* stream) {
   if (B <= 0) return 0;
   Args a{};
   a.packed = static_cast<const int64_t*>(packed);
   a.packed_len = packed_len;
-  a.rev = rev;
-  a.llcp = static_cast<const int32_t*>(llcp);
-  a.rlcp = static_cast<const int32_t*>(rlcp);
-  a.prefix = static_cast<const int64_t*>(prefix);
   a.nodes = static_cast<const longlong2*>(nodes);
   a.q_words = static_cast<const int64_t*>(q_words);
   a.out = static_cast<int64_t*>(out);
@@ -1032,33 +1076,46 @@ extern "C" int fancy_binsearch_launch(
   a.length = length;
   auto st = static_cast<cudaStream_t>(stream);
   switch (probe) {
-    case kPrefix64: return launch_fancy<kPrefix64>(a, rev64, st);
-    case kPacked: return launch_fancy<kPacked>(a, rev64, st);
+    case kPrefix64: return launch_fancy<kPrefix64>(a, st);
+    case kPacked: return launch_fancy<kPacked>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The pruned search's node records: nodes is int64 [n, 4], 32-byte
-// aligned; llcp and rlcp int32 [n].
-extern "C" int fancy_nodes_launch(const void* packed, long long packed_len,
-                                  const void* rev, int rev64,
-                                  const void* llcp, const void* rlcp,
-                                  void* nodes, long long n, void* stream) {
+// The builders' records of genome32 (the packed genome as int32 words
+// holding uint32 bits, `words` of them), rev and, for node records, llcp
+// and rlcp (int32 [n]): with llcp null plquery's rank records (out int64
+// [n, 2], 16-byte aligned), else the pruned search's node records (out
+// int64 [n, 4], 32-byte aligned), their first halves copied from
+// rank_recs (the rank records of the same genome and rev, int64 [n, 2],
+// 16-byte aligned; genome32 and rev are then not read) where it is not
+// null, else gathered.
+extern "C" int records_launch(const void* genome32, long long words,
+                              const void* rev, int rev64, const void* llcp,
+                              const void* rlcp, const void* rank_recs,
+                              void* out, long long n, void* stream) {
   if (n <= 0) return 0;
   Args a{};
-  a.packed = static_cast<const int64_t*>(packed);
-  a.packed_len = packed_len;
+  a.genome32 = static_cast<const int32_t*>(genome32);
+  a.packed_len = words;
   a.rev = rev;
   a.llcp = static_cast<const int32_t*>(llcp);
   a.rlcp = static_cast<const int32_t*>(rlcp);
+  a.rank_recs = static_cast<const longlong2*>(rank_recs);
   a.n = n;
-  return launch_fancy_nodes(a, static_cast<longlong2*>(nodes), rev64,
-                            static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  auto recs = static_cast<longlong2*>(out);
+  if (!llcp)
+    return rev64 ? launch_records<int64_t, kRankRecords>(a, recs, st)
+                 : launch_records<int32_t, kRankRecords>(a, recs, st);
+  if (rank_recs) return launch_records<int32_t, kNodesFromRanks>(a, recs, st);
+  return rev64 ? launch_records<int64_t, kNodeRecords>(a, recs, st)
+               : launch_records<int32_t, kNodeRecords>(a, recs, st);
 }
 
-// plquery's records: bucket_recs is int64 [2^buckets, 4], 32-byte aligned,
-// of xlist and ylist (int64 [2^buckets + 1]) and bounds (int32 [2^buckets],
-// or null); rank_recs int64 [n, 2], 16-byte aligned, of packed and rev.
+// plquery's bucket records: bucket_recs is int64 [2^buckets, 4], 32-byte
+// aligned, of xlist and ylist (int64 [2^buckets + 1]) and bounds (int32
+// [2^buckets], or null).
 extern "C" int bucket_records_launch(const void* xlist, const void* ylist,
                                      const void* bounds, void* bucket_recs,
                                      int buckets, void* stream) {
@@ -1071,18 +1128,4 @@ extern "C" int bucket_records_launch(const void* xlist, const void* ylist,
   bucket_records_kernel<<<blocks_for((int64_t)1 << buckets), kThreads, 0,
                           st>>>(a, static_cast<longlong2*>(bucket_recs));
   return (int)cudaGetLastError();
-}
-
-extern "C" int rank_records_launch(const void* packed, long long packed_len,
-                                   const void* rev, int rev64,
-                                   void* rank_recs, long long n,
-                                   void* stream) {
-  if (n <= 0) return 0;
-  Args a{};
-  a.packed = static_cast<const int64_t*>(packed);
-  a.packed_len = packed_len;
-  a.rev = rev;
-  a.n = n;
-  return launch_rank_records(a, static_cast<longlong2*>(rank_recs), rev64,
-                             static_cast<cudaStream_t>(stream));
 }

@@ -25,9 +25,9 @@ from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
 from ..ops.query_cuda import (binsearch_cuda, bucket_records_cuda,
-                              fancy_binsearch_cuda, fancy_nodes_cuda,
-                              plquery_cuda, plquery_records_cuda,
-                              reads_rank_records)
+                              copies_rank_records, fancy_binsearch_cuda,
+                              fancy_nodes_cuda, plquery_cuda,
+                              plquery_records_cuda, reads_rank_records)
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -326,22 +326,24 @@ class SaplingIndex:
             return None, None
         dev = self.device_arrays()
         r = self._records
-
-        def stale(name, made_of):
-            return not (name in r and all(
-                a is b for a, b in zip(r[name], made_of)))
-
         made_of = (dev["packed"], dev["rev"])
-        if stale("rank_of", made_of):
+        if self._stale_records("rank_of", made_of):
             r.update(rank=plquery_records_cuda(*made_of, n=self.n)
                      if reads_rank_records(dev["rev"], dev["packed"])
                      else None, rank_of=made_of)
         made_of = (dev["xlist"], dev["ylist"], dev["bounds"])
-        if stale("bucket_of", made_of):
+        if self._stale_records("bucket_of", made_of):
             r.update(bucket=bucket_records_cuda(*made_of,
                                                 buckets=self.buckets),
                      bucket_of=made_of)
         return r["bucket"], r["rank"]
+
+    def _stale_records(self, name: str, made_of) -> bool:
+        """Whether the record table made of `made_of` (query_records' entry
+        `name`) is missing or was made of other arrays."""
+        r = self._records
+        return not (name in r and all(a is b for a, b in zip(r[name],
+                                                             made_of)))
 
     def swap_table(self, table: PwlTable) -> None:
         """Replace the PWL table in place (e.g. a
@@ -456,8 +458,11 @@ class SaplingIndex:
         the card (ops.query_cuda.fancy_nodes_cuda: int64 [n, 4]), made on
         the first call with this pair and kept until another pair comes
         (the same tensor objects, not written in place since, over the
-        same rev); None on the CPU, where the plain search reads the
-        tables."""
+        same rev); their first halves copied from the index's rank records
+        where query_records has made them (none is made for this) and the
+        genome's gathers would miss the card's L2 (ops.query_cuda.
+        copies_rank_records), else gathered from the genome. None on the
+        CPU, where the plain search reads the tables."""
         if self.device.type == "cpu":
             return None
         dev = self.device_arrays()
@@ -465,8 +470,13 @@ class SaplingIndex:
         f = self._fancy
         if not (f and f[0] is llcp and f[1] is rlcp and f[2] == versions
                 and f[3] is dev["rev"]):
+            ranks = (None if self._stale_records(
+                "rank_of", (dev["packed"], dev["rev"]))
+                or not copies_rank_records(dev["packed"])
+                else self._records["rank"])
             self._fancy = (llcp, rlcp, versions, dev["rev"], fancy_nodes_cuda(
-                dev["packed"], dev["rev"], llcp, rlcp, n=self.n))
+                dev["packed"], dev["rev"], llcp, rlcp, n=self.n,
+                rank_recs=ranks))
         return self._fancy[4]
 
     def query_positions_binsearch(self, codes2d: np.ndarray) -> np.ndarray:

@@ -521,7 +521,7 @@ def fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words, *, n: int,
 
 
 def plquery_records(packed, rev, *, n: int) -> torch.Tensor:
-    """plquery's rank records (csrc/query.cu's rank_records_kernel builds
+    """plquery's rank records (csrc/query.cu's records_kernel builds
     the same on the card): int64 [n, 2], a rank r's row the first 32 bases
     of the suffix at rev[r] (two aligned genome words, big-endian 2-bit
     codes, word indexes clamped to the array as probe_at clamps them; the
@@ -560,7 +560,7 @@ def bucket_records(xlist, ylist, bounds=None, *, buckets: int
 
 
 def fancy_nodes(packed, rev, llcp, rlcp, *, n: int) -> torch.Tensor:
-    """The pruned search's node records (csrc/query.cu's fancy_nodes_kernel
+    """The pruned search's node records (csrc/query.cu's records_kernel
     builds the same on the card): int64 [n, 4], a rank r's row its rank
     record (plquery_records: the first 32 bases of the suffix at rev[r],
     rev[r]), llcp[r] | rlcp[r] << 32, and 0."""

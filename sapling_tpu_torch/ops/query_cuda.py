@@ -4,19 +4,21 @@
 probe, the optional bucket probe, phases A-D; a prediction one 32-byte
 bucket record of `bucket_records_kernel`, a probe one 8-byte prefix3 word
 where the caller passes q3 (fast3), else one 16-byte rank record of
-`rank_records_kernel` where rev and the genome outgrow the card's L2
+`records_kernel` where rev and the genome outgrow the card's L2
 (reads_rank_records), else rev and the genome; tables made once for an
 index, as `ops.query.bucket_records` and `plquery_records` make them),
 `binsearch_kernel` runs
 `ops.query.binsearch_batch` (the bisection's first levels from a table in
 shared memory) and `fancy_binsearch_kernel` runs
 `ops.query.fancy_binsearch_batch` (the llcp/rlcp-pruned search, a round
-one 32-byte node record that `fancy_nodes_kernel` builds once for an
-index and its tables, as `ops.query.fancy_nodes` does), one thread a
-query, one launch a call and no host sync, with exactly the plain
-versions' results. They replace `sapling_tpu/ops/query.py::plquery_batch`
-(:1011), `::binsearch_batch` (:1370) and `::fancy_binsearch_batch`
-(:1404), XLA programs in the JAX package.
+one 32-byte node record built once for an index and its tables, as
+`ops.query.fancy_nodes` builds them), one thread a query, one launch a
+call and no host sync, with exactly the plain versions' results. Both
+record tables of one index come from `records_kernel`, which reads the
+genome as 32-bit words (genome32). They replace
+`sapling_tpu/ops/query.py::plquery_batch` (:1011), `::binsearch_batch`
+(:1370) and `::fancy_binsearch_batch` (:1404), XLA programs in the JAX
+package.
 
 `plquery_cuda`, `binsearch_cuda` and `fancy_binsearch_cuda` take the plain
 functions' arguments (without the `take` hook: a kernel cannot run the
@@ -27,9 +29,7 @@ parallel.sharded_index keeps the plain versions):
   * tensors on the card launch a kernel, or raise: there is no fallback.
 
 `stats=True` also has the kernel write each lane's probes and the 32-byte
-sectors its reads touched (`LAST_STATS`; the pruned search records the
-sectors of its first design's reads there, and the sectors it really
-reads as `reads`), and its deepest phase C and
+sectors its reads touched (`LAST_STATS`), and its deepest phase C and
 phase D step counts, which it adds to `ops.query.ROUNDS` as the plain
 versions' host loops do; that syncs. With `trace=K` it also records the
 numbers of the first K sectors each lane touched (int64 [B, K], -1 past
@@ -72,11 +72,10 @@ SIGNATURES = {
     + [_LL] * 5 + [_I, _I, _P],
     "binsearch_launch": [_P, _LL, _P, _I] + [_P] * 5 + [_LL, _LL, _I, _I,
                                                          _P],
-    "fancy_binsearch_launch": [_P, _LL, _P, _I] + [_P] * 9
+    "fancy_binsearch_launch": [_P, _LL] + [_P] * 6
     + [_LL, _LL, _I, _I, _I, _P],
-    "fancy_nodes_launch": [_P, _LL, _P, _I, _P, _P, _P, _LL, _P],
+    "records_launch": [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _P],
     "bucket_records_launch": [_P, _P, _P, _P, _I, _P],
-    "rank_records_launch": [_P, _LL, _P, _I, _P, _LL, _P],
 }
 
 
@@ -127,6 +126,17 @@ def reads_rank_records(rev, packed) -> bool:
             + packed.numel() * packed.element_size()) > l2
 
 
+def copies_rank_records(packed) -> bool:
+    """Whether node records on the card copy their first halves from the
+    index's rank records, where it holds them (fancy_nodes_cuda's
+    rank_recs): where the builders' 32-bit genome (4 bytes a word of
+    `packed`) outgrows the card's L2, so that its gathers miss (230 Mbp on
+    an H100: the copy 1.90x faster); where it fits (46 Mbp) the gather ran
+    1.02-1.03x faster than the copy."""
+    l2 = torch.cuda.get_device_properties(packed.device).L2_cache_size
+    return 4 * packed.shape[0] > l2
+
+
 def _check(name, t, dtypes, shape, device, at_least=False):
     """Refuse what the kernel does not take: another device or dtype, a
     strided tensor, another shape (with at_least, an index array shorter
@@ -146,15 +156,15 @@ _I64 = (torch.int64,)
 _REV = (torch.int32, torch.int64)
 
 
-def stats_buffers(b: int, dev, stats: bool, trace: int = 0, rows: int = 2):
-    """(lane_stats, depth, trace) buffers of a stats call: int32 [rows, B],
+def stats_buffers(b: int, dev, stats: bool, trace: int = 0):
+    """(lane_stats, depth, trace) buffers of a stats call: int32 [2, B],
     int32 [2] zeroed, int64 [B, trace] (None without a trace); all None
     without stats."""
     if trace and not stats:
         raise ValueError("trace= needs stats=True")
     if not stats:
         return None, None, None
-    return (torch.empty((rows, b), dtype=torch.int32, device=dev),
+    return (torch.empty((2, b), dtype=torch.int32, device=dev),
             torch.zeros(2, dtype=torch.int32, device=dev),
             torch.empty((b, trace), dtype=torch.int64, device=dev)
             if trace else None)
@@ -167,8 +177,6 @@ def _read_stats(lane, depth, trace) -> None:
     LAST_STATS.clear()
     LAST_STATS.update(probes=lane[0], sectors=lane[1], C=c, D=d,
                       trace=trace)
-    if lane.shape[0] > 2:
-        LAST_STATS["reads"] = lane[2]
 
 
 def _ptr(t):
@@ -212,25 +220,49 @@ def bucket_records_cuda(xlist, ylist, bounds=None, *, buckets: int):
     return recs
 
 
+def genome32(packed):
+    """The packed genome as the record builders read it on the card: int32
+    words holding the uint32 words' bits. int32 words are taken as they
+    are; int64 words (device_arrays' form, values < 2^32) are narrowed to
+    their low 32 bits on their device (one elementwise pass, freed with
+    the result)."""
+    return packed if packed.dtype == torch.int32 else packed.to(torch.int32)
+
+
+def _records(name, packed, rev, llcp, rlcp, n: int, rank_recs=None):
+    """The records kernel's table `name` on the card: rank records (llcp
+    None) or node records, of the genome's words (int64 or int32:
+    genome32), rev and the tables (node records copy their first halves
+    from rank_recs where it is given), all contiguous on one device."""
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    _check("packed", packed, (torch.int64, torch.int32), (1,), dev,
+           at_least=True)
+    if rank_recs is not None:
+        _check("rank_recs", rank_recs, _I64, (n, 2), dev)
+        _aligned("rank_recs", rank_recs, 16)
+    words = genome32(packed) if rank_recs is None else packed
+    recs = torch.empty((n, 2 if llcp is None else 4), dtype=torch.int64,
+                       device=dev)
+    with torch.cuda.device(dev):
+        rc = launch_records(
+            _lib(), torch.cuda.current_stream(dev).cuda_stream, words, rev,
+            llcp, rlcp, recs, n=n, rank_recs=rank_recs)
+    _launched(name, rc)
+    return recs
+
+
 def plquery_records_cuda(packed, rev, *, n: int):
     """ops.query.plquery_records (plquery's int64 [n, 2] rank records, a
-    probe's one 16-byte load) on rank_records_kernel for tensors on the
-    card: packed int64, rev int32 (uint32 bits) or int64 [n]; tensors on
-    the CPU take the plain version."""
-    dev = packed.device
-    if dev.type == "cpu":
+    probe's one 16-byte load) on records_kernel for tensors on the card:
+    packed the genome's words (int64, or their 32-bit form, genome32),
+    rev int32 (uint32 bits) or int64 [n]; tensors on the CPU take the
+    plain version (int64 words)."""
+    if packed.device.type == "cpu":
         return query.plquery_records(packed, rev, n=n)
-    if dev.type != "cuda":
-        raise ValueError(f"plquery_records_cuda: unsupported device {dev}")
-    _check("packed", packed, _I64, (1,), dev, at_least=True)
-    _check("rev", rev, _REV, (n,), dev, at_least=True)
-    recs = torch.empty((n, 2), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = launch_rank_records(
-            _lib(), torch.cuda.current_stream(dev).cuda_stream, packed, rev,
-            recs, n=n)
-    _launched("plquery_records", rc)
-    return recs
+    _check("rev", rev, _REV, (n,), packed.device, at_least=True)
+    return _records("plquery_records", packed, rev, None, None, n)
 
 
 def launch_bucket_records(lib, stream, xlist, ylist, bounds, recs, *,
@@ -242,12 +274,16 @@ def launch_bucket_records(lib, stream, xlist, ylist, bounds, recs, *,
                                      stream)
 
 
-def launch_rank_records(lib, stream, packed, rev, recs, *, n: int) -> int:
-    """rank_records_launch of `lib` on checked tensors, on `stream`;
-    returns its cudaError_t."""
-    return lib.rank_records_launch(
-        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
-        int(rev.dtype == torch.int64), recs.data_ptr(), n, stream)
+def launch_records(lib, stream, words, rev, llcp, rlcp, recs, *, n: int,
+                   rank_recs=None) -> int:
+    """records_launch of `lib` on checked tensors (words: genome32's;
+    llcp and rlcp None for rank records; rank_recs, for node records, the
+    rank records they copy from, or None), on `stream`; returns its
+    cudaError_t."""
+    return lib.records_launch(
+        words.data_ptr(), words.shape[0], rev.data_ptr(),
+        int(rev.dtype == torch.int64), _ptr(llcp), _ptr(rlcp),
+        _ptr(rank_recs), recs.data_ptr(), n, stream)
 
 
 def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
@@ -414,61 +450,42 @@ def binsearch_cuda(packed, rev, q_words, *, n: int, length: int,
     return out
 
 
-def launch_fancy(lib, stream, packed, rev, llcp, rlcp, prefix, nodes,
-                 q_words, out, lane, depth, trace, *, n: int, length: int,
-                 form: str) -> int:
+def launch_fancy(lib, stream, packed, nodes, q_words, out, lane, depth,
+                 trace, *, n: int, length: int) -> int:
     """fancy_binsearch_launch of `lib` on checked tensors, on `stream`;
     returns its cudaError_t. The kernel's 32-base compare of the node
     records answers every probe up to 32 bases (its prefix64
-    instantiation); `form` decides only whether prefix is passed, so that
-    the trace records the sectors that form's probe read."""
+    instantiation); past 32 a tie reads the packed genome."""
     return lib.fancy_binsearch_launch(
-        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
-        int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
-        _ptr(prefix) if form == "prefix64" else None, nodes.data_ptr(),
+        packed.data_ptr(), packed.shape[0], nodes.data_ptr(),
         q_words.data_ptr(), out.data_ptr(), _ptr(lane), _ptr(depth),
         _ptr(trace), q_words.shape[1], n, length,
         0 if trace is None else trace.shape[1],
         PROBES["prefix64" if length <= 32 else "packed"], stream)
 
 
-def launch_fancy_nodes(lib, stream, packed, rev, llcp, rlcp, nodes, *,
-                       n: int) -> int:
-    """fancy_nodes_launch of `lib` on checked tensors, on `stream`; returns
-    its cudaError_t."""
-    return lib.fancy_nodes_launch(
-        packed.data_ptr(), packed.shape[0], rev.data_ptr(),
-        int(rev.dtype == torch.int64), llcp.data_ptr(), rlcp.data_ptr(),
-        nodes.data_ptr(), n, stream)
-
-
-def _check_tables(packed, rev, llcp, rlcp, n: int, dev) -> None:
+def _check_tables(rev, llcp, rlcp, n: int, dev) -> None:
     if not 1 <= n < 1 << 31:
         raise ValueError(f"the pruned search needs 1 <= n < 2^31, got {n}")
-    _check("packed", packed, _I64, (1,), dev, at_least=True)
     _check("rev", rev, _REV, (n,), dev, at_least=True)
     _check("llcp", llcp, (torch.int32,), (n,), dev, at_least=True)
     _check("rlcp", rlcp, (torch.int32,), (n,), dev, at_least=True)
 
 
-def fancy_nodes_cuda(packed, rev, llcp, rlcp, *, n: int):
+def fancy_nodes_cuda(packed, rev, llcp, rlcp, *, n: int, rank_recs=None):
     """ops.query.fancy_nodes (the pruned search's int64 [n, 4] node
-    records) on fancy_nodes_kernel for tensors on the card, with the
-    arguments fancy_binsearch_cuda takes; tensors on the CPU take the
-    plain version."""
-    dev = packed.device
-    if dev.type == "cpu":
+    records) on records_kernel for tensors on the card, with the
+    arguments fancy_binsearch_cuda takes (packed also as its 32-bit form,
+    genome32). `rank_recs`, the rank records plquery_records_cuda made of
+    the same packed and rev (a caller that holds them: SaplingIndex past
+    the card's L2), give the records' first halves as a stream, where the
+    genome's gathers would miss the L2 (230 Mbp: 2.2x faster on an H100);
+    without them the kernel gathers the keys. Tensors on the CPU take the
+    plain version (rank_recs unread)."""
+    if packed.device.type == "cpu":
         return query.fancy_nodes(packed, rev, llcp, rlcp, n=n)
-    if dev.type != "cuda":
-        raise ValueError(f"fancy_nodes_cuda: unsupported device {dev}")
-    _check_tables(packed, rev, llcp, rlcp, n, dev)
-    nodes = torch.empty((n, 4), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = launch_fancy_nodes(
-            _lib(), torch.cuda.current_stream(dev).cuda_stream, packed, rev,
-            llcp, rlcp, nodes, n=n)
-    _launched("fancy_nodes", rc)
-    return nodes
+    _check_tables(rev, llcp, rlcp, n, packed.device)
+    return _records("fancy_nodes", packed, rev, llcp, rlcp, n, rank_recs)
 
 
 def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
@@ -476,15 +493,17 @@ def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
                          stats: bool = False, trace: int = 0):
     """ops.query.fancy_binsearch_batch with the same arguments and results,
     on fancy_binsearch_kernel for tensors on the card: packed int64, rev
-    int32 (uint32 bits) or int64, llcp / rlcp int32 [n], prefix int64 or
-    None (its probe answers at length <= 32), q_words int64 [ceil(L/16),
-    B], all contiguous on one device; n < 2^31 (the lane state is 32-bit).
-    `nodes` are the node records fancy_nodes_cuda made of the same packed,
-    rev, llcp and rlcp; a call without them on the card makes them first
-    (one more launch), so a caller that searches more than once passes
-    them. On the CPU they are not read: the plain version reads the
-    tables. The kernel adds no rounds (the plain version has none), and
-    with stats LAST_STATS["reads"] holds the sectors a lane really read.
+    int32 (uint32 bits) or int64, llcp / rlcp int32 [n], q_words int64
+    [ceil(L/16), B], all contiguous on one device; n < 2^31 (the lane
+    state is 32-bit). prefix (int64 or None) is the plain version's: on
+    the card the node records' 32-base keys answer every probe up to 32
+    bases. `nodes` are the node records fancy_nodes_cuda made of the same
+    packed, rev, llcp and rlcp; a call without them on the card makes them
+    first (one more launch), so a caller that searches more than once
+    passes them. On the CPU they are not read: the plain version reads the
+    tables. The kernel reads rev, llcp and rlcp only through the records,
+    adds no rounds (the plain version has none), and with stats records
+    the sectors a lane really reads: its node records and genome windows.
     Returns int64 [B] positions, -1 = not found."""
     if q_words.device.type == "cpu":
         return query.fancy_binsearch_batch(packed, rev, llcp, rlcp, q_words,
@@ -494,24 +513,21 @@ def fancy_binsearch_cuda(packed, rev, llcp, rlcp, q_words, *, n: int,
         raise ValueError(f"fancy_binsearch_cuda: unsupported device {dev}")
     if length < 1:
         raise ValueError(f"query length {length} < 1")
-    _check_tables(packed, rev, llcp, rlcp, n, dev)
+    _check_tables(rev, llcp, rlcp, n, dev)
+    _check("packed", packed, _I64, (1,), dev, at_least=True)
     b = q_words.shape[1]
-    form = "prefix64" if prefix is not None and length <= 32 else "packed"
     _check("q_words", q_words, _I64, (-(-length // BASES_PER_WORD), b), dev)
-    if form == "prefix64":
-        _check("prefix", prefix, _I64, (n,), dev, at_least=True)
     if nodes is None:
         nodes = fancy_nodes_cuda(packed, rev, llcp, rlcp, n=n)
     _check("nodes", nodes, _I64, (n, 4), dev)
     _aligned("nodes", nodes, 32)
     out = torch.empty(b, dtype=torch.int64, device=dev)
-    lane, depth, tr = stats_buffers(b, dev, stats, trace, rows=3)
+    lane, depth, tr = stats_buffers(b, dev, stats, trace)
     if b:
         with torch.cuda.device(dev):
             rc = launch_fancy(
                 _lib(), torch.cuda.current_stream(dev).cuda_stream, packed,
-                rev, llcp, rlcp, prefix, nodes, q_words, out, lane, depth,
-                tr, n=n, length=length, form=form)
+                nodes, q_words, out, lane, depth, tr, n=n, length=length)
         _launched("fancy", rc)
     if stats:
         _read_stats(lane, depth, tr)

@@ -145,6 +145,12 @@ struct alignas(16) double2 {
 // share
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
+// the evict-first (streaming) load and store: a plain load and store here,
+// where there is no cache to keep
+template <typename T>
+inline T __ldcs(const T* p) { return *p; }
+template <typename T>
+inline void __stcs(T* p, T v) { *p = v; }
 inline int __clz(int x) {
   return x ? __builtin_clz((unsigned)x) : 32;
 }

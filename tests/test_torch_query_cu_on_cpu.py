@@ -8,7 +8,7 @@ plain load, __clz of 0 giving 32 as on the card, atomicMax a
 compare-and-swap loop), after each `kernel<<<...>>>(args)` launch is
 rewritten into a call of the mock's `mock_launch`. The wrapper's own
 ctypes calls (ops.query_cuda.launch_plquery / launch_binsearch /
-launch_fancy) then run
+launch_fancy / launch_records) then run
 the kernels' code on host tensors, so a fault in the cascade, a probe or
 the prediction shows on the CPU: every position must equal the plain
 PyTorch version's on the same tensors (itself held against sapling_tpu by
@@ -16,7 +16,11 @@ tests/test_torch_query*.py, test_torch_binsearch.py), -1s and the member
 of a duplicate run included, and a subset equals sapling_tpu's own
 query_positions. The stats the kernel writes on request must give the
 plain versions' host loop rounds (ops.query.ROUNDS), and its sector trace
-only sectors of the arrays it reads. Speed, registers and
+only sectors of the arrays it reads. The record builders (records_kernel)
+must write the plain versions' records word for word. The library is
+built with UBSan's alignment check, which aborts the run on a misaligned
+load or store as the card would refuse it (the node records' stage in
+shared memory is 16-byte loads and stores). Speed, registers and
 the card's compiler are tested only on the card
 (tests/test_torch_query_cuda.py, chip_smoke.py).
 """
@@ -81,13 +85,14 @@ def lib(tmp_path_factory):
         pytest.skip("the mock needs a g++ with C++20 <barrier>")
     cpp, so = d / "query_on_cpu.cpp", d / "libquery_on_cpu.so"
     with open(query_cuda.SOURCE) as f:
-        # plquery, the pruned search, its node records and plquery's rank
-        # records launch at two rev types each, the binary search and the
-        # bucket records from one launcher
-        cpp.write_text(mock_source(f.read(), 10))
+        # plquery launches at two rev types, the pruned search, the record
+        # builders, the binary search and the bucket records from one
+        # launcher each
+        cpp.write_text(mock_source(f.read(), 6))
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-                    "-Wno-unknown-pragmas", "-I", MOCK_DIR, "-o", str(so),
-                    str(cpp)], check=True)
+                    "-Wno-unknown-pragmas", "-fsanitize=alignment",
+                    "-fno-sanitize-recover=alignment", "-I", MOCK_DIR, "-o",
+                    str(so), str(cpp)], check=True)
     return query_cuda.bind(str(so))
 
 
@@ -125,12 +130,27 @@ def _made(name, arrays, build):
     return _MADE[name][2]
 
 
+def _mock_built(lib, packed, rev, llcp, rlcp, n, rank_recs=None):
+    """records_kernel's table through launch_records on host tensors: rank
+    records (llcp None) or node records of the genome's int64 words
+    narrowed to 32 bits (query_cuda.genome32, as on the card), rev and the
+    tables, or of rank_recs and the tables where given; every word
+    written."""
+    recs = torch.full((n, 2 if llcp is None else 4), -9, dtype=torch.int64)
+    words = query_cuda.genome32(packed)
+    assert words.dtype == torch.int32 and words.shape == packed.shape
+    assert query_cuda.launch_records(lib, None, words, rev, llcp, rlcp, recs,
+                                     n=n, rank_recs=rank_recs) == 0
+    return recs
+
+
 def _mock_records(lib, xlist, ylist, bounds, packed, rev, *, buckets, n,
                   ranks=True):
     """plquery's record tables through launch_bucket_records /
-    launch_rank_records (the mocked record kernels) on host tensors, held
-    equal to the plain ops.query.bucket_records / plquery_records word for
-    word: (bucket records, rank records, or None without `ranks`)."""
+    launch_records (the mocked record kernels, the rank records from the
+    genome's 32-bit words) on host tensors, held equal to the plain
+    ops.query.bucket_records / plquery_records word for word: (bucket
+    records, rank records, or None without `ranks`)."""
     def bucket():
         recs = torch.full((1 << buckets, 4), -9, dtype=torch.int64)
         assert query_cuda.launch_bucket_records(
@@ -140,9 +160,7 @@ def _mock_records(lib, xlist, ylist, bounds, packed, rev, *, buckets, n,
         return recs
 
     def rank_records():
-        recs = torch.full((n, 2), -9, dtype=torch.int64)
-        assert query_cuda.launch_rank_records(lib, None, packed, rev, recs,
-                                              n=n) == 0
+        recs = _mock_built(lib, packed, rev, None, None, n)
         assert recs.equal(query.plquery_records(packed, rev, n=n))
         return recs
 
@@ -474,6 +492,43 @@ def test_record_kernels_source(lib, dup_genome, pad, rev64):
     assert ranks.equal(query.fancy_nodes(packed, rev, llcp, rlcp,
                                          n=n)[:, :2])
     np.testing.assert_array_equal(ranks[:, 1].numpy(), sa)
+
+
+@pytest.mark.parametrize("rev64", [False, True], ids=["rev32", "rev64"])
+@pytest.mark.parametrize("n,pad", [(2, 0), (3, 1), (33, 0), (1023, 1),
+                                   (1025, 0), (2053, 1)])
+def test_records_kernel_edges_source(lib, n, pad, rev64):
+    """records_kernel where n is not a multiple of a block's 256 ranks (or
+    of a warp's 32), with few pad words: the rank and node records equal
+    the plain versions word for word, made from the int64 words narrowed
+    to 32 bits (query_cuda.genome32, as the wrappers do) and from the
+    host's uint32 words viewed as int32 (the same words), and the node
+    records also from the rank records (their first halves copied). The
+    ranks cover a suffix at a multiple of 16 (no shift: the key is two
+    whole words) and keys whose word indexes clamp at the array's end."""
+    seq = repeat_genome(n, period=min(37, n), seed=n)
+    codes = packops.encode_bases(seq)
+    sa = build_suffix_data(seq, np.int32).sa
+    rev = torch.from_numpy(sa.astype(np.int64 if rev64 else np.int32))
+    words = packops.pack_codes(codes, pad_words=pad)
+    packed = torch.from_numpy(words.astype(np.int64))
+    host32 = torch.from_numpy(words.view(np.int32))
+    assert query_cuda.genome32(packed).equal(host32)
+    assert query_cuda.genome32(host32) is host32
+    llcp, rlcp = _tables(seq)
+    for tabs, want in (
+            ((None, None), query.plquery_records(packed, rev, n=n)),
+            ((llcp, rlcp), query.fancy_nodes(packed, rev, llcp, rlcp, n=n))):
+        for w in (query_cuda.genome32(packed), host32):
+            recs = torch.full(want.shape, -9, dtype=torch.int64)
+            assert query_cuda.launch_records(lib, None, w, rev, *tabs, recs,
+                                             n=n) == 0
+            assert recs.equal(want), f"n={n} pad={pad} {want.shape}"
+        if tabs[0] is not None:
+            ranks = _mock_built(lib, packed, rev, None, None, n)
+            assert _mock_built(lib, packed, rev, *tabs, n, ranks).equal(want)
+    assert (sa % 16 == 0).any()
+    assert ((sa >> 4) + 2 > len(words) - 1).any()
 
 
 @pytest.mark.parametrize("prefix", [True, False], ids=["prefix", "packed"])
@@ -928,32 +983,24 @@ def _probe_windows(packed, pos, qw, length):
     return windows, first
 
 
-def _replica_trace(events, packed, rev, llcp, rlcp, prefix, qw, length):
-    """The sectors the first design of the pruned search reads for a lane's
-    replica events (the yardstick the kernel records), and the sectors the
-    kernel really reads: one node record a pre-probe, a round or the base
-    case, and the genome windows of a probe whose first 32 bases all agree
-    at L > 32. Returns (trace, records, genome sectors)."""
-    trace, reads, genome = [], 0, 0
+def _replica_trace(events, packed, nodes, qw, length):
+    """The sectors the pruned search reads, in order, for a lane's replica
+    events: one node record (one 32-byte sector) a pre-probe, a round or
+    the base case, and at L > 32 the genome windows of a probe whose first
+    32 bases all agree (compare_at). Returns (trace, genome sectors)."""
+    trace, genome = [], 0
     for i, ev in enumerate(events):
-        if ev[0] in ("llcp", "rlcp"):
-            trace.append(_sector(llcp if ev[0] == "llcp" else rlcp, ev[1]))
-            reads += 1
-        elif ev[0] == "base":
-            trace.append(_sector(rev, ev[1]))
-            reads += 1
-        else:
-            _, rank, pos = ev
-            reads += i < 2   # a pre-probe's record (rank 0, then n - 1)
-            trace.append(_sector(rev, rank))
-            if prefix is not None and length <= 32:
-                trace.append(_sector(prefix, rank))
-                continue
-            windows, first = _probe_windows(packed, pos, qw, length)
+        if ev[0] in ("llcp", "rlcp", "base"):
+            trace.append(_sector(nodes, 4 * ev[1]))
+            continue
+        _, rank, pos = ev
+        if i < 2:   # a pre-probe reads its record (rank 0, then n - 1)
+            trace.append(_sector(nodes, 4 * rank))
+        windows, first = _probe_windows(packed, pos, qw, length)
+        if length > 32 and first >= 2:
             trace += [s for w in windows for s in w]
-            if length > 32 and first >= 2:
-                genome += sum(len(w) for w in windows)
-    return trace, reads, genome
+            genome += sum(len(w) for w in windows)
+    return trace, genome
 
 
 def _fancy_queries(codes, length, num, seed):
@@ -981,74 +1028,65 @@ def _fancy_queries(codes, length, num, seed):
 
 
 def _mock_nodes(lib, packed, rev, llcp, rlcp, n):
-    """The node records through launch_fancy_nodes (the mocked
-    fancy_nodes_kernel) on host tensors."""
-    nodes = torch.full((n, 4), -9, dtype=torch.int64)
-    assert query_cuda.launch_fancy_nodes(lib, None, packed, rev, llcp, rlcp,
-                                         nodes, n=n) == 0
-    return nodes
+    """The node records through launch_records (the mocked
+    records_kernel) on host tensors."""
+    return _mock_built(lib, packed, rev, llcp, rlcp, n)
 
 
-def _kernel_fancy(lib, packed, rev, llcp, rlcp, prefix, q_words, n, length):
+def _kernel_fancy(lib, packed, rev, llcp, rlcp, q_words, n, length):
     """The kernel through launch_fancy on host tensors, with the node
-    records of the mocked node kernel (held equal to the plain
-    ops.query.fancy_nodes): (positions, int32 [3, B] probes, sectors of
-    the first design and sectors read a lane, the sector trace), the trace
-    checked to hold only sectors of the arrays the first design reads."""
+    records of the mocked records kernel (held equal to the plain
+    ops.query.fancy_nodes): (positions, int32 [2, B] probes and sectors
+    read a lane, the sector trace, the node records), the trace checked to
+    hold only sectors of the node records and the packed genome."""
     b = q_words.shape[1]
-    form = "prefix64" if prefix is not None and length <= 32 else "packed"
     nodes = _mock_nodes(lib, packed, rev, llcp, rlcp, n)
     assert nodes.equal(query.fancy_nodes(packed, rev, llcp, rlcp, n=n))
     out = torch.full((b,), -777, dtype=torch.int64)
-    lane = torch.full((3, b), -1, dtype=torch.int32)
+    lane = torch.full((2, b), -1, dtype=torch.int32)
     depth = torch.zeros(2, dtype=torch.int32)
     trace = torch.full((b, FANCY_TRACE), -5, dtype=torch.int64)
-    rc = query_cuda.launch_fancy(lib, None, packed, rev, llcp, rlcp, prefix,
-                                 nodes, q_words, out, lane, depth, trace,
-                                 n=n, length=length, form=form)
+    rc = query_cuda.launch_fancy(lib, None, packed, nodes, q_words, out,
+                                 lane, depth, trace, n=n, length=length)
     assert rc == 0
     assert depth.tolist() == [0, 0]
     assert (lane[1] <= FANCY_TRACE).all()
-    _check_trace(trace, lane[1], (packed, rev, llcp, rlcp,
-                                  prefix if form == "prefix64" else None))
-    return out, lane, trace
+    _check_trace(trace, lane[1], (packed, nodes))
+    return out, lane, trace, nodes
 
 
 def _check_fancy(lib, seq, packed, rev, prefix, codes, length,
                  replica=True):
     """Kernel == fancy_binsearch_batch (with the same prefix) on every
     lane; with `replica`, also == the scalar replica's positions and probe
-    counts, the kernel's sector trace exactly the first design's for the
-    replica's reads (_replica_trace: a round the tables decide reads
-    neither rev nor the genome; the prefix64 form reads no genome) and its
-    sectors read the node records and genome windows _replica_trace
-    counts. Returns the positions and the lanes that read the genome."""
+    counts, and the kernel's sector trace exactly the sectors it reads for
+    the replica's reads (_replica_trace: a node record each round, the
+    pre-probes and the base case; genome windows only at L > 32 where all
+    32 bases tie). Returns the positions and the lanes that read the
+    genome."""
     n = len(seq)
     llcp, rlcp = _tables(seq)
     qw_np = packops.pack_queries(codes).astype(np.int64)
     qw = torch.from_numpy(qw_np)
     want = query.fancy_binsearch_batch(packed, rev, llcp, rlcp, qw, n=n,
                                        length=length, prefix=prefix)
-    got, lane, trace = _kernel_fancy(lib, packed, rev, llcp, rlcp, prefix,
-                                     qw, n, length)
+    got, lane, trace, nodes = _kernel_fancy(lib, packed, rev, llcp, rlcp,
+                                            qw, n, length)
     np.testing.assert_array_equal(got.numpy(), want.numpy(),
                                   err_msg=f"n={n} L={length}")
     if replica:
         gcodes = packops.encode_bases(seq)
         r64 = rev.long().numpy() & 0xFFFFFFFF
         ll, rl = llcp.numpy(), rlcp.numpy()
-        pre = prefix if length <= 32 else None
         genome_lanes = 0
         for i, q in enumerate(codes):
             pos, probes, _base, events = _fancy_replica(gcodes, r64, ll, rl,
                                                         q, n)
-            want_trace, records, genome = _replica_trace(
-                events, packed, rev, llcp, rlcp, pre, qw_np[:, i], length)
+            want_trace, genome = _replica_trace(events, packed, nodes,
+                                                qw_np[:, i], length)
             genome_lanes += genome > 0
-            assert (int(got[i]), int(lane[0, i]), int(lane[1, i]),
-                    int(lane[2, i])) == (pos, probes, len(want_trace),
-                                         records + genome), (
-                f"lane {i}, n={n} L={length}")
+            assert (int(got[i]), int(lane[0, i]), int(lane[1, i])) == (
+                pos, probes, len(want_trace)), f"lane {i}, n={n} L={length}"
             assert trace[i, :len(want_trace)].tolist() == want_trace, (
                 f"lane {i}, n={n} L={length}")
         return got.numpy(), genome_lanes
@@ -1141,6 +1179,8 @@ def test_fancy_nodes_kernel_source(lib, dup_genome, pad, rev64):
     llcp, rlcp = _tables(seq)
     plain = query.fancy_nodes(packed, rev, llcp, rlcp, n=n)
     assert plain.equal(_mock_nodes(lib, packed, rev, llcp, rlcp, n))
+    ranks = _mock_built(lib, packed, rev, None, None, n)
+    assert plain.equal(_mock_built(lib, packed, rev, llcp, rlcp, n, ranks))
     windows = np.lib.stride_tricks.sliding_window_view(
         np.concatenate([codes, np.zeros(32, np.uint8)]), 32)[:n]
     keys = (windows.astype(np.uint64) << (np.uint64(62) - np.uint64(2)

@@ -142,7 +142,8 @@ def test_record_kernels_match_plain(dev, seq, pos_dtype):
     """plquery's record tables on the card (bucket_records_cuda,
     plquery_records_cuda) equal to the plain ops.query.bucket_records /
     plquery_records on the same CUDA tensors, one launch each: the
-    index's, a packed genome without pad words, and checkpoints whose
+    index's, a packed genome without pad words, the host's 32-bit words,
+    and checkpoints whose
     buckets rise by 2^32 - 2 (in the record), 2^32 - 1 and past, or fall,
     with bounds words 0xFFFFFFFF and 0; a query without the records makes
     the bucket records first (two launches; rank records only past the
@@ -151,9 +152,11 @@ def test_record_kernels_match_plain(dev, seq, pos_dtype):
     d = idx.device_arrays()
     unpadded = torch.from_numpy(packops.pack_codes(
         idx.codes, pad_words=0).astype(np.int64)).to(dev)
-    for packed in (d["packed"], unpadded):
+    host32 = torch.from_numpy(idx.packed.view(np.int32)).to(dev)
+    for packed, words in ((d["packed"], d["packed"]), (unpadded, unpadded),
+                          (d["packed"], host32)):
         before = query_cuda.LAUNCHES["plquery_records"]
-        got = query_cuda.plquery_records_cuda(packed, d["rev"], n=idx.n)
+        got = query_cuda.plquery_records_cuda(words, d["rev"], n=idx.n)
         assert query_cuda.LAUNCHES["plquery_records"] == before + 1
         assert torch.equal(got, query.plquery_records(packed, d["rev"],
                                                       n=idx.n))
@@ -354,7 +357,7 @@ def test_fancy_kernel_matches_plain(dev, seq, tables, prefix, pos_dtype):
         assert dict(query.ROUNDS) == {"C": 0, "D": 0}
         # a node record a pre-probe, a round or the base case; the genome
         # only past 32 bases
-        reads = query_cuda.LAST_STATS["reads"]
+        reads = query_cuda.LAST_STATS["sectors"]
         assert (reads >= 1).all()
         if length <= 32:
             assert (reads <= (idx.n - 1).bit_length() + 5).all()
@@ -364,22 +367,56 @@ def test_fancy_kernel_matches_plain(dev, seq, tables, prefix, pos_dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pos_dtype", ["uint32", "int64"])
 def test_fancy_nodes_kernel_matches_plain(dev, seq, tables, pos_dtype):
-    """The node records: fancy_nodes_kernel equal to the plain
+    """The node records: records_kernel equal to the plain
     ops.query.fancy_nodes on the same CUDA tensors, both rev widths, also
-    on a packed genome without pad words (word indexes clamped); one
-    launch a call."""
+    on a packed genome without pad words (word indexes clamped) and from
+    the host's 32-bit words; one launch a call."""
     idx = _index(seq, dev, pos_dtype=pos_dtype)
     d = idx.device_arrays()
     llcp, rlcp = (t.to(dev) for t in tables)
     unpadded = torch.from_numpy(packops.pack_codes(
         idx.codes, pad_words=0).astype(np.int64)).to(dev)
-    for packed in (d["packed"], unpadded):
+    host32 = torch.from_numpy(idx.packed.view(np.int32)).to(dev)
+    for packed, words in ((d["packed"], d["packed"]), (unpadded, unpadded),
+                          (d["packed"], host32)):
         before = query_cuda.LAUNCHES["fancy_nodes"]
-        got = query_cuda.fancy_nodes_cuda(packed, d["rev"], llcp, rlcp,
+        got = query_cuda.fancy_nodes_cuda(words, d["rev"], llcp, rlcp,
                                           n=idx.n)
         assert query_cuda.LAUNCHES["fancy_nodes"] == before + 1
         want = query.fancy_nodes(packed, d["rev"], llcp, rlcp, n=idx.n)
         assert got.shape == (idx.n, 4) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos_dtype", ["uint32", "int64"])
+def test_fancy_nodes_from_rank_records(dev, seq, tables, pos_dtype,
+                                       monkeypatch):
+    """Node records whose first halves are copied from the index's rank
+    records (fancy_nodes_cuda with rank_recs; SaplingIndex.fancy_nodes
+    where query_records made them and the genome outgrows the L2, both
+    here forced): equal to the plain version, one launch, and the pruned
+    search on them equal to the plain search."""
+    from sapling_tpu_torch.index import sapling
+    for mod in (query_cuda, sapling):
+        monkeypatch.setattr(mod, "reads_rank_records", lambda rev, p: True)
+    monkeypatch.setattr(sapling, "copies_rank_records", lambda p: True)
+    idx = _index(seq, dev, pos_dtype=pos_dtype)
+    d = idx.device_arrays()
+    llcp, rlcp = (t.to(dev) for t in tables)
+    _bucket, ranks = idx.query_records()
+    want = query.fancy_nodes(d["packed"], d["rev"], llcp, rlcp, n=idx.n)
+    before = query_cuda.LAUNCHES["fancy_nodes"]
+    got = query_cuda.fancy_nodes_cuda(d["packed"], d["rev"], llcp, rlcp,
+                                      n=idx.n, rank_recs=ranks)
+    assert query_cuda.LAUNCHES["fancy_nodes"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(idx.fancy_nodes(llcp, rlcp), want)
+    codes = _queries(seq, 20_000, 33, seed=61)
+    qw = idx.query_words(codes)
+    assert torch.equal(idx.binsearch_device(qw, 33, llcp, rlcp),
+                       query.fancy_binsearch_batch(
+                           d["packed"], d["rev"], llcp, rlcp, qw, n=idx.n,
+                           length=33, prefix=d["prefix64"]))
 
 
 @pytest.mark.cuda
