@@ -291,11 +291,13 @@ def build_report(lib_path: str) -> dict:
         m = re.search(r"(plquery_kernel|fancy_binsearch_kernel|"
                       r"fancy_nodes_kernel|binsearch_kernel|"
                       r"rank_records_kernel|records_kernel)"
-                      r"I(?:Li(\d+)E)?([il])?(?:Lb([01])E)?E", mangled)
+                      r"I(?:Li(\d+)E)?([il])?(?:Lb([01])E)?(?:Lb([01])E)?E",
+                      mangled)
         if not m:
             return mangled
+        flag = {"0": "false", "1": "true", None: None}
         args = [m.group(2), {"i": "int32", "l": "int64", None: None}[
-            m.group(3)], {"0": "false", "1": "true", None: None}[m.group(4)]]
+            m.group(3)], flag[m.group(4)], flag[m.group(5)]]
         return f"{m.group(1)}<{', '.join(a for a in args if a)}>"
 
     out = {}

@@ -45,12 +45,20 @@
 // or one of rev and one or two of the packed genome, as the binary
 // search's probes do. The least time of a call is the distinct
 // sectors its lanes touch, times 32 bytes, over HBM's 3.35 TB/s; with
-// `stats` the kernels count the sectors a lane touches (and can record
-// their numbers, so that the caller counts the distinct ones), and their
-// deepest phase C and phase D step counts, which equal the plain versions'
-// host loop rounds. Each probe waits on the last, so what the card reaches
-// is set by the loads in flight: the resident threads an SM, which the
-// registers a thread decide.
+// `stats` the kernels write five counts a lane (lane_stats, int32 [5, B]):
+//   row 0  probes;
+//   row 1  the 32-byte sectors its reads touch (and can record their
+//          numbers, so that the caller counts the distinct ones);
+//   row 2  phase C (stride) steps;
+//   row 3  phase D (bisection) steps;
+//   row 4  the sectors of row 1 that lie in the packed genome;
+// a kernel without a phase writes 0 in its row. A call with lane_stats
+// launches each kernel's GENOME_ROW instance, which alone counts row 4
+// (see Lane). They also write their
+// deepest phase C and phase D step counts (depth), which equal the plain
+// versions' host loop rounds. Each probe waits on the last, so what the
+// card reaches is set by the loads in flight: the resident threads an SM,
+// which the registers a thread decide.
 //
 // What the designs do about it:
 //
@@ -148,7 +156,8 @@
 //
 // The binary search keeps each lane's decision sequence and its probe and
 // sector counts (a probe answered from shared memory records the sectors
-// the first design read), so its bound does not move with the design; the
+// the first design read, its genome window in row 4 too), so its bound
+// does not move with the design; the
 // pruned search records the sectors it really reads: a node record each
 // round and compare_at's genome windows.
 
@@ -167,6 +176,9 @@ constexpr int kSearchThreads = 512;
 constexpr int kFast3 = 0, kPrefix64 = 1, kPacked = 2;
 constexpr int kBasesPerWord = 16;
 constexpr int kWin = 7;   // query words a probe compares from registers
+// the rows of lane_stats
+constexpr int kProbesRow = 0, kSectorsRow = 1, kStrideRow = 2,
+              kBisectRow = 3, kGenomeRow = 4;
 // a bucket record's yhi - ylo that says "read ylist[bucket + 1]": a bucket
 // of 2^32 - 1 ranks or more (n >= 2^32), or a falling ylist
 constexpr uint32_t kWideM = 0xFFFFFFFFu;
@@ -183,7 +195,8 @@ struct Args {
   const int64_t* x;         // [B] adjusted k-mers
   const int64_t* pred64;    // [B] the caller's predicted ranks, or null
   int64_t* out;             // [B] positions, -1 = not found
-  int32_t* lane_stats;      // [2, B] probes, sectors; or null
+  int32_t* lane_stats;      // [5, B] a lane's counts (the rows above); or
+                            // null
   int32_t* depth;           // [2] deepest phase C, phase D steps; or null
   int64_t* trace;           // [B, trace_cap] sector numbers a lane touched
                             // (the first trace_cap; -1 past its last); or
@@ -266,8 +279,13 @@ __device__ __forceinline__ uint64_t genome_key(const Args& a, int64_t pos) {
 }
 
 // One query's state: its inputs, read once, and its counts. With RANKS a
-// probe reads rank records (plquery's), else rev and the genome.
-template <int PROBE, typename REV, bool RANKS = false>
+// probe reads rank records (plquery's), else rev and the genome. With
+// GENOME_ROW (the kernels' instances a call with lane_stats launches) it
+// also counts row 4, the genome's sectors: that count's store, where a
+// probe's genome words are live, took registers (plquery_kernel<2, int,
+// false> 64 -> 72, 1.11x its time on an H100), which the instances a call
+// without stats launches must not pay.
+template <int PROBE, typename REV, bool RANKS = false, bool GENOME_ROW = false>
 struct Lane {
   const Args& a;
   int64_t b;
@@ -278,9 +296,11 @@ struct Lane {
   int wq;
   int probes = 0, sectors = 0;
 
-  // with stats, count (and with a trace, record) the sectors of [p, last];
+  // with stats, count (and with a trace, record) the sectors of [p, last],
+  // and with GENOME_ROW, where they are the packed genome's (`genome`), add
+  // them to its row in lane_stats, so that no register holds that count;
   // returns their count (0 without stats)
-  __device__ int touch(const void* p, const void* last) {
+  __device__ int touch(const void* p, const void* last, bool genome = false) {
     if (!a.lane_stats) return 0;
     const int before = sectors;
     for (int64_t s = sector(p); s <= sector(last); ++s) {
@@ -288,6 +308,8 @@ struct Lane {
         a.trace[b * a.trace_cap + sectors] = s;
       ++sectors;
     }
+    if (GENOME_ROW && genome)
+      a.lane_stats[kGenomeRow * a.B + b] += sectors - before;
     return sectors - before;
   }
   __device__ void touch(const void* p) { touch(p, p); }
@@ -298,6 +320,7 @@ struct Lane {
   }
 
   __device__ Lane(const Args& a_, int64_t b_) : a(a_), b(b_) {
+    if (GENOME_ROW && a.lane_stats) a.lane_stats[kGenomeRow * a.B + b] = 0;
     const int L = a.length;
     if constexpr (PROBE == kFast3) {
       mask3 = 0;
@@ -393,7 +416,7 @@ struct Lane {
     if (!key_decides(pos, key, &p)) return compare_at(pos);
     const int64_t last = a.packed_len - 1, w0 = pos >> 4;   // its first window
     touch(a.packed + lmin(w0, last),
-          a.packed + lmin(w0 + (wq < kWin ? wq : kWin), last));
+          a.packed + lmin(w0 + (wq < kWin ? wq : kWin), last), true);
     return p;
   }
 
@@ -430,7 +453,7 @@ struct Lane {
 #pragma unroll
       for (int j = 0; j <= kWin; ++j)
         if (j <= nw) w[j] = (uint32_t)__ldg(a.packed + lmin(w0 + j, last));
-      touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + nw, last));
+      touch(a.packed + lmin(w0, last), a.packed + lmin(w0 + nw, last), true);
 #pragma unroll
       for (int j = 0; j < kWin; ++j) {
         if (j >= nw) break;
@@ -494,8 +517,10 @@ struct Lane {
       if (a.trace)
         for (int i = sectors; i < a.trace_cap; ++i)
           a.trace[b * a.trace_cap + i] = -1;
-      a.lane_stats[b] = probes;
-      a.lane_stats[a.B + b] = sectors;
+      a.lane_stats[kProbesRow * a.B + b] = probes;
+      a.lane_stats[kSectorsRow * a.B + b] = sectors;
+      a.lane_stats[kStrideRow * a.B + b] = c_steps;
+      a.lane_stats[kBisectRow * a.B + b] = d_steps;
       if (c_steps) atomicMax(a.depth, c_steps);
       if (d_steps) atomicMax(a.depth + 1, d_steps);
     }
@@ -535,11 +560,11 @@ __device__ int64_t predict(L& lane, int64_t x, uint32_t* bw) {
   return lmin(lmax(pred, 0), a.n - 1);
 }
 
-template <int PROBE, typename REV, bool RANKS>
+template <int PROBE, typename REV, bool RANKS, bool GENOME_ROW = false>
 __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant__ Args a) {
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= a.B) return;
-  Lane<PROBE, REV, RANKS> lane(a, b);
+  Lane<PROBE, REV, RANKS, GENOME_ROW> lane(a, b);
   const int64_t n = a.n;
   const int64_t x = a.x[b];
   uint32_t bw = 0;   // the bucket's bounds word (adaptive)
@@ -666,9 +691,9 @@ __device__ void fill_tree(const Args& a, Node* tree) {
 // bQuery (binarysearch.cpp:158-165): rank 0 and rank n-1 first, then the
 // binary search over [0, n-1]; an absent query resolves to -1. The first
 // kTreeLevels rounds read the shared table.
-template <typename REV>
+template <typename REV, bool GENOME_ROW>
 __device__ void binsearch_lane(const Args& a, const Node* tree, int64_t b) {
-  Lane<kPacked, REV> lane(a, b);
+  Lane<kPacked, REV, false, GENOME_ROW> lane(a, b);
   const Probe p_lo = lane.probe_known(0, tree[0].pos, tree[0].key);
   if (p_lo.match) return lane.done(p_lo.val, 0, 0);
   const Node& last = tree[kTreeNodes];
@@ -699,7 +724,7 @@ __device__ void binsearch_lane(const Args& a, const Node* tree, int64_t b) {
   lane.done(res, 0, steps);
 }
 
-template <typename REV>
+template <typename REV, bool GENOME_ROW = false>
 __global__ void __launch_bounds__(kSearchThreads)
     binsearch_kernel(const __grid_constant__ Args a) {
   Node* tree = reinterpret_cast<Node*>(shared_bytes());
@@ -707,7 +732,7 @@ __global__ void __launch_bounds__(kSearchThreads)
   __syncthreads();
   for (int64_t b = (int64_t)blockIdx.x * kSearchThreads + threadIdx.x;
        b < a.B; b += (int64_t)gridDim.x * kSearchThreads)
-    binsearch_lane<REV>(a, tree, b);
+    binsearch_lane<REV, GENOME_ROW>(a, tree, b);
 }
 
 // A node record of the pruned search, as its two 16-byte halves: the
@@ -840,12 +865,12 @@ __global__ void __launch_bounds__(kThreads)
 // read: a node record a pre-probe, a round or the base case, and
 // compare_at's genome windows; there are no host rounds to match, so depth
 // stays 0.
-template <int PROBE>
+template <int PROBE, bool GENOME_ROW = false>
 __global__ void __launch_bounds__(kThreads)
     fancy_binsearch_kernel(const __grid_constant__ Args a) {
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= a.B) return;
-  Lane<PROBE, int32_t> lane(a, b);
+  Lane<PROBE, int32_t, false, GENOME_ROW> lane(a, b);
   const int n = (int)a.n;
   auto node = [&](int rank) {
     lane.touch(a.nodes + 2 * (int64_t)rank);   // one 32-byte sector
@@ -906,9 +931,13 @@ __global__ void __launch_bounds__(kThreads)
 
 int blocks_for(int64_t B) { return (int)((B + kThreads - 1) / kThreads); }
 
+// Each launcher takes a kernel's GENOME_ROW instance (see Lane) where the
+// call passes lane_stats.
 template <int PROBE>
 int launch_fancy(const Args& a, cudaStream_t stream) {
-  fancy_binsearch_kernel<PROBE><<<blocks_for(a.B), kThreads, 0, stream>>>(a);
+  const auto kernel = a.lane_stats ? fancy_binsearch_kernel<PROBE, true>
+                                   : fancy_binsearch_kernel<PROBE>;
+  kernel<<<blocks_for(a.B), kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -920,24 +949,28 @@ int launch_records(const Args& a, longlong2* out, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int PROBE, bool RANKS>
-int launch_plquery(const Args& a, int rev64, cudaStream_t stream) {
-  if (rev64)
-    plquery_kernel<PROBE, int64_t, RANKS><<<blocks_for(a.B), kThreads, 0,
-                                            stream>>>(a);
-  else
-    plquery_kernel<PROBE, int32_t, RANKS><<<blocks_for(a.B), kThreads, 0,
-                                            stream>>>(a);
+template <int PROBE, typename REV, bool RANKS>
+int launch_plquery(const Args& a, cudaStream_t stream) {
+  const auto kernel = a.lane_stats ? plquery_kernel<PROBE, REV, RANKS, true>
+                                   : plquery_kernel<PROBE, REV, RANKS>;
+  kernel<<<blocks_for(a.B), kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// binsearch_kernel<REV> on no more blocks than fit on the card at once
-// (each fills its table once and loops over the lanes). The count is found
-// on a device's first call, where the kernel is also allowed the table's
-// shared memory, and kept.
-template <typename REV>
+template <int PROBE, bool RANKS>
+int launch_plquery(const Args& a, int rev64, cudaStream_t stream) {
+  return rev64 ? launch_plquery<PROBE, int64_t, RANKS>(a, stream)
+               : launch_plquery<PROBE, int32_t, RANKS>(a, stream);
+}
+
+// binsearch_kernel<REV, GENOME_ROW> on no more blocks than fit on the card
+// at once (each fills its table once and loops over the lanes). The count
+// is found on a device's first call, where the kernel is also allowed the
+// table's shared memory, and kept.
+template <typename REV, bool GENOME_ROW>
 int launch_binsearch(const Args& a, cudaStream_t stream) {
   static std::atomic<int> resident[64];
+  const auto kernel = binsearch_kernel<REV, GENOME_ROW>;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -947,12 +980,12 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(binsearch_kernel<REV>,
+      e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kTreeBytes);
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, binsearch_kernel<REV>, kSearchThreads, kTreeBytes);
+          &per_sm, kernel, kSearchThreads, kTreeBytes);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     grid = per_sm * sms;
@@ -960,7 +993,7 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
   }
   const int64_t needed = (a.B + kSearchThreads - 1) / kSearchThreads;
   if (needed < grid) grid = (int)needed;
-  binsearch_kernel<REV><<<grid, kSearchThreads, kTreeBytes, stream>>>(a);
+  kernel<<<grid, kSearchThreads, kTreeBytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -971,7 +1004,7 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
 // words, xlist, ylist and prefix views; rev int32 holding uint32 bits when
 // rev64 is 0, else int64; bounds int32 holding uint32 bits); q_words is
 // int64 [ceil(L/16), B]; x, pred64 and out are int64 [B]. lane_stats
-// (int32 [2, B]), depth (int32 [2], zeroed)
+// (int32 [5, B], every row written), depth (int32 [2], zeroed)
 // and trace (int64 [B, trace_cap]) may be null. plquery reads xlist,
 // ylist and bounds through its bucket records (bucket_recs, int64
 // [2^buckets, 4], 32-byte aligned; ylist also where a record says so, and
@@ -1051,8 +1084,11 @@ extern "C" int binsearch_launch(const void* packed, long long packed_len,
   a.n = n;
   a.length = length;
   auto st = static_cast<cudaStream_t>(stream);
-  return rev64 ? launch_binsearch<int64_t>(a, st)
-               : launch_binsearch<int32_t>(a, st);
+  if (lane_stats)
+    return rev64 ? launch_binsearch<int64_t, true>(a, st)
+                 : launch_binsearch<int32_t, true>(a, st);
+  return rev64 ? launch_binsearch<int64_t, false>(a, st)
+               : launch_binsearch<int32_t, false>(a, st);
 }
 
 extern "C" int fancy_binsearch_launch(

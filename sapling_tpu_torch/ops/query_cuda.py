@@ -28,13 +28,23 @@ parallel.sharded_index keeps the plain versions):
   * tensors on the CPU take the plain version (there is no CUDA there);
   * tensors on the card launch a kernel, or raise: there is no fallback.
 
-`stats=True` also has the kernel write each lane's probes and the 32-byte
-sectors its reads touched (`LAST_STATS`), and its deepest phase C and
-phase D step counts, which it adds to `ops.query.ROUNDS` as the plain
-versions' host loops do; that syncs. With `trace=K` it also records the
-numbers of the first K sectors each lane touched (int64 [B, K], -1 past
-a lane's last), from which a caller counts the distinct sectors of a
-call: the bytes its bound is made of. The default call writes nothing
+`stats=True` also has the kernel write five counts a lane (`LAST_STATS`,
+each int32 [B]; a kernel without the phase writes 0):
+
+  * `probes`;
+  * `sectors`, the 32-byte sectors its reads touched;
+  * `c_steps`, its phase C (stride) steps;
+  * `d_steps`, its phase D (bisection) steps;
+  * `genome_sectors`, those of its sectors that lie in the packed genome;
+
+and its deepest phase C and phase D step counts (`C`, `D`), which it adds
+to `ops.query.ROUNDS` as the plain versions' host loops do; that syncs.
+The kernel's lane_stats rows 0-4 hold them in this order; a stats call
+launches the kernel's instance that counts the genome's sectors, so that
+the one a call without stats launches pays no register for them. With
+`trace=K` it also records the numbers of the first K sectors each lane
+touched (int64 [B, K], -1 past a lane's last), from which a caller counts
+the distinct sectors of a call: the bytes its bound is made of. The default call writes nothing
 extra. The library is built with nvcc at first use (ops.sw_cuda.
 build_kernel, into the gitignored `_build/`); `LAUNCHES` counts kernel
 launches.
@@ -59,10 +69,11 @@ PROBES = {"prefix64": 1, "packed": 2}   # query.cu's kPrefix64, kPacked
 # kernel launches, counted where each kernel is launched
 LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0, "fancy_nodes": 0,
             "bucket_records": 0, "plquery_records": 0}
-# the last stats=True call on the card: int32 [B] probes and sectors a
-# lane (and the pruned search's reads), the deepest phase C / phase D step
-# counts, and with trace=K the int64 [B, K] sector numbers
+# the last stats=True call on the card: int32 [B] counts a lane (STAT_ROWS,
+# the kernel's lane_stats rows in order), the deepest phase C / phase D
+# step counts, and with trace=K the int64 [B, K] sector numbers
 LAST_STATS: dict = {}
+STAT_ROWS = ("probes", "sectors", "c_steps", "d_steps", "genome_sectors")
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -157,14 +168,14 @@ _REV = (torch.int32, torch.int64)
 
 
 def stats_buffers(b: int, dev, stats: bool, trace: int = 0):
-    """(lane_stats, depth, trace) buffers of a stats call: int32 [2, B],
-    int32 [2] zeroed, int64 [B, trace] (None without a trace); all None
-    without stats."""
+    """(lane_stats, depth, trace) buffers of a stats call: int32
+    [len(STAT_ROWS), B], int32 [2] zeroed, int64 [B, trace] (None without a
+    trace); all None without stats."""
     if trace and not stats:
         raise ValueError("trace= needs stats=True")
     if not stats:
         return None, None, None
-    return (torch.empty((2, b), dtype=torch.int32, device=dev),
+    return (torch.empty((len(STAT_ROWS), b), dtype=torch.int32, device=dev),
             torch.zeros(2, dtype=torch.int32, device=dev),
             torch.empty((b, trace), dtype=torch.int64, device=dev)
             if trace else None)
@@ -175,8 +186,7 @@ def _read_stats(lane, depth, trace) -> None:
     query.ROUNDS["C"] += c
     query.ROUNDS["D"] += d
     LAST_STATS.clear()
-    LAST_STATS.update(probes=lane[0], sectors=lane[1], C=c, D=d,
-                      trace=trace)
+    LAST_STATS.update(zip(STAT_ROWS, lane), C=c, D=d, trace=trace)
 
 
 def _ptr(t):

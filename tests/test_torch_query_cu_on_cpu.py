@@ -15,8 +15,9 @@ PyTorch version's on the same tensors (itself held against sapling_tpu by
 tests/test_torch_query*.py, test_torch_binsearch.py), -1s and the member
 of a duplicate run included, and a subset equals sapling_tpu's own
 query_positions. The stats the kernel writes on request must give the
-plain versions' host loop rounds (ops.query.ROUNDS), and its sector trace
-only sectors of the arrays it reads. The record builders (records_kernel)
+plain versions' host loop rounds (ops.query.ROUNDS), its five rows their
+counts (test_stats_rows), and its sector trace only sectors of the arrays
+it reads. The record builders (records_kernel)
 must write the plain versions' records word for word. The library is
 built with UBSan's alignment check, which aborts the run on a misaligned
 load or store as the card would refuse it (the node records' stage in
@@ -85,10 +86,9 @@ def lib(tmp_path_factory):
         pytest.skip("the mock needs a g++ with C++20 <barrier>")
     cpp, so = d / "query_on_cpu.cpp", d / "libquery_on_cpu.so"
     with open(query_cuda.SOURCE) as f:
-        # plquery launches at two rev types, the pruned search, the record
-        # builders, the binary search and the bucket records from one
-        # launcher each
-        cpp.write_text(mock_source(f.read(), 6))
+        # plquery, the pruned search, the record builders, the binary
+        # search and the bucket records launch from one launcher each
+        cpp.write_text(mock_source(f.read(), 5))
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                     "-Wno-unknown-pragmas", "-fsanitize=alignment",
                     "-fno-sanitize-recover=alignment", "-I", MOCK_DIR, "-o",
@@ -168,16 +168,28 @@ def _mock_records(lib, xlist, ylist, bounds, packed, rev, *, buckets, n,
             _made("rank", (packed, rev), rank_records) if ranks else None)
 
 
-def _kernel_plquery(lib, args, kw, form="records"):
+def _stats_buffers(b, cap, stats=True):
+    """(lane_stats, depth, trace) for a launch on host tensors: every
+    stats row and trace entry planted with a value the kernel never
+    writes, or all None without `stats`."""
+    if not stats:
+        return None, None, None
+    return (torch.full((len(query_cuda.STAT_ROWS), b), -1, dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32),
+            torch.full((b, cap), -5, dtype=torch.int64))
+
+
+def _kernel_plquery(lib, args, kw, form="records", cap=TRACE, stats=True):
     """The kernel on plquery_batch's arguments (host tensors; q_words
     given) and on the record tables of the mocked record kernels
     (_mock_records), with the probe `form`: "fast3" (prefix3, with args'
     q3), "records" (rank records) or "arrays" (rev and the genome):
-    (positions, int32 [2, B] probes and sectors a lane, [C, D] deepest
-    steps, the int64 [B, TRACE] sector trace), the trace checked to hold
-    only sectors of the arrays the kernel reads: the records, prefix3 and
-    rev on fast3, rev without rank records, the packed genome, ylist for a
-    wide bucket and bounds with pred64."""
+    (positions, int32 [5, B] stats rows a lane (query_cuda.STAT_ROWS),
+    [C, D] deepest steps, the int64 [B, cap] sector trace), every row
+    checked written and the trace checked to hold only sectors of the
+    arrays the kernel reads: the records, prefix3 and rev on fast3, rev
+    without rank records, the packed genome, ylist for a wide bucket and
+    bounds with pred64. Without `stats`: (positions, None, None, None)."""
     (packed, rev, xlist, ylist, q_words, x, _prefix, prefix3, q3,
      bounds) = args
     kw = dict(kw)
@@ -186,9 +198,7 @@ def _kernel_plquery(lib, args, kw, form="records"):
     kw.setdefault("adaptive_bounds", False)
     b = x.shape[0]
     out = torch.full((b,), -777, dtype=torch.int64)
-    lane = torch.full((2, b), -1, dtype=torch.int32)
-    depth = torch.zeros(2, dtype=torch.int32)
-    trace = torch.full((b, TRACE), -5, dtype=torch.int64)
+    lane, depth, trace = _stats_buffers(b, cap, stats)
     bucket, rank = _mock_records(lib, xlist, ylist, bounds, packed, rev,
                                  buckets=kw["buckets"], n=kw["n"],
                                  ranks=form == "records")
@@ -200,6 +210,9 @@ def _kernel_plquery(lib, args, kw, form="records"):
         prefix3, q3 if fast3 else None, bounds, pred64, out, lane, depth,
         trace, bucket_recs=bucket, rank_recs=rank, **kw)
     assert rc == 0
+    if not stats:
+        return out, None, None, None
+    assert (lane >= 0).all()
     _check_trace(trace, lane[1], (
         bucket, ylist, bounds if pred64 is not None else None, rank,
         rev if rank is None else None, None if fast3 else packed,
@@ -564,10 +577,6 @@ def test_plquery_trace_reads_records(lib, k21, form):
     probe and rev once for a hit; never prefix64, xlist, ylist or bounds
     (adaptive bounds come with the bucket record)."""
     dev = k21.device_arrays()
-
-    def span(t):
-        return (_sector(t, 0), _sector(t, t.numel() - 1))
-
     for length in (11, 21) if form == "fast3" else (11, 21, 32, 33, 45):
         codes = _mixed_codes(k21.codes, 2000, length, seed=length)
         args = _args(k21, codes, with_bounds=True)
@@ -577,8 +586,7 @@ def test_plquery_trace_reads_records(lib, k21, form):
         hits = {}
         for name in ("packed", "rev", "prefix64", "prefix3", "xlist",
                      "ylist", "bounds"):
-            lo, hi = span(dev[name])
-            hits[name] = ((trace >= lo) & (trace <= hi)).sum(1)
+            hits[name] = _span_hits(trace, dev[name])
         for name in ("prefix64", "xlist", "ylist", "bounds"):
             assert int(hits[name].sum()) == 0, name
         genome, rev = hits["packed"], hits["rev"]
@@ -730,17 +738,24 @@ def test_rank_storage_kernel_source(lib, pos_dtype):
                            _kw(form_idx, length))
 
 
-def _kernel_binsearch(lib, packed, rev, q_words, n, length):
+def _kernel_binsearch(lib, packed, rev, q_words, n, length, cap=TRACE,
+                      stats=True):
+    """The binary search through launch_binsearch on host tensors:
+    (positions, int32 [5, B] stats rows, [C, D] deepest steps, the int64
+    [B, cap] sector trace), every row checked written and the trace checked
+    to hold only sectors of rev and the packed genome. Without `stats`:
+    (positions, None, None, None)."""
     b = q_words.shape[1]
     out = torch.full((b,), -777, dtype=torch.int64)
-    lane = torch.full((2, b), -1, dtype=torch.int32)
-    depth = torch.zeros(2, dtype=torch.int32)
-    trace = torch.full((b, TRACE), -5, dtype=torch.int64)
+    lane, depth, trace = _stats_buffers(b, cap, stats)
     rc = query_cuda.launch_binsearch(lib, None, packed, rev, q_words, out,
                                      lane, depth, trace, n=n, length=length)
     assert rc == 0
+    if not stats:
+        return out, None, None, None
+    assert (lane >= 0).all()
     _check_trace(trace, lane[1], (packed, rev))
-    return out, lane, depth.tolist()
+    return out, lane, depth.tolist(), trace
 
 
 @pytest.mark.parametrize("pos_dtype", ["int32", "uint32", "int64"])
@@ -757,8 +772,9 @@ def test_binsearch_kernel_source_matches_plain(lib, pos_dtype):
         query.ROUNDS.update(C=0, D=0)
         want = query.binsearch_batch(dev["packed"], dev["rev"], qw,
                                      n=idx.n, length=length)
-        got, lane, (c, d) = _kernel_binsearch(lib, dev["packed"],
-                                              dev["rev"], qw, idx.n, length)
+        got, lane, (c, d), _ = _kernel_binsearch(lib, dev["packed"],
+                                                 dev["rev"], qw, idx.n,
+                                                 length)
         np.testing.assert_array_equal(got.numpy(), want.numpy(),
                                       err_msg=f"L={length}")
         assert (c, d) == (0, query.ROUNDS["D"])
@@ -830,8 +846,8 @@ def test_binsearch_tree_kernel_source(lib, n):
             query.ROUNDS.update(C=0, D=0)
             want = query.binsearch_batch(packed, rev, qw, n=n,
                                          length=length)
-            got, lane, (c, d) = _kernel_binsearch(lib, packed, rev, qw, n,
-                                                  length)
+            got, lane, (c, d), _ = _kernel_binsearch(lib, packed, rev, qw,
+                                                     n, length)
             np.testing.assert_array_equal(got.numpy(), want.numpy(),
                                           err_msg=f"n={n} L={length}")
             assert (c, d) == (0, query.ROUNDS["D"])
@@ -956,6 +972,13 @@ def _sector(t, i):
     return (t.data_ptr() + i * t.element_size()) >> 5
 
 
+def _span_hits(trace, t):
+    """int64 [B]: the entries of each lane's sector trace that lie in
+    tensor t's sectors."""
+    lo, hi = _sector(t, 0), _sector(t, t.numel() - 1)
+    return ((trace >= lo) & (trace <= hi)).sum(1)
+
+
 def _probe_windows(packed, pos, qw, length):
     """The packed genome's sectors a probe at text position pos reads, as
     compare_at reads them (windows of up to 7 query words, each with the
@@ -1033,22 +1056,26 @@ def _mock_nodes(lib, packed, rev, llcp, rlcp, n):
     return _mock_built(lib, packed, rev, llcp, rlcp, n)
 
 
-def _kernel_fancy(lib, packed, rev, llcp, rlcp, q_words, n, length):
+def _kernel_fancy(lib, packed, rev, llcp, rlcp, q_words, n, length,
+                  stats=True):
     """The kernel through launch_fancy on host tensors, with the node
     records of the mocked records kernel (held equal to the plain
-    ops.query.fancy_nodes): (positions, int32 [2, B] probes and sectors
-    read a lane, the sector trace, the node records), the trace checked to
-    hold only sectors of the node records and the packed genome."""
+    ops.query.fancy_nodes): (positions, int32 [5, B] stats rows a lane
+    (probes and sectors read, ...), the sector trace, the node records),
+    every row checked written and the trace checked to hold only sectors
+    of the node records and the packed genome. Without `stats`: (positions,
+    None, None, the node records)."""
     b = q_words.shape[1]
     nodes = _mock_nodes(lib, packed, rev, llcp, rlcp, n)
     assert nodes.equal(query.fancy_nodes(packed, rev, llcp, rlcp, n=n))
     out = torch.full((b,), -777, dtype=torch.int64)
-    lane = torch.full((2, b), -1, dtype=torch.int32)
-    depth = torch.zeros(2, dtype=torch.int32)
-    trace = torch.full((b, FANCY_TRACE), -5, dtype=torch.int64)
+    lane, depth, trace = _stats_buffers(b, FANCY_TRACE, stats)
     rc = query_cuda.launch_fancy(lib, None, packed, nodes, q_words, out,
                                  lane, depth, trace, n=n, length=length)
     assert rc == 0
+    if not stats:
+        return out, None, None, nodes
+    assert (lane >= 0).all()
     assert depth.tolist() == [0, 0]
     assert (lane[1] <= FANCY_TRACE).all()
     _check_trace(trace, lane[1], (packed, nodes))
@@ -1226,3 +1253,100 @@ def test_fancy_kernel_source_off_end_and_ties(lib, dup_genome, genome,
     if prefix and length <= 32:
         assert genome_lanes == 0
 
+
+
+# --- the stats rows -----------------------------------------------------
+
+STATS_TRACE = 256   # every sector of a lane at these sizes
+
+
+def _stats_case(lib, k21, kernel, length, shift):
+    """One call of `kernel` ("records", "arrays", "fast3": plquery's
+    probe forms; "binsearch"; "fancy") on k21 at `length` (plquery with
+    predictions shifted by `shift` ranks where it is not 0, so that lanes
+    scan): (positions with stats, positions without, int32 [5, B] stats
+    rows, [C, D] deepest steps, the whole sector trace, the packed
+    genome)."""
+    dev = k21.device_arrays()
+    packed = dev["packed"]
+    codes = _mixed_codes(k21.codes, 600, length, seed=length + shift)
+    if kernel == "binsearch":
+        qw = k21.query_words(codes)
+        got, lane, depth, trace = _kernel_binsearch(
+            lib, packed, dev["rev"], qw, k21.n, length, cap=STATS_TRACE)
+        plain = _kernel_binsearch(lib, packed, dev["rev"], qw, k21.n, length,
+                                  stats=False)[0]
+    elif kernel == "fancy":
+        qw = k21.query_words(codes)
+        llcp, rlcp = _tables(packops.decode_bases(k21.codes))
+        got, lane, _trace, _ = _kernel_fancy(lib, packed, dev["rev"], llcp,
+                                             rlcp, qw, k21.n, length)
+        trace, depth = _trace, [0, 0]
+        plain = _kernel_fancy(lib, packed, dev["rev"], llcp, rlcp, qw,
+                              k21.n, length, stats=False)[0]
+    else:
+        args = _args(k21, codes, with_bounds=True)
+        over = ({"pred64": _shifted_pred(k21, codes, shift, seed=length)}
+                if shift else {})
+        kw = _kw(k21, length, **over)
+        got, lane, depth, trace = _kernel_plquery(lib, args, kw, kernel,
+                                                  cap=STATS_TRACE)
+        plain = _kernel_plquery(lib, args, kw, kernel, stats=False)[0]
+    assert (lane[1] <= trace.shape[1]).all(), "a lane's trace was cut"
+    return got, plain, lane, depth, trace, packed
+
+
+@pytest.mark.parametrize("kernel", ["records", "arrays", "fast3",
+                                    "binsearch", "fancy"])
+def test_stats_rows(lib, k21, kernel):
+    """The five stats rows (query_cuda.STAT_ROWS) of each query kernel and
+    plquery probe form: every row written (the helpers plant -1); the
+    deepest phase C and phase D steps over the lanes (rows 2 and 3) are
+    the kernel's `depth`, 0 where the kernel has no such phase (the binary
+    searches no phase C, the pruned search neither); row 4 is the number
+    of the lane's traced sectors inside the packed genome and at most row
+    1; on rank records it is 0 up to 32 bases and positive on some lane at
+    33; and the positions equal those of a call without stats."""
+    lengths = (11, 21) if kernel == "fast3" else (21, 32, 33, 45)
+    for length in lengths:
+        for shift in ((0, 300) if kernel in ("records", "arrays", "fast3")
+                      else (0,)):
+            got, plain, lane, (c, d), trace, packed = _stats_case(
+                lib, k21, kernel, length, shift)
+            where = f"{kernel} L={length} shift={shift}"
+            assert got.equal(plain), where
+            assert [int(lane[2].max()), int(lane[3].max())] == [c, d], where
+            if kernel in ("binsearch", "fancy"):
+                assert int(lane[2].max()) == 0, where
+            if kernel == "fancy":
+                assert int(lane[3].max()) == 0, where
+            genome = lane[4].long()
+            assert genome.equal(_span_hits(trace, packed)), where
+            assert (genome <= lane[1]).all(), where
+            if kernel == "fast3":
+                assert int(genome.sum()) == 0, where
+            if kernel == "records" and length <= 32:
+                assert int(genome.sum()) == 0, where
+            if kernel == "records" and length == 33:
+                assert (genome > 0).any(), where
+            if kernel in ("arrays", "binsearch"):
+                assert (genome > 0).all(), where
+    if kernel in ("records", "arrays"):
+        assert c > 0   # the shifted predictions scanned
+
+
+def test_read_stats_names_the_rows():
+    """_read_stats keeps the kernel's rows under STAT_ROWS' names, in
+    order, beside the deepest steps, which it adds to ROUNDS."""
+    lane = torch.arange(5 * 3, dtype=torch.int32).reshape(5, 3)
+    query.ROUNDS.update(C=1, D=2)
+    query_cuda._read_stats(lane, torch.tensor([4, 7], dtype=torch.int32),
+                           None)
+    st = query_cuda.LAST_STATS
+    assert list(st) == list(query_cuda.STAT_ROWS) + ["C", "D", "trace"]
+    for i, name in enumerate(query_cuda.STAT_ROWS):
+        assert st[name].equal(lane[i])
+    assert (st["C"], st["D"], st["trace"]) == (4, 7, None)
+    assert (query.ROUNDS["C"], query.ROUNDS["D"]) == (5, 9)
+    assert query_cuda.stats_buffers(3, "cpu", True)[0].shape == (5, 3)
+    st.clear()
