@@ -301,6 +301,20 @@ def counted(fn, want: str | None = "plquery"):
     return out, launches, rounds
 
 
+def planned(fn):
+    """counted(fn) for a call of SaplingIndex.query_device without stats,
+    which must launch from the index's launch plan (ops.query_cuda.PLANS
+    "served" one up), so that the checks hold the path that every timed
+    call takes."""
+    from sapling_tpu_torch.ops import query_cuda
+
+    served = query_cuda.PLANS["served"]
+    got = counted(fn)
+    if query_cuda.PLANS["served"] != served + 1:
+        raise AssertionError("query_device did not launch from its plan")
+    return got
+
+
 def _time_ms(fn, dev, reps: int = 10, warm: int = 2) -> float:
     """CUDA-event milliseconds per call of fn (utils.timing.timed)."""
     from sapling_tpu_torch.utils.timing import timed
@@ -1204,7 +1218,7 @@ def query_phase(dev, idx21) -> dict:
     codes, n_in = query_codes(idx21.codes)
     didx = idx21.to(dev)
     inputs = didx.query_inputs(codes)
-    pos, launches, _ = counted(lambda: didx.query_device(*inputs, length))
+    pos, launches, _ = planned(lambda: didx.query_device(*inputs, length))
     pos = pos.cpu().numpy()
     ok = didx.verify_hits(codes, pos)
     if not ok[:n_in].all():
@@ -1254,7 +1268,7 @@ def sweep_phase(dev, idx21) -> list[dict]:
         for name, idx in indexes:
             didx = idx.to(dev)
             inputs = didx.query_inputs(codes)
-            pos, launches, _ = counted(
+            pos, launches, _ = planned(
                 lambda: didx.query_device(*inputs, length))
             pos = pos.cpu().numpy()
             query.ROUNDS.update(C=0, D=0)
@@ -1397,7 +1411,7 @@ def scale_phase(dev, art: str, table_path: str) -> dict:
         for length in SCALE_LENGTHS:
             codes, n_in = query_codes(didx.codes, length)
             inputs = didx.query_inputs(codes)
-            pos, launches, _ = counted(
+            pos, launches, _ = planned(
                 lambda: didx.query_device(*inputs, length))
             # the first query made the index's record tables
             out.setdefault("launches", launches)

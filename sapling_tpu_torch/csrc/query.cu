@@ -165,6 +165,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <cstring>
 
 namespace {
 
@@ -949,18 +950,86 @@ int launch_records(const Args& a, longlong2* out, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int PROBE, typename REV, bool RANKS>
-int launch_plquery(const Args& a, cudaStream_t stream) {
-  const auto kernel = a.lane_stats ? plquery_kernel<PROBE, REV, RANKS, true>
-                                   : plquery_kernel<PROBE, REV, RANKS>;
-  kernel<<<blocks_for(a.B), kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
+using PlqueryKernel = void (*)(Args);
 
 template <int PROBE, bool RANKS>
-int launch_plquery(const Args& a, int rev64, cudaStream_t stream) {
-  return rev64 ? launch_plquery<PROBE, int64_t, RANKS>(a, stream)
-               : launch_plquery<PROBE, int32_t, RANKS>(a, stream);
+PlqueryKernel plquery_instance(int rev64, bool stats) {
+  if (rev64)
+    return stats ? plquery_kernel<PROBE, int64_t, RANKS, true>
+                 : plquery_kernel<PROBE, int64_t, RANKS>;
+  return stats ? plquery_kernel<PROBE, int32_t, RANKS, true>
+               : plquery_kernel<PROBE, int32_t, RANKS>;
+}
+
+// plquery's arguments of one index and configuration (all but a
+// request's: queries, output, B, length, stats), and rev's width
+struct PlqueryPlan {
+  Args a;
+  int rev64;
+};
+
+PlqueryPlan plquery_plan(const void* packed, long long packed_len,
+                         const void* rev, int rev64, const void* xlist,
+                         const void* ylist, const void* prefix3,
+                         const void* bounds, const void* bucket_recs,
+                         const void* rank_recs, long long n, int k,
+                         int buckets, long long most_over,
+                         long long most_under, long long max_over,
+                         long long max_under, long long max_stride_steps,
+                         int adaptive) {
+  PlqueryPlan p{};
+  p.rev64 = rev64;
+  Args& a = p.a;
+  a.packed = static_cast<const int64_t*>(packed);
+  a.packed_len = packed_len;
+  a.rev = rev;
+  a.xlist = static_cast<const int64_t*>(xlist);
+  a.ylist = static_cast<const int64_t*>(ylist);
+  a.prefix3 = static_cast<const int64_t*>(prefix3);
+  a.bounds = static_cast<const int32_t*>(bounds);
+  a.bucket_recs = static_cast<const longlong2*>(bucket_recs);
+  a.rank_recs = static_cast<const longlong2*>(rank_recs);
+  a.n = n;
+  a.most_over = most_over;
+  a.most_under = most_under;
+  a.max_over = max_over;
+  a.max_under = max_under;
+  a.max_stride_steps = max_stride_steps;
+  a.k = k;
+  a.buckets = buckets;
+  a.adaptive = adaptive;
+  return p;
+}
+
+// A request on plan `p`: plquery_kernel's instance picked from q3, the
+// rank records and the length (kFast3 with q3, else on rank records
+// kPrefix64 up to 32 bases and kPacked past, else kPacked on rev and the
+// genome; the stats instance with lane_stats), launched on `stream`
+int plquery_request(PlqueryPlan p, const void* q_words, const void* q3,
+                    const void* x, const void* pred64, void* out,
+                    void* lane_stats, void* depth, void* trace, long long B,
+                    int length, int trace_cap, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  Args& a = p.a;
+  a.q_words = static_cast<const int64_t*>(q_words);
+  a.q3 = static_cast<const int64_t*>(q3);
+  a.x = static_cast<const int64_t*>(x);
+  a.pred64 = static_cast<const int64_t*>(pred64);
+  a.out = static_cast<int64_t*>(out);
+  a.lane_stats = static_cast<int32_t*>(lane_stats);
+  a.depth = static_cast<int32_t*>(depth);
+  a.trace = static_cast<int64_t*>(trace);
+  a.B = B;
+  a.length = length;
+  a.trace_cap = trace_cap;
+  const bool stats = lane_stats != nullptr;
+  const PlqueryKernel kernel =
+      q3 ? plquery_instance<kFast3, false>(p.rev64, stats)
+      : !a.rank_recs ? plquery_instance<kPacked, false>(p.rev64, stats)
+      : length <= 32 ? plquery_instance<kPrefix64, true>(p.rev64, stats)
+                     : plquery_instance<kPacked, true>(p.rev64, stats);
+  kernel<<<blocks_for(B), kThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // binsearch_kernel<REV, GENOME_ROW> on no more blocks than fit on the card
@@ -1025,42 +1094,47 @@ extern "C" int plquery_launch(
     int buckets, long long most_over, long long most_under,
     long long max_over, long long max_under, long long max_stride_steps,
     int adaptive, int trace_cap, void* stream) {
-  if (B <= 0) return 0;
-  Args a{};
-  a.packed = static_cast<const int64_t*>(packed);
-  a.packed_len = packed_len;
-  a.rev = rev;
-  a.xlist = static_cast<const int64_t*>(xlist);
-  a.ylist = static_cast<const int64_t*>(ylist);
-  a.prefix3 = static_cast<const int64_t*>(prefix3);
-  a.bounds = static_cast<const int32_t*>(bounds);
-  a.bucket_recs = static_cast<const longlong2*>(bucket_recs);
-  a.rank_recs = static_cast<const longlong2*>(rank_recs);
-  a.q_words = static_cast<const int64_t*>(q_words);
-  a.q3 = static_cast<const int64_t*>(q3);
-  a.x = static_cast<const int64_t*>(x);
-  a.pred64 = static_cast<const int64_t*>(pred64);
-  a.out = static_cast<int64_t*>(out);
-  a.lane_stats = static_cast<int32_t*>(lane_stats);
-  a.depth = static_cast<int32_t*>(depth);
-  a.trace = static_cast<int64_t*>(trace);
-  a.B = B;
-  a.n = n;
-  a.most_over = most_over;
-  a.most_under = most_under;
-  a.max_over = max_over;
-  a.max_under = max_under;
-  a.max_stride_steps = max_stride_steps;
-  a.length = length;
-  a.k = k;
-  a.buckets = buckets;
-  a.adaptive = adaptive;
-  a.trace_cap = trace_cap;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (q3) return launch_plquery<kFast3, false>(a, rev64, st);
-  if (!rank_recs) return launch_plquery<kPacked, false>(a, rev64, st);
-  return length <= 32 ? launch_plquery<kPrefix64, true>(a, rev64, st)
-                      : launch_plquery<kPacked, true>(a, rev64, st);
+  return plquery_request(
+      plquery_plan(packed, packed_len, rev, rev64, xlist, ylist, prefix3,
+                   bounds, bucket_recs, rank_recs, n, k, buckets, most_over,
+                   most_under, max_over, max_under, max_stride_steps,
+                   adaptive),
+      q_words, q3, x, pred64, out, lane_stats, depth, trace, B, length,
+      trace_cap, static_cast<cudaStream_t>(stream));
+}
+
+// plquery_launch cut in two for a caller that queries one index many
+// times: plquery_plan_make fills `plan` (plquery_plan_size() bytes, no
+// alignment needed) with plquery_launch's arguments of the index and
+// configuration; plquery_plan_launch launches a request from it, without
+// pred64 or stats, with q3 where the kFast3 probe answers (the plan then
+// holds prefix3). Both return a cudaError_t (plquery_plan_make 0).
+extern "C" int plquery_plan_size() { return (int)sizeof(PlqueryPlan); }
+
+extern "C" int plquery_plan_make(
+    void* plan, const void* packed, long long packed_len, const void* rev,
+    int rev64, const void* xlist, const void* ylist, const void* prefix3,
+    const void* bounds, const void* bucket_recs, const void* rank_recs,
+    long long n, int k, int buckets, long long most_over,
+    long long most_under, long long max_over, long long max_under,
+    long long max_stride_steps, int adaptive) {
+  const PlqueryPlan p = plquery_plan(
+      packed, packed_len, rev, rev64, xlist, ylist, prefix3, bounds,
+      bucket_recs, rank_recs, n, k, buckets, most_over, most_under,
+      max_over, max_under, max_stride_steps, adaptive);
+  std::memcpy(plan, &p, sizeof p);
+  return 0;
+}
+
+extern "C" int plquery_plan_launch(const void* plan, const void* x,
+                                   const void* q_words, const void* q3,
+                                   void* out, long long B, int length,
+                                   void* stream) {
+  PlqueryPlan p;
+  std::memcpy(&p, plan, sizeof p);
+  return plquery_request(p, q_words, q3, x, nullptr, out, nullptr, nullptr,
+                         nullptr, B, length, 0,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int binsearch_launch(const void* packed, long long packed_len,

@@ -13,6 +13,7 @@ query reads there are made from the host arrays on first use
 
 from __future__ import annotations
 
+import operator
 import os
 import warnings
 from dataclasses import dataclass, field
@@ -24,10 +25,11 @@ from ..config import IndexConfig, QueryConfig
 from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
-from ..ops.query_cuda import (binsearch_cuda, bucket_records_cuda,
-                              copies_rank_records, fancy_binsearch_cuda,
-                              fancy_nodes_cuda, plquery_cuda,
-                              plquery_records_cuda, reads_rank_records)
+from ..ops.query_cuda import (PlqueryPlan, binsearch_cuda,
+                              bucket_records_cuda, copies_rank_records,
+                              fancy_binsearch_cuda, fancy_nodes_cuda,
+                              plquery_cuda, plquery_records_cuda,
+                              reads_rank_records)
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -35,6 +37,8 @@ from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 _ARRAY_FIELDS = ("n", "k", "buckets", "packed", "rev", "inv", "table",
                  "chr_ends", "codes", "prefix64", "prefix3", "lcpk_fwd",
                  "lcpk_bwd", "rev_hi", "inv_hi")
+# query_device's configuration when the caller gives none (only read)
+_QUERY_DEFAULTS = QueryConfig()
 
 
 def _pos_dtype(n: int, cfg: str = "auto"):
@@ -78,8 +82,8 @@ class SaplingIndex:
     # the pruned search's node records of the last llcp/rlcp pair
     # (fancy_nodes)
     _fancy: tuple = field(default=(), repr=False)
-    # plquery's record tables on the card and the device arrays they were
-    # made of (query_records)
+    # plquery's record tables on the card, the device arrays they were
+    # made of and the launch plans made of both (query_records)
     _records: dict = field(default_factory=dict, repr=False)
 
     # --- construction -------------------------------------------------------
@@ -320,8 +324,9 @@ class SaplingIndex:
         the device arrays with one launch each (ops.query_cuda.
         bucket_records_cuda, plquery_records_cuda) on the first call and
         kept while those arrays stay (swap_table makes the bucket records
-        anew). (None, None) on the CPU, where the plain cascade reads the
-        arrays."""
+        anew). Making either anew drops query_device's launch plans, so
+        that a plan is never launched on arrays it was not made of. (None,
+        None) on the CPU, where the plain cascade reads the arrays."""
         if self.device.type == "cpu":
             return None, None
         dev = self.device_arrays()
@@ -330,20 +335,19 @@ class SaplingIndex:
         if self._stale_records("rank_of", made_of):
             r.update(rank=plquery_records_cuda(*made_of, n=self.n)
                      if reads_rank_records(dev["rev"], dev["packed"])
-                     else None, rank_of=made_of)
+                     else None, rank_of=made_of, plans={})
         made_of = (dev["xlist"], dev["ylist"], dev["bounds"])
         if self._stale_records("bucket_of", made_of):
             r.update(bucket=bucket_records_cuda(*made_of,
                                                 buckets=self.buckets),
-                     bucket_of=made_of)
+                     bucket_of=made_of, plans={})
         return r["bucket"], r["rank"]
 
     def _stale_records(self, name: str, made_of) -> bool:
         """Whether the record table made of `made_of` (query_records' entry
         `name`) is missing or was made of other arrays."""
-        r = self._records
-        return not (name in r and all(a is b for a, b in zip(r[name],
-                                                             made_of)))
+        made = self._records.get(name)
+        return made is None or any(map(operator.is_not, made, made_of))
 
     def swap_table(self, table: PwlTable) -> None:
         """Replace the PWL table in place (e.g. a
@@ -408,20 +412,42 @@ class SaplingIndex:
         call's rounds to ops.query.ROUNDS). Of `qcfg`, the query reads
         max_stride_steps and adaptive_bounds; the compaction flags change
         only the batch a lane runs in on the TPU, never a result, and are
-        ignored here."""
-        qcfg = qcfg or QueryConfig()
+        ignored here.
+
+        On the card without stats every call launches from the index's
+        launch plan for qcfg's max_stride_steps and adaptive_bounds
+        (ops.query_cuda.PlqueryPlan: the index's arrays checked once, made
+        on the configuration's first call, dropped with the record tables),
+        which checks only the request's tensors."""
+        qcfg = qcfg or _QUERY_DEFAULTS
         dev = self.device_arrays()
-        t = self.table
         bucket_recs, rank_recs = self.query_records()
-        return plquery_cuda(
-            dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], q_words,
-            x, dev["prefix64"], dev["prefix3"], q3, dev["bounds"],
-            n=self.n, length=length, k=self.k, buckets=self.buckets,
-            most_over=t.most_over, most_under=t.most_under,
-            max_over=t.max_over, max_under=t.max_under,
-            max_stride_steps=qcfg.max_stride_steps,
-            adaptive_bounds=qcfg.adaptive_bounds, bucket_recs=bucket_recs,
-            rank_recs=rank_recs, stats=stats)
+        if stats or bucket_recs is None:
+            return plquery_cuda(
+                dev["packed"], dev["rev"], dev["xlist"], dev["ylist"],
+                q_words, x, dev["prefix64"], dev["prefix3"], q3,
+                dev["bounds"], length=length, stats=stats,
+                **self._query_kw(qcfg, bucket_recs, rank_recs))
+        plans = self._records["plans"]
+        key = (qcfg.max_stride_steps, qcfg.adaptive_bounds)
+        plan = plans.get(key)
+        if plan is None:
+            plan = plans[key] = PlqueryPlan(
+                dev["packed"], dev["rev"], dev["xlist"], dev["ylist"],
+                dev["prefix3"], dev["bounds"],
+                **self._query_kw(qcfg, bucket_recs, rank_recs))
+        return plan(x, q_words, q3, length)
+
+    def _query_kw(self, qcfg: QueryConfig, bucket_recs, rank_recs) -> dict:
+        """plquery_cuda's (and PlqueryPlan's) keywords of this index, its
+        table and `qcfg`, but the length and stats."""
+        t = self.table
+        return dict(n=self.n, k=self.k, buckets=self.buckets,
+                    most_over=t.most_over, most_under=t.most_under,
+                    max_over=t.max_over, max_under=t.max_under,
+                    max_stride_steps=qcfg.max_stride_steps,
+                    adaptive_bounds=qcfg.adaptive_bounds,
+                    bucket_recs=bucket_recs, rank_recs=rank_recs)
 
     def query_positions(self, codes2d: np.ndarray,
                         qcfg: QueryConfig | None = None) -> np.ndarray:

@@ -28,6 +28,12 @@ parallel.sharded_index keeps the plain versions):
   * tensors on the CPU take the plain version (there is no CUDA there);
   * tensors on the card launch a kernel, or raise: there is no fallback.
 
+`PlqueryPlan` is plquery_cuda's call cut in two for a caller that queries
+one index many times (SaplingIndex.query_device): the index's arrays
+checked and laid out for the kernel once, then a request that checks only
+its own tensors and launches with a few arguments; `PLANS` counts the
+plans made and the requests launched from one.
+
 `stats=True` also has the kernel write five counts a lane (`LAST_STATS`,
 each int32 [B]; a kernel without the phase writes 0):
 
@@ -73,6 +79,8 @@ LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0, "fancy_nodes": 0,
 # the kernel's lane_stats rows in order), the deepest phase C / phase D
 # step counts, and with trace=K the int64 [B, K] sector numbers
 LAST_STATS: dict = {}
+# launch plans made (PlqueryPlan) and requests launched from one
+PLANS = {"made": 0, "served": 0}
 STAT_ROWS = ("probes", "sectors", "c_steps", "d_steps", "genome_sectors")
 _LOCK = threading.Lock()
 _LIB = None
@@ -87,6 +95,10 @@ SIGNATURES = {
     + [_LL, _LL, _I, _I, _I, _P],
     "records_launch": [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _P],
     "bucket_records_launch": [_P, _P, _P, _P, _I, _P],
+    "plquery_plan_make": [_P, _P, _LL, _P, _I] + [_P] * 6
+    + [_LL, _I, _I] + [_LL] * 5 + [_I],
+    "plquery_plan_launch": [_P] * 5 + [_LL, _I, _P],
+    "plquery_plan_size": [],
 }
 
 
@@ -154,9 +166,9 @@ def _check(name, t, dtypes, shape, device, at_least=False):
     than the ranks or buckets the query may read)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the query on {device}")
-    fits = t.dim() == len(shape) and all(
-        got >= want if at_least else got == want
-        for got, want in zip(t.shape, shape))
+    fits = (t.dim() == len(shape) and all(
+        got >= want for got, want in zip(t.shape, shape))) if at_least else (
+        t.shape == shape)
     if t.dtype not in dtypes or not t.is_contiguous() or not fits:
         raise ValueError(f"{name} must be a contiguous {dtypes[0]} tensor "
                          f"of shape {shape}, got {t.dtype} "
@@ -198,12 +210,56 @@ def _aligned(name, t, to: int) -> None:
         raise ValueError(f"{name} must start on a {to}-byte boundary")
 
 
-def _launched(name: str, rc: int) -> None:
-    """Raise unless a launch returned cudaSuccess; count it."""
+def _check_request(x, q_words, q3, dev, *, length: int, k: int,
+                   fast3: bool) -> int:
+    """plquery_cuda's checks of a request's own tensors (x; q3 on the
+    fast3 probe, else q_words for `length`); returns B."""
+    if length < 1:
+        raise ValueError(f"query length {length} < 1")
+    if not fast3 and q_words is None:
+        raise ValueError(f"length {length} at k={k} takes the general "
+                         "path, which needs q_words")
+    b = x.shape[0]
+    _check("x", x, _I64, (b,), dev)
+    if fast3:
+        _check("q3", q3, _I64, (b,), dev)
+    else:
+        _check("q_words", q_words, _I64, (-(-length // BASES_PER_WORD), b),
+               dev)
+    return b
+
+
+def _check_index(dev, xlist, ylist, rev, packed, prefix3, bounds,
+                 bucket_recs, rank_recs, *, n: int, buckets: int) -> None:
+    """plquery_cuda's checks of an index's arrays, each of packed,
+    prefix3, bounds and the record tables where it is given (not None)."""
+    nb = 1 << buckets
+    _check("xlist", xlist, _I64, (nb + 1,), dev, at_least=True)
+    _check("ylist", ylist, _I64, (nb + 1,), dev, at_least=True)
+    _check("rev", rev, _REV, (n,), dev, at_least=True)
+    if prefix3 is not None:
+        _check("prefix3", prefix3, _I64, (n,), dev, at_least=True)
+    if packed is not None:
+        # the kernel clamps word indexes to the array, as probe_at does
+        _check("packed", packed, _I64, (1,), dev, at_least=True)
+    if rank_recs is not None:
+        _check("rank_recs", rank_recs, _I64, (n, 2), dev)
+        _aligned("rank_recs", rank_recs, 16)
+    if bounds is not None:
+        _check("bounds", bounds, (torch.int32,), (nb,), dev, at_least=True)
+    if bucket_recs is not None:
+        _check("bucket_recs", bucket_recs, _I64, (nb, 4), dev)
+        _aligned("bucket_recs", bucket_recs, 32)
+
+
+def _launched(name: str, rc: int, planned: bool = False) -> None:
+    """Raise unless a launch returned cudaSuccess; count it (and, where
+    it was launched from a plan, count it served)."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     with _LOCK:
         LAUNCHES[name] += 1
+        PLANS["served"] += planned
 
 
 def bucket_records_cuda(xlist, ylist, bounds=None, *, buckets: int):
@@ -337,43 +393,24 @@ def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
         raise ValueError(f"plquery_cuda: unsupported device {dev}")
     if adaptive_bounds and bounds is None:
         raise ValueError("adaptive_bounds=True needs the bounds array")
-    if length < 1:
-        raise ValueError(f"query length {length} < 1")
     fast3 = probe_form(length, k, prefix, prefix3, q3) == "fast3"
-    if not fast3 and q_words is None:
-        raise ValueError(f"length {length} at k={k} takes the general "
-                         "path, which needs q_words")
-    b = x.shape[0]
-    nb = 1 << buckets
-    _check("x", x, _I64, (b,), dev)
-    _check("xlist", xlist, _I64, (nb + 1,), dev, at_least=True)
-    _check("ylist", ylist, _I64, (nb + 1,), dev, at_least=True)
-    _check("rev", rev, _REV, (n,), dev, at_least=True)
+    b = _check_request(x, q_words, q3, dev, length=length, k=k, fast3=fast3)
     if fast3:
-        _check("prefix3", prefix3, _I64, (n,), dev, at_least=True)
-        _check("q3", q3, _I64, (b,), dev)
         rank_recs = None
     else:
         q3 = None
-        # the kernel clamps word indexes to the array, as probe_at does
-        _check("packed", packed, _I64, (1,), dev, at_least=True)
-        _check("q_words", q_words, _I64, (-(-length // BASES_PER_WORD), b),
-               dev)
-        if rank_recs is None and reads_rank_records(rev, packed):
-            rank_recs = plquery_records_cuda(packed, rev, n=n)
-        if rank_recs is not None:
-            _check("rank_recs", rank_recs, _I64, (n, 2), dev)
-            _aligned("rank_recs", rank_recs, 16)
-    if adaptive_bounds:
-        _check("bounds", bounds, (torch.int32,), (nb,), dev, at_least=True)
     if pred64 is not None:
         _check("pred64", pred64, _I64, (b,), dev)
-    else:
-        if bucket_recs is None:
-            bucket_recs = bucket_records_cuda(xlist, ylist, bounds,
-                                              buckets=buckets)
-        _check("bucket_recs", bucket_recs, _I64, (nb, 4), dev)
-        _aligned("bucket_recs", bucket_recs, 32)
+    elif bucket_recs is None:
+        bucket_recs = bucket_records_cuda(xlist, ylist, bounds,
+                                          buckets=buckets)
+    _check_index(dev, xlist, ylist, rev, None if fast3 else packed,
+                 prefix3 if fast3 else None,
+                 bounds if adaptive_bounds else None,
+                 None if pred64 is not None else bucket_recs, rank_recs,
+                 n=n, buckets=buckets)
+    if not fast3 and rank_recs is None and reads_rank_records(rev, packed):
+        rank_recs = plquery_records_cuda(packed, rev, n=n)
     out = torch.empty(b, dtype=torch.int64, device=dev)
     lane, depth, tr = stats_buffers(b, dev, stats, trace)
     if b:
@@ -415,6 +452,83 @@ def launch_plquery(lib, stream, packed, rev, xlist, ylist, q_words, x,
         length, k, buckets, most_over, most_under, max_over, max_under,
         max_stride_steps, int(adaptive_bounds),
         0 if trace is None else trace.shape[1], stream)
+
+
+class PlqueryPlan:
+    """plquery_cuda's calls on one index's arrays and configuration cut in
+    two, for a caller that queries the index many times: the plan is made
+    once, with every check plquery_cuda makes of those arrays
+    (_check_index; bucket_recs always, rank_recs and prefix3 where given),
+    and laid out for the kernel by the library's plquery_plan_make. A
+    request (`__call__`) then makes plquery_cuda's checks of its own
+    tensors (_check_request), allocates its output and launches with
+    eight arguments (plquery_plan_launch), which picks the kernel's probe
+    as plquery_launch does: plquery_cuda's results. Without stats, trace
+    or pred64: those calls take plquery_cuda. The plan keeps the arrays it
+    was made of alive and reads them as they are: a caller whose arrays
+    change makes a new plan (SaplingIndex.query_records). `lib`: the query
+    library (default: this module's, built on first use)."""
+
+    def __init__(self, packed, rev, xlist, ylist, prefix3, bounds, *,
+                 n: int, k: int, buckets: int, most_over: int,
+                 most_under: int, max_over: int, max_under: int,
+                 max_stride_steps: int = 1 << 20,
+                 adaptive_bounds: bool = False, bucket_recs, rank_recs,
+                 lib=None):
+        dev = rev.device
+        if adaptive_bounds and bounds is None:
+            raise ValueError("adaptive_bounds=True needs the bounds array")
+        bounds = bounds if adaptive_bounds else None
+        _check_index(dev, xlist, ylist, rev, packed, prefix3, bounds,
+                     bucket_recs, rank_recs, n=n, buckets=buckets)
+        lib = lib or _lib()
+        self._plan = ctypes.create_string_buffer(lib.plquery_plan_size())
+        lib.plquery_plan_make(
+            self._plan, packed.data_ptr(), packed.shape[0], rev.data_ptr(),
+            int(rev.dtype == torch.int64), xlist.data_ptr(),
+            ylist.data_ptr(), _ptr(prefix3), _ptr(bounds),
+            bucket_recs.data_ptr(), _ptr(rank_recs), n, k, buckets,
+            most_over, most_under, max_over, max_under, max_stride_steps,
+            int(adaptive_bounds))
+        self._launch = lib.plquery_plan_launch
+        # what the kernel reads through the plan
+        self._arrays = (packed, rev, xlist, ylist, prefix3, bounds,
+                        bucket_recs, rank_recs)
+        self.device, self.k, self.prefix3 = dev, k, prefix3
+        with _LOCK:
+            PLANS["made"] += 1
+
+    def launch(self, stream, x, q_words, q3, out, length: int) -> int:
+        """plquery_plan_launch of the plan on checked tensors (q3 only
+        where the fast3 probe answers), on `stream`; returns its
+        cudaError_t."""
+        return self._launch(self._plan, x.data_ptr(), _ptr(q_words),
+                            _ptr(q3), out.data_ptr(), x.shape[0], length,
+                            stream)
+
+    def __call__(self, x, q_words, q3, length: int):
+        """A request: plquery_cuda on the plan's arrays for x (int64 [B]),
+        q_words (int64 [ceil(L/16), B]) and q3 (int64 [B], read where the
+        fast3 probe answers: probe_form) on the plan's device, each
+        checked as plquery_cuda checks it. Returns int64 [B] positions, -1
+        = not found, in a new tensor."""
+        dev = self.device
+        fast3 = probe_form(length, self.k, None, self.prefix3, q3) == "fast3"
+        b = _check_request(x, q_words, q3, dev, length=length, k=self.k,
+                           fast3=fast3)
+        out = x.new_empty(b)
+        if b:
+            q3 = q3 if fast3 else None
+            # torch.cuda.current_stream(dev).cuda_stream without the Stream
+            # object it makes (3.9 us a call on the H100's host, PERF.md §6)
+            stream = torch._C._cuda_getCurrentRawStream(dev.index)
+            if torch.cuda.current_device() == dev.index:
+                rc = self.launch(stream, x, q_words, q3, out, length)
+            else:
+                with torch.cuda.device(dev):
+                    rc = self.launch(stream, x, q_words, q3, out, length)
+            _launched("plquery", rc, planned=True)
+        return out
 
 
 def launch_binsearch(lib, stream, packed, rev, q_words, out, lane, depth,

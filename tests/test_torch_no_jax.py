@@ -1,5 +1,5 @@
-"""The port stands without JAX; chip_smoke.py and chip_measure.py refuse to
-run without a GPU.
+"""The port stands without JAX; chip_smoke.py, chip_measure.py and
+chip_host_call.py refuse to run without a GPU.
 
 Each check runs a fresh interpreter, so nothing this test process has
 imported (it imports jax through the other test files) can leak in.
@@ -35,7 +35,7 @@ assert {f"sapling_tpu_torch.tools.{t}" for t in tools} | {
     "sapling_tpu_torch.parallel.mesh", "sapling_tpu_torch.parallel.query",
     "sapling_tpu_torch.parallel.sharded_index",
     "sapling_tpu_torch.parallel.multihost"} <= set(names), names
-import chip_smoke, chip_measure
+import chip_smoke, chip_measure, chip_host_call
 leaked = sorted(m for m in sys.modules
                 if m in ("jax", "optax")
                 or m.startswith(("jax.", "optax.", "sapling_tpu.")))
@@ -92,6 +92,14 @@ def test_chip_measure_fails_without_a_gpu(tmp_path):
                {"CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0 and not out.exists()
     assert "torch.cuda.is_available() is false" in res.stderr
+
+
+def test_chip_host_call_fails_without_a_gpu(tmp_path):
+    out = tmp_path / "host_call.json"
+    res = _run(["chip_host_call.py", str(out)], ROOT,
+               {"CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0 and not out.exists()
+    assert "no CUDA device" in res.stderr
 
 
 def test_chip_smoke_fails_alone(tmp_path):

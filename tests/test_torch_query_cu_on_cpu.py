@@ -1350,3 +1350,149 @@ def test_read_stats_names_the_rows():
     assert (query.ROUNDS["C"], query.ROUNDS["D"]) == (5, 9)
     assert query_cuda.stats_buffers(3, "cpu", True)[0].shape == (5, 3)
     st.clear()
+
+
+# --- launch plans (query_cuda.PlqueryPlan) ------------------------------
+
+# (the plan's index, length): rev and the genome without rank records,
+# rank records (the key form up to 32 bases, the records form past), fast3
+PLAN_CASES = ([("packed", length) for length in (21, 31, 45, 101)]
+              + [("ranks", length) for length in (21, 31, 45, 101)]
+              + [("fast3", 21)])
+
+
+def _plan(lib, idx, codes, index, adaptive):
+    """A plan of idx's arrays (on the mocked record tables, rank records
+    for `index` "ranks") and configuration, with its request's tensors for
+    the codes and plquery_batch's arguments: (plan, args, kw, x, q_words,
+    q3), q3 only on fast3."""
+    length = codes.shape[1]
+    args = _args(idx, codes, with_bounds=True)
+    packed, rev, xlist, ylist, q_words, x, _, prefix3, q3, bounds = args
+    kw = _kw(idx, length, QueryConfig(adaptive_bounds=adaptive))
+    bucket, rank = _mock_records(lib, xlist, ylist, bounds, packed, rev,
+                                 buckets=idx.buckets, n=idx.n,
+                                 ranks=index == "ranks")
+    plan_kw = {k: v for k, v in kw.items() if k != "length"}
+    plan = query_cuda.PlqueryPlan(packed, rev, xlist, ylist, prefix3,
+                                  bounds, bucket_recs=bucket, rank_recs=rank,
+                                  lib=lib, **plan_kw)
+    return (plan, args, kw, x, q_words, q3 if index == "fast3" else None)
+
+
+@pytest.mark.parametrize("adaptive", [False, True],
+                         ids=["table", "adaptive"])
+@pytest.mark.parametrize("index,length", PLAN_CASES)
+def test_plan_matches_launch_plquery(lib, k21, index, length, adaptive):
+    """A request launched from a plan (plquery_plan_launch) gives the
+    positions of launch_plquery and of the plain plquery_batch on the same
+    tensors, bit for bit, in each kernel form: rev and the genome, the
+    rank records' key up to 32 bases and records past 32, and fast3; the
+    plan is made once, and one plan answers every length."""
+    codes = _mixed_codes(k21.codes, 1500, length, seed=300 + length)
+    made = query_cuda.PLANS["made"]
+    plan, args, kw, x, q_words, q3 = _plan(lib, k21, codes, index, adaptive)
+    assert query_cuda.PLANS["made"] == made + 1
+    want = query.plquery_batch(*args, **kw)
+    form = {"packed": "arrays", "ranks": "records"}.get(index, index)
+    launched = _kernel_plquery(lib, args, kw, form, stats=False)[0]
+    out = torch.full((x.shape[0],), -777, dtype=torch.int64)
+    assert plan.launch(None, x, q_words, q3, out, length) == 0
+    np.testing.assert_array_equal(out.numpy(), launched.numpy())
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    assert (out >= 0).any() and (out == -1).any()
+    # another length on the same plan (the other probe on rank records)
+    other = 17 if index == "fast3" else 45 if length <= 32 else 21
+    codes = _mixed_codes(k21.codes, 300, other, seed=400 + length)
+    args = _args(k21, codes, with_bounds=True)
+    kw = dict(kw, length=other)
+    x, q_words = args[5], args[4]
+    out = torch.empty(x.shape[0], dtype=torch.int64)
+    assert plan.launch(None, x, q_words, args[8] if q3 is not None else None,
+                       out, other) == 0
+    assert out.equal(query.plquery_batch(*args, **kw))
+    assert query_cuda.PLANS["made"] == made + 1
+
+
+def _bad_requests(x, q_words, length):
+    """Requests plquery_cuda refuses, each with the start of its message:
+    (name, (x, q_words, length), message)."""
+    return [
+        ("device", (x.to("meta"), q_words, length), "x is on meta"),
+        ("dtype", (x.int(), q_words, length), "x must be a contiguous"),
+        ("strided", (x.repeat(2)[::2], q_words, length),
+         "x must be a contiguous"),
+        ("shape", (x[:-1], q_words, length), "q_words must be a contiguous"),
+        ("words dtype", (x, q_words.int(), length),
+         "q_words must be a contiguous"),
+        ("words strided", (x, q_words.t().contiguous().t(), length),
+         "q_words must be a contiguous"),
+        ("words device", (x, q_words.to("meta"), length),
+         "q_words is on meta"),
+        ("length", (x, q_words, 0), "query length 0 < 1"),
+        ("another length", (x, q_words, length + 16),
+         "q_words must be a contiguous"),
+        ("no q_words", (x, None, length), f"length {length} at k=21 takes"),
+    ]
+
+
+@pytest.mark.parametrize("case", range(10))
+def test_plan_refuses_what_plquery_cuda_refuses(lib, k21, case):
+    """A plan's request refuses, with plquery_cuda's ValueError and
+    message, a request tensor of another device, dtype, shape or stride, a
+    length < 1 and missing q_words, and launches nothing; on fast3 a q3
+    of another dtype."""
+    codes = _mixed_codes(k21.codes, 300, 33, seed=5)
+    plan, _, _, x, q_words, _ = _plan(lib, k21, codes, "ranks", False)
+    name, request, message = _bad_requests(x, q_words, 33)[case]
+    before = (dict(query_cuda.LAUNCHES), dict(query_cuda.PLANS))
+    with pytest.raises(ValueError, match=message):
+        plan(*request[:2], None, request[2])
+    codes = _mixed_codes(k21.codes, 300, 21, seed=6)
+    fast3, _, _, x, _, q3 = _plan(lib, k21, codes, "fast3", False)
+    with pytest.raises(ValueError, match="q3 must be a contiguous"):
+        fast3(x, None, q3.int(), 21)
+    assert (dict(query_cuda.LAUNCHES), dict(query_cuda.PLANS)) == (
+        before[0], dict(before[1], made=before[1]["made"] + 1)), name
+
+
+def test_plan_checks_the_index_arrays_once(lib, k21):
+    """Making a plan makes plquery_cuda's checks of the index's arrays:
+    record tables of the wrong shape or off their 16- and 32-byte
+    boundaries, short or strided index arrays, adaptive bounds without the
+    bounds array; a plan of another table answers that table's queries (a
+    plan reads the arrays it was made of)."""
+    codes = _mixed_codes(k21.codes, 300, 45, seed=8)
+    plan, args, kw, x, q_words, _ = _plan(lib, k21, codes, "ranks", False)
+    packed, rev, xlist, ylist, _, _, _, prefix3, _, bounds = args
+    bucket, rank = plan._arrays[6:]
+    plan_kw = {k: v for k, v in kw.items() if k != "length"}
+    off16 = torch.empty(bucket.numel() + 2, dtype=torch.int64)[2:].view(-1, 4)
+    off8 = torch.empty(rank.numel() + 1, dtype=torch.int64)[1:].view(-1, 2)
+    arrays = dict(packed=packed, rev=rev, xlist=xlist, ylist=ylist,
+                  prefix3=prefix3, bounds=bounds)
+    for over, message in (
+            (dict(bucket_recs=bucket[:-1]), "bucket_recs must"),
+            (dict(bucket_recs=off16), "32-byte boundary"),
+            (dict(rank_recs=rank[:-1]), "rank_recs must"),
+            (dict(rank_recs=off8), "16-byte boundary"),
+            (dict(xlist=xlist[:-2]), "xlist must"),
+            (dict(rev=rev.repeat(2)[::2]), "rev must"),
+            (dict(packed=packed.int()), "packed must"),
+            (dict(bounds=None, adaptive_bounds=True),
+             "needs the bounds array")):
+        made = dict(arrays, bucket_recs=bucket, rank_recs=rank, **plan_kw)
+        made.update(over)
+        with pytest.raises(ValueError, match=message):
+            query_cuda.PlqueryPlan(lib=lib, **made)
+    other = _index(packops.decode_bases(k21.codes), 21, 8)
+    plan2, args2, kw2, x2, q_words2, _ = _plan(lib, other, codes, "ranks",
+                                               False)
+    want = query.plquery_batch(*args2, **kw2)
+    assert not want.equal(query.plquery_batch(*args, **kw))
+    for p, xx, qw, w in ((plan2, x2, q_words2, want),
+                         (plan, x, q_words, query.plquery_batch(*args,
+                                                                **kw))):
+        out = torch.empty(xx.shape[0], dtype=torch.int64)
+        assert p.launch(None, xx, qw, None, out, 45) == 0
+        assert out.equal(w)

@@ -548,3 +548,125 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev, seq, tables):
                 dict(bucket_recs=bucket, rank_recs=off8)):
         with pytest.raises(ValueError):                  # records' alignment
             query_cuda.plquery_cuda(*args, **bad, **kw)
+
+
+@pytest.fixture(scope="module")
+def ecoli_index():
+    """A 4.6 Mbp index (the benchmark's E. coli size, no prefix arrays) on
+    the card: rev and the genome fit the L2, so no rank records."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    seq = benchmark_genome(4_600_000, seed=22)
+    idx = SaplingIndex.build(seq, IndexConfig(k=21, prefix_lookup=False),
+                             keep_aligner_arrays=False, device="cpu")
+    return seq, idx.to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [False, True], ids=["4.6M", "ranks"])
+def test_query_device_launches_from_plans(dev, seq, ecoli_index, ranks,
+                                          monkeypatch):
+    """query_device at the benchmark's five lengths, three rounds: the
+    first call makes the index's plan and every call launches from it
+    (PLANS: made = 1, served = the calls), one plquery launch a call, and
+    every call's positions equal the same request's with stats=True
+    (plquery_cuda's fully checked path): on the 4.6 Mbp index (rev and the
+    genome) and on one that holds rank records (the key probe up to 32
+    bases, the records past, from the same plan)."""
+    if ranks:
+        from sapling_tpu_torch.index import sapling
+        monkeypatch.setattr(sapling, "reads_rank_records", lambda r, p: True)
+        idx = _index(seq, dev, prefix=False)
+    else:
+        seq, idx = ecoli_index
+    assert (idx.query_records()[1] is not None) == ranks
+    lengths = (21, 31, 41, 51, 101)
+    inputs = {length: idx.query_inputs(_queries(seq, 200_000, length,
+                                                seed=length))
+              for length in lengths}
+    plans, launches = dict(query_cuda.PLANS), query_cuda.LAUNCHES["plquery"]
+    calls = 0
+    for _ in range(3):
+        for length in lengths:
+            got = idx.query_device(*inputs[length], length)
+            calls += 1
+            assert query_cuda.LAUNCHES["plquery"] == launches + calls
+            want = idx.query_device(*inputs[length], length, stats=True)
+            launches += 1
+            assert torch.equal(got, want), length
+    assert query_cuda.PLANS == dict(made=plans["made"] + 1,
+                                    served=plans["served"] + calls)
+    assert list(idx._records["plans"]) == [(QueryConfig().max_stride_steps,
+                                            False)]
+
+
+@pytest.mark.cuda
+def test_plans_follow_the_index_arrays(dev, seq):
+    """After swap_table, and after new device arrays, the next call makes
+    a new plan (PLANS["made"] + 1), launches from it and gives the new
+    table's answers; the call after it launches from the same plan.
+    Another configuration (adaptive_bounds) has its own plan."""
+    idx = _index(seq, dev)
+    other = SaplingIndex.build(seq, IndexConfig(k=21, buckets=12),
+                               keep_aligner_arrays=False, device="cpu")
+    codes = _queries(seq, 20_000, 33, seed=14)
+    inputs = idx.query_inputs(codes)
+
+    def call(qcfg=None):
+        before = dict(query_cuda.PLANS)
+        got = idx.query_device(*inputs, 33, qcfg)
+        return got, {k: v - before[k] for k, v in query_cuda.PLANS.items()}
+
+    first, moved = call()
+    assert moved == dict(made=1, served=1)
+    got, moved = call()
+    assert moved == dict(made=0, served=1) and torch.equal(got, first)
+    adaptive = QueryConfig(adaptive_bounds=True)
+    assert call(adaptive)[1] == dict(made=1, served=1)
+    assert call(adaptive)[1] == dict(made=0, served=1)
+    idx.swap_table(other.table)
+    want = torch.from_numpy(other.query_positions(codes)).to(dev)
+    for delta in (dict(made=1, served=1), dict(made=0, served=1)):
+        got, moved = call()
+        assert moved == delta and torch.equal(got, want)
+    idx._device = {}
+    inputs = idx.query_inputs(codes)
+    for delta in (dict(made=1, served=1), dict(made=0, served=1)):
+        got, moved = call()
+        assert moved == delta and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_query_device_with_a_plan_refuses_what_plquery_cuda_refuses(dev,
+                                                                    seq):
+    """Once the index has its plan, a request tensor of another device,
+    dtype, shape or stride, a length < 1 and missing q_words still raise
+    plquery_cuda's ValueError, with its message, and launch nothing; the
+    plan serves the next good request."""
+    idx = _index(seq, dev, prefix=False)
+    codes = _queries(seq, 1000, 33, seed=15)
+    x, q3, qw = idx.query_inputs(codes)
+    for _ in range(2):
+        idx.query_device(x, q3, qw, 33)
+    d = idx.device_arrays()
+    bucket_recs, rank_recs = idx.query_records()
+    t = idx.table
+    bad = [(x.int(), qw, 33), (x.repeat(2)[::2], qw, 33), (x[:-1], qw, 33),
+           (x, qw.int(), 33), (x, qw.t().contiguous().t(), 33),
+           (x, qw.cpu(), 33), (x, qw, 0), (x, qw, 49), (x, None, 33)]
+    before = (dict(query_cuda.LAUNCHES), dict(query_cuda.PLANS))
+    for xx, ww, length in bad:
+        with pytest.raises(ValueError) as planned:
+            idx.query_device(xx, None, ww, length)
+        with pytest.raises(ValueError) as checked:
+            query_cuda.plquery_cuda(
+                d["packed"], d["rev"], d["xlist"], d["ylist"], ww, xx,
+                n=idx.n, length=length, k=idx.k, buckets=idx.buckets,
+                most_over=t.most_over, most_under=t.most_under,
+                max_over=t.max_over, max_under=t.max_under,
+                bucket_recs=bucket_recs, rank_recs=rank_recs)
+        assert str(planned.value) == str(checked.value), (length,
+                                                          str(checked.value))
+    assert (dict(query_cuda.LAUNCHES), dict(query_cuda.PLANS)) == before
+    idx.query_device(x, q3, qw, 33)
+    assert query_cuda.PLANS["served"] == before[1]["served"] + 1
