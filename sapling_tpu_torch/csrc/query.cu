@@ -1107,8 +1107,10 @@ extern "C" int plquery_launch(
 // times: plquery_plan_make fills `plan` (plquery_plan_size() bytes, no
 // alignment needed) with plquery_launch's arguments of the index and
 // configuration; plquery_plan_launch launches a request from it, without
-// pred64 or stats, with q3 where the kFast3 probe answers (the plan then
-// holds prefix3). Both return a cudaError_t (plquery_plan_make 0).
+// stats, with q3 where the kFast3 probe answers (the plan then holds
+// prefix3), and with the caller's pred64 where the plan holds no bucket
+// records (null otherwise). Both return a cudaError_t (plquery_plan_make
+// 0).
 extern "C" int plquery_plan_size() { return (int)sizeof(PlqueryPlan); }
 
 extern "C" int plquery_plan_make(
@@ -1128,11 +1130,11 @@ extern "C" int plquery_plan_make(
 
 extern "C" int plquery_plan_launch(const void* plan, const void* x,
                                    const void* q_words, const void* q3,
-                                   void* out, long long B, int length,
-                                   void* stream) {
+                                   const void* pred64, void* out,
+                                   long long B, int length, void* stream) {
   PlqueryPlan p;
   std::memcpy(&p, plan, sizeof p);
-  return plquery_request(p, q_words, q3, x, nullptr, out, nullptr, nullptr,
+  return plquery_request(p, q_words, q3, x, pred64, out, nullptr, nullptr,
                          nullptr, B, length, 0,
                          static_cast<cudaStream_t>(stream));
 }

@@ -324,8 +324,9 @@ class SaplingIndex:
         the device arrays with one launch each (ops.query_cuda.
         bucket_records_cuda, plquery_records_cuda) on the first call and
         kept while those arrays stay (swap_table makes the bucket records
-        anew). Making either anew drops query_device's launch plans, so
-        that a plan is never launched on arrays it was not made of. (None,
+        anew). Making either anew drops the launch plans kept beside them
+        (query_device's, the NN engine's), so that a plan is never
+        launched on arrays it was not made of. (None,
         None) on the CPU, where the plain cascade reads the arrays."""
         if self.device.type == "cpu":
             return None, None

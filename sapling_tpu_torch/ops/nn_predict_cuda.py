@@ -12,7 +12,11 @@ the plain function's arguments:
   * tensors on the CPU take the plain version (there is no CUDA there);
   * tensors on the card launch the kernel, or raise: there is no fallback.
 
-The library is built with nvcc at first use (ops.sw_cuda.build_kernel,
+`NNPredictPlan` is that call cut in two for a caller that predicts with one
+model many times (NNServing.predict_ranks on the card): the model's arrays
+checked once, then a request that checks only its x, allocates its output
+and launches; `PLANS` counts the plans made and the requests launched from
+one. The library is built with nvcc at first use (ops.sw_cuda.build_kernel,
 into the gitignored `_build/`); `LAUNCHES` counts kernel launches.
 """
 
@@ -33,6 +37,8 @@ F64 = torch.float64
 
 # kernel launches, counted where the kernel is launched
 LAUNCHES = {"nn_predict": 0}
+# serving plans made (NNPredictPlan) and requests launched from one
+PLANS = {"made": 0, "served": 0}
 _LOCK = threading.Lock()
 _LIB = None
 
@@ -108,6 +114,30 @@ def _check(name, t, dtype, shape, device):
                          f"shape {shape}, got {t.dtype} {tuple(t.shape)}")
 
 
+def _check_model(xb, w1, b1, w2, b2, dev) -> None:
+    """nn_predict_cuda's checks of a model's arrays on `dev`: w1 [C, 1,
+    s], the rest of the shapes it gives, each contiguous."""
+    if w1.dim() != 3 or w1.shape[1] != 1 or w1.shape[0] < 1 \
+            or w1.shape[2] < 1:
+        raise ValueError(f"w1 must be [C, 1, s], got {tuple(w1.shape)}")
+    c, s = w1.shape[0], w1.shape[2]
+    _check("xb", xb, torch.float32, (c,), dev)
+    _check("w1", w1, F64, (c, 1, s), dev)
+    _check("b1", b1, F64, (c, s), dev)
+    _check("w2", w2, F64, (c, s, 1), dev)
+    _check("b2", b2, F64, (c, 1), dev)
+
+
+def _launched(rc: int, planned: bool = False) -> None:
+    """Raise unless a launch returned cudaSuccess; count it (and, where
+    it was launched from a plan, count it served)."""
+    if rc != 0:
+        raise RuntimeError(f"nn_predict kernel launch failed: cudaError {rc}")
+    with _LOCK:
+        LAUNCHES["nn_predict"] += 1
+        PLANS["served"] += planned
+
+
 def launch_nn_predict(lib, stream, x, xb, w1, b1, w2, b2, out, *,
                       x_max: float, line_m: float, line_c: float,
                       res_ptp: float, res_min: float, n: int) -> int:
@@ -133,25 +163,62 @@ def nn_predict_cuda(x, xb, w1, b1, w2, b2, *, x_max: float, line_m: float,
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"nn_predict_cuda: unsupported device {dev}")
-    if w1.dim() != 3 or w1.shape[1] != 1 or w1.shape[0] < 1 \
-            or w1.shape[2] < 1:
-        raise ValueError(f"w1 must be [C, 1, s], got {tuple(w1.shape)}")
-    c, s = w1.shape[0], w1.shape[2]
+    _check_model(xb, w1, b1, w2, b2, dev)
     _check("x", x, torch.int64, (x.shape[0],), dev)
-    _check("xb", xb, torch.float32, (c,), dev)
-    _check("w1", w1, F64, (c, 1, s), dev)
-    _check("b1", b1, F64, (c, s), dev)
-    _check("w2", w2, F64, (c, s, 1), dev)
-    _check("b2", b2, F64, (c, 1), dev)
     out = torch.empty(x.shape[0], dtype=torch.int64, device=dev)
     if x.shape[0]:
         with torch.cuda.device(dev):
             rc = launch_nn_predict(
                 _lib(), torch.cuda.current_stream(dev).cuda_stream, x, xb,
                 w1, b1, w2, b2, out, **kw)
-        if rc != 0:
-            raise RuntimeError(
-                f"nn_predict kernel launch failed: cudaError {rc}")
-        with _LOCK:
-            LAUNCHES["nn_predict"] += 1
+        _launched(rc)
     return out
+
+
+class NNPredictPlan:
+    """nn_predict_cuda's calls on one model cut in two, as
+    query_cuda.PlqueryPlan cuts plquery's: the plan is made once, with
+    every check nn_predict_cuda makes of the model's arrays (_check_model);
+    a request (`__call__`) then checks only its x, allocates its output and
+    launches nn_predict_kernel (launch_nn_predict): nn_predict_cuda's
+    ranks. The plan keeps the arrays it was made of alive and reads them as
+    they are: a caller whose model changes makes a new plan
+    (NNServing.plan). `lib`: the NN library (default: this module's, built
+    on first use)."""
+
+    def __init__(self, xb, w1, b1, w2, b2, *, x_max: float, line_m: float,
+                 line_c: float, res_ptp: float, res_min: float, n: int,
+                 lib=None):
+        self.device = w1.device
+        _check_model(xb, w1, b1, w2, b2, self.device)
+        self.arrays = (xb, w1, b1, w2, b2)
+        self._kw = dict(x_max=float(x_max), line_m=float(line_m),
+                        line_c=float(line_c), res_ptp=float(res_ptp),
+                        res_min=float(res_min), n=int(n))
+        self._lib = lib or _lib()
+        with _LOCK:
+            PLANS["made"] += 1
+
+    def launch(self, stream, x, out) -> int:
+        """launch_nn_predict of the plan's model for a checked x into out,
+        on `stream`; returns its cudaError_t."""
+        return launch_nn_predict(self._lib, stream, x, *self.arrays, out,
+                                 **self._kw)
+
+    def __call__(self, x):
+        """A request: int64 [B] adjusted k-mers on the plan's device,
+        checked as nn_predict_cuda checks x -> int64 [B] predicted ranks in
+        a new tensor."""
+        dev = self.device
+        _check("x", x, torch.int64, (x.shape[0],), dev)
+        out = x.new_empty(x.shape[0])
+        if x.shape[0]:
+            # the raw stream, as PlqueryPlan reads it
+            stream = torch._C._cuda_getCurrentRawStream(dev.index)
+            if torch.cuda.current_device() == dev.index:
+                rc = self.launch(stream, x, out)
+            else:
+                with torch.cuda.device(dev):
+                    rc = self.launch(stream, x, out)
+            _launched(rc, planned=True)
+        return out

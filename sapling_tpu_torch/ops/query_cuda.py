@@ -29,10 +29,11 @@ parallel.sharded_index keeps the plain versions):
   * tensors on the card launch a kernel, or raise: there is no fallback.
 
 `PlqueryPlan` is plquery_cuda's call cut in two for a caller that queries
-one index many times (SaplingIndex.query_device): the index's arrays
-checked and laid out for the kernel once, then a request that checks only
-its own tensors and launches with a few arguments; `PLANS` counts the
-plans made and the requests launched from one.
+one index many times (SaplingIndex.query_device, NNQueryEngine): the
+index's arrays checked and laid out for the kernel once, then a request
+that checks only its own tensors and launches with a few arguments; a plan
+made without bucket records takes each request's predicted ranks (pred64).
+`PLANS` counts the plans made and the requests launched from one.
 
 `stats=True` also has the kernel write five counts a lane (`LAST_STATS`,
 each int32 [B]; a kernel without the phase writes 0):
@@ -97,7 +98,7 @@ SIGNATURES = {
     "bucket_records_launch": [_P, _P, _P, _P, _I, _P],
     "plquery_plan_make": [_P, _P, _LL, _P, _I] + [_P] * 6
     + [_LL, _I, _I] + [_LL] * 5 + [_I],
-    "plquery_plan_launch": [_P] * 5 + [_LL, _I, _P],
+    "plquery_plan_launch": [_P] * 6 + [_LL, _I, _P],
     "plquery_plan_size": [],
 }
 
@@ -458,16 +459,20 @@ class PlqueryPlan:
     """plquery_cuda's calls on one index's arrays and configuration cut in
     two, for a caller that queries the index many times: the plan is made
     once, with every check plquery_cuda makes of those arrays
-    (_check_index; bucket_recs always, rank_recs and prefix3 where given),
-    and laid out for the kernel by the library's plquery_plan_make. A
-    request (`__call__`) then makes plquery_cuda's checks of its own
-    tensors (_check_request), allocates its output and launches with
-    eight arguments (plquery_plan_launch), which picks the kernel's probe
-    as plquery_launch does: plquery_cuda's results. Without stats, trace
-    or pred64: those calls take plquery_cuda. The plan keeps the arrays it
-    was made of alive and reads them as they are: a caller whose arrays
-    change makes a new plan (SaplingIndex.query_records). `lib`: the query
-    library (default: this module's, built on first use)."""
+    (_check_index; bucket_recs, rank_recs and prefix3 where given), and
+    laid out for the kernel by the library's plquery_plan_make. A request
+    (`__call__`) then makes plquery_cuda's checks of its own tensors
+    (_check_request, and pred64's), allocates its output and launches with
+    nine arguments (plquery_plan_launch), which picks the kernel's probe
+    as plquery_launch does: plquery_cuda's results. A plan comes in two
+    forms: with bucket records it predicts from the PWL table
+    (SaplingIndex.query_device); without them every request passes its
+    predicted ranks as pred64, as plquery_cuda's pred64 call takes them
+    (NNQueryEngine). Without stats or trace: those calls take
+    plquery_cuda. The plan keeps the arrays it was made of alive and reads
+    them as they are: a caller whose arrays change makes a new plan
+    (SaplingIndex.query_records). `lib`: the query library (default: this
+    module's, built on first use)."""
 
     def __init__(self, packed, rev, xlist, ylist, prefix3, bounds, *,
                  n: int, k: int, buckets: int, most_over: int,
@@ -487,7 +492,7 @@ class PlqueryPlan:
             self._plan, packed.data_ptr(), packed.shape[0], rev.data_ptr(),
             int(rev.dtype == torch.int64), xlist.data_ptr(),
             ylist.data_ptr(), _ptr(prefix3), _ptr(bounds),
-            bucket_recs.data_ptr(), _ptr(rank_recs), n, k, buckets,
+            _ptr(bucket_recs), _ptr(rank_recs), n, k, buckets,
             most_over, most_under, max_over, max_under, max_stride_steps,
             int(adaptive_bounds))
         self._launch = lib.plquery_plan_launch
@@ -495,27 +500,39 @@ class PlqueryPlan:
         self._arrays = (packed, rev, xlist, ylist, prefix3, bounds,
                         bucket_recs, rank_recs)
         self.device, self.k, self.prefix3 = dev, k, prefix3
+        # the form: each request's predicted ranks in place of the table's
+        self.takes_pred64 = bucket_recs is None
         with _LOCK:
             PLANS["made"] += 1
 
-    def launch(self, stream, x, q_words, q3, out, length: int) -> int:
+    def launch(self, stream, x, q_words, q3, out, length: int,
+               pred64=None) -> int:
         """plquery_plan_launch of the plan on checked tensors (q3 only
-        where the fast3 probe answers), on `stream`; returns its
-        cudaError_t."""
+        where the fast3 probe answers, pred64 only on a plan that takes
+        it), on `stream`; returns its cudaError_t."""
         return self._launch(self._plan, x.data_ptr(), _ptr(q_words),
-                            _ptr(q3), out.data_ptr(), x.shape[0], length,
-                            stream)
+                            _ptr(q3), _ptr(pred64), out.data_ptr(),
+                            x.shape[0], length, stream)
 
-    def __call__(self, x, q_words, q3, length: int):
+    def __call__(self, x, q_words, q3, length: int, pred64=None):
         """A request: plquery_cuda on the plan's arrays for x (int64 [B]),
-        q_words (int64 [ceil(L/16), B]) and q3 (int64 [B], read where the
-        fast3 probe answers: probe_form) on the plan's device, each
-        checked as plquery_cuda checks it. Returns int64 [B] positions, -1
-        = not found, in a new tensor."""
+        q_words (int64 [ceil(L/16), B]), q3 (int64 [B], read where the
+        fast3 probe answers: probe_form) and, on a plan without bucket
+        records, pred64 (int64 [B] ranks in [0, n)) on the plan's device,
+        each checked as plquery_cuda checks it. Returns int64 [B]
+        positions, -1 = not found, in a new tensor."""
         dev = self.device
         fast3 = probe_form(length, self.k, None, self.prefix3, q3) == "fast3"
         b = _check_request(x, q_words, q3, dev, length=length, k=self.k,
                            fast3=fast3)
+        if self.takes_pred64:
+            if pred64 is None:
+                raise ValueError("a plan without bucket records takes the "
+                                 "request's pred64")
+            _check("pred64", pred64, _I64, (b,), dev)
+        elif pred64 is not None:
+            raise ValueError("a plan with bucket records predicts from its "
+                             "table: pred64 takes a plan without them")
         out = x.new_empty(b)
         if b:
             q3 = q3 if fast3 else None
@@ -523,10 +540,11 @@ class PlqueryPlan:
             # object it makes (3.9 us a call on the H100's host, PERF.md §6)
             stream = torch._C._cuda_getCurrentRawStream(dev.index)
             if torch.cuda.current_device() == dev.index:
-                rc = self.launch(stream, x, q_words, q3, out, length)
+                rc = self.launch(stream, x, q_words, q3, out, length, pred64)
             else:
                 with torch.cuda.device(dev):
-                    rc = self.launch(stream, x, q_words, q3, out, length)
+                    rc = self.launch(stream, x, q_words, q3, out, length,
+                                     pred64)
             _launched("plquery", rc, planned=True)
         return out
 

@@ -181,3 +181,44 @@ def test_wrapper_takes_the_plain_path_on_the_cpu():
         nn_predict_cuda.nn_predict_cuda(x, *args, **kw).numpy(),
         nn_predict_cuda.nn_predict(x, *args, **kw).numpy())
     assert nn_predict_cuda.LAUNCHES == before
+
+
+def test_serving_plan_source(lib):
+    """A serving plan (NNPredictPlan) is made once with nn_predict_cuda's
+    checks of the model's arrays and then launches the kernel for each
+    request's x alone (plan.launch on host tensors): every rank equal to
+    the plain version's, at 10^8 ranks; a model array nn_predict_cuda
+    refuses is refused when the plan is made, a request's x when it
+    comes, before any launch."""
+    x_max = 4 ** 21 - 1
+    args, kw = _random_model(64, 16, seed=23, x_max=x_max, scale=1e8,
+                             n=10 ** 8)
+    made = nn_predict_cuda.PLANS["made"]
+    plan = nn_predict_cuda.NNPredictPlan(*args, lib=lib, **kw)
+    assert nn_predict_cuda.PLANS["made"] == made + 1
+    assert all(a is b for a, b in zip(plan.arrays, args))
+    for seed in (1, 2):
+        x = _edge_x((args, kw), x_max, 5000, seed)
+        out = torch.full((x.shape[0],), -777, dtype=torch.int64)
+        assert plan.launch(None, x, out) == 0
+        assert out.equal(nn_predict_cuda.nn_predict(x, *args, **kw))
+    xb, w1, b1, w2, b2 = args
+    for bad, message in (((xb.double(), w1, b1, w2, b2), "xb must"),
+                         ((xb, w1.float(), b1, w2, b2), "w1 must"),
+                         ((xb, w1, b1, w2, b2[:, :0]), "b2 must"),
+                         ((xb, w1[:, :, :1].contiguous(), b1, w2, b2),
+                          "b1 must"),
+                         ((xb, w1, b1.t().contiguous().t(), w2, b2),
+                          "b1 must")):
+        with pytest.raises(ValueError, match=message):
+            nn_predict_cuda.NNPredictPlan(*bad, lib=lib, **kw)
+    launches = dict(nn_predict_cuda.LAUNCHES)
+    for x, message in ((torch.zeros(5, dtype=torch.int32), "x must"),
+                       (torch.zeros((5, 2), dtype=torch.int64), "x must"),
+                       (torch.zeros(10, dtype=torch.int64)[::2], "x must"),
+                       (torch.zeros(5, dtype=torch.int64, device="meta"),
+                        "x is on meta")):
+        with pytest.raises(ValueError, match=message):
+            plan(x)
+    assert nn_predict_cuda.LAUNCHES == launches
+    assert nn_predict_cuda.PLANS["made"] == made + 1

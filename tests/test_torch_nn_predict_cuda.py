@@ -10,8 +10,11 @@ sapling_tpu, so they run on a machine without JAX, from the repo root:
 The reference is the plain PyTorch nn_predict on the same CUDA tensors and
 on the CPU: every rank must be equal. NNQueryEngine's positions on the card
 must equal the CPU path's with the same model, from one nn_predict and one
-plquery launch a call. tests/test_torch_nn_predict_cu_on_cpu.py holds the
-same source on the CPU.
+plquery launch a call, each from a plan without stats (the plan's
+positions plquery_cuda's pred64 call's); training on the card is the same
+bit for bit twice, and from the index loaded as a server loads it.
+tests/test_torch_nn_predict_cu_on_cpu.py holds the same source on the
+CPU.
 """
 
 import dataclasses
@@ -22,6 +25,8 @@ import torch
 
 from sapling_tpu_torch.config import IndexConfig
 from sapling_tpu_torch.index.sapling import SaplingIndex
+from sapling_tpu_torch.index import sapling
+from sapling_tpu_torch.models import serve
 from sapling_tpu_torch.models.serve import NNQueryEngine, train_serving
 from sapling_tpu_torch.ops import nn_predict_cuda, query_cuda
 from sapling_tpu_torch.ops import pack as packops
@@ -151,3 +156,89 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev, trained):
     deeper = dataclasses.replace(srv, params=srv.params + srv.params[:1])
     with pytest.raises(NotImplementedError):             # hidden_layers 2
         deeper.predict_ranks(x)
+
+
+def _codes(g, n, k, num, seed):
+    """num genome k-mers and num // 6 random ones."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, n - k + 1, num)
+    return np.concatenate([
+        packops.encode_bases(g[pos[:, None] + np.arange(k)]),
+        rng.integers(0, 4, (num // 6, k)).astype(np.uint8)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fast3", "packed", "ranks"])
+def test_nn_engine_requests_launch_from_plans(dev, trained, monkeypatch,
+                                              form):
+    """Without stats every NN request on the card launches from plans made
+    before it (the model's serving plan, the engine's PlqueryPlan without
+    bucket records): its positions equal plquery_cuda's pred64 call on the
+    same tensors, on fast3, on rev and the genome, and on rank records;
+    after the first request one that reaches plquery_cuda or
+    nn_predict_cuda, or checks the model's arrays again, fails."""
+    g, idx, _, srv = trained
+    host = idx if form == "fast3" else SaplingIndex.from_arrays(idx, "cpu")
+    if form != "fast3":
+        host.prefix64 = host.prefix3 = None
+    monkeypatch.setattr(sapling, "reads_rank_records",
+                        lambda rev, packed: form == "ranks")
+    didx = host.to(dev)
+    eng = NNQueryEngine(didx, srv)
+    x, q3, q_words = eng.query_inputs(_codes(g, idx.n, idx.k, 20_000, 5))
+    d = didx.device_arrays()
+    ranks = didx.query_records()[1]
+    assert (ranks is not None) == (form == "ranks")
+    pred = nn_predict_cuda.nn_predict_cuda(x, *srv._arrays(), **srv._consts())
+    want = query_cuda.plquery_cuda(
+        d["packed"], d["rev"], d["xlist"], d["ylist"], q_words, x,
+        d["prefix64"], d["prefix3"], q3, n=didx.n, length=didx.k,
+        k=didx.k, buckets=didx.buckets, most_over=srv.most_over,
+        most_under=srv.most_under, max_over=srv.max_over,
+        max_under=srv.max_under, pred64=pred, rank_recs=ranks)
+    assert eng.query_device(x, q3, q_words).equal(want)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a request left the plans")
+
+    for module, name in ((serve, "plquery_cuda"), (serve, "nn_predict_cuda"),
+                         (nn_predict_cuda, "_check_model"),
+                         (query_cuda, "_check_index")):
+        monkeypatch.setattr(module, name, refuse)
+    served = (query_cuda.PLANS["served"], nn_predict_cuda.PLANS["served"])
+    made = (query_cuda.PLANS["made"], nn_predict_cuda.PLANS["made"])
+    for _ in range(3):
+        assert eng.query_device(x, q3, q_words).equal(want)
+    torch.cuda.synchronize()
+    assert (query_cuda.PLANS["served"], nn_predict_cuda.PLANS["served"]) \
+        == (served[0] + 3, served[1] + 3)
+    assert (query_cuda.PLANS["made"], nn_predict_cuda.PLANS["made"]) == made
+    assert eng.counts == {"plans": 1, "served": 4}
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_is_deterministic(dev, trained, tmp_path):
+    """Two trainings from the seed on the card, one on the whole index and
+    one on the same artifact loaded as a server loads it (no inv, codes
+    or runs): bit-identical parameters and boundaries, the same constants
+    and four windows, as the fixture's."""
+    _, idx, _, srv = trained
+    path = str(tmp_path / "i.stpu.npz")
+    idx.save(path)
+    query = SaplingIndex.load(path, skip=("inv", "codes", "lcpk_fwd",
+                                          "lcpk_bwd"), mmap=True,
+                              device="cuda")
+    for other in (train_serving(idx.to(dev), num_chunks=8, layer_size=8,
+                                epochs=150, seed=1),
+                  train_serving(query, num_chunks=8, layer_size=8,
+                                epochs=150, seed=1)):
+        for lo, ls in zip(other.params, srv.params):
+            assert all(lo[n].equal(ls[n]) for n in ("w", "b"))
+        assert other.xb.equal(srv.xb)
+        assert [getattr(other, f) for f in (
+            "x_max", "res_min", "res_ptp", "line_m", "line_c", "most_over",
+            "most_under", "max_over", "max_under", "epochs_run",
+            "early_stopped")] == [getattr(srv, f) for f in (
+                "x_max", "res_min", "res_ptp", "line_m", "line_c",
+                "most_over", "most_under", "max_over", "max_under",
+                "epochs_run", "early_stopped")]

@@ -1496,3 +1496,84 @@ def test_plan_checks_the_index_arrays_once(lib, k21):
         out = torch.empty(xx.shape[0], dtype=torch.int64)
         assert p.launch(None, xx, qw, None, out, 45) == 0
         assert out.equal(w)
+
+
+# --- the NN engine's plan (no bucket records, the request's pred64) -----
+
+@pytest.fixture(scope="module")
+def nn_k21(k21):
+    """Two NN models of k21 by epochs: seeded random weights (0) and a
+    brief training (30)."""
+    from sapling_tpu_torch.models.serve import train_serving
+
+    return {epochs: train_serving(_bare(k21), num_chunks=16, layer_size=8,
+                                  epochs=epochs, seed=7)
+            for epochs in (0, 30)}
+
+
+@pytest.mark.parametrize("epochs", [0, 30], ids=["random", "trained"])
+@pytest.mark.parametrize("index", ["packed", "ranks", "fast3"])
+def test_nn_engine_plan_matches_pred64_call(lib, k21, nn_k21, index,
+                                            epochs):
+    """The NN engine's request through its plan's form (a PlqueryPlan
+    without bucket records, plquery_plan_launch with the request's
+    pred64: the kernel on rev and the genome, on rank records, and fast3)
+    gives the positions of plquery_cuda's pred64 call
+    (NNQueryEngine.query_device on the CPU) bit for bit, and every answer
+    passes the benchmark's judgement (portbench/reference.py): a present
+    query answered where it occurs, an absent one -1 or inside the
+    genome."""
+    from portbench.reference import KeyTable, judge
+    from sapling_tpu_torch.models.serve import NNQueryEngine
+
+    idx = k21 if index == "fast3" else _bare(k21)
+    srv = nn_k21[epochs]
+    engine = NNQueryEngine(idx, srv)
+    codes = _mixed_codes(k21.codes, 2000, 21, seed=40 + epochs)
+    x, q3, q_words = engine.query_inputs(codes)
+    assert (q3 is not None) == (index == "fast3")
+    want = engine.query_device(x, q3, q_words)
+    dev = idx.device_arrays()
+    _, rank = _mock_records(lib, dev["xlist"], dev["ylist"], None,
+                            dev["packed"], dev["rev"], buckets=idx.buckets,
+                            n=idx.n, ranks=index == "ranks")
+    made = query_cuda.PLANS["made"]
+    plan = query_cuda.PlqueryPlan(
+        dev["packed"], dev["rev"], dev["xlist"], dev["ylist"],
+        dev["prefix3"], None, n=idx.n, k=idx.k, buckets=idx.buckets,
+        most_over=srv.most_over, most_under=srv.most_under,
+        max_over=srv.max_over, max_under=srv.max_under, bucket_recs=None,
+        rank_recs=rank, lib=lib)
+    assert plan.takes_pred64 and query_cuda.PLANS["made"] == made + 1
+    out = torch.full((x.shape[0],), -777, dtype=torch.int64)
+    assert plan.launch(None, x, q_words, q3, out, 21,
+                       srv.predict_ranks(x)) == 0
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    table = KeyTable(torch.from_numpy(k21.codes))
+    verdict = judge(table, torch.from_numpy(codes), out)
+    assert verdict["missed"] == verdict["out_of_range"] == 0
+    assert 0 < verdict["absent"] < len(codes)
+
+
+def test_plan_forms_refuse_the_other_forms_request(lib, k21):
+    """A plan without bucket records refuses a request without pred64 or
+    with a pred64 of another shape or dtype; a plan with them refuses a
+    pred64: each with a ValueError and no launch."""
+    codes = _mixed_codes(k21.codes, 300, 33, seed=9)
+    pwl, _, kw, x, q_words, _ = _plan(lib, k21, codes, "ranks", False)
+    pred = torch.zeros(x.shape[0], dtype=torch.int64)
+    idx = _bare(k21)
+    dev = idx.device_arrays()
+    plan_kw = {k: v for k, v in kw.items() if k != "length"}
+    nn = query_cuda.PlqueryPlan(
+        dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], None, None,
+        bucket_recs=None, rank_recs=pwl._arrays[7], lib=lib, **plan_kw)
+    before = (dict(query_cuda.LAUNCHES), dict(query_cuda.PLANS))
+    for plan, p, message in (
+            (nn, None, "takes the request's pred64"),
+            (nn, pred[:-1], "pred64 must be"),
+            (nn, pred.int(), "pred64 must be"),
+            (pwl, pred, "predicts from its table")):
+        with pytest.raises(ValueError, match=message):
+            plan(x, q_words, None, 33, pred64=p)
+    assert (dict(query_cuda.LAUNCHES), dict(query_cuda.PLANS)) == before
