@@ -36,7 +36,11 @@ failure raises and the script exits non-zero:
      at QK_LENGTHS on the k=21 index as built and without prefix arrays;
      an int64 copy of rev, adaptive bounds, a pred64 moved by up to
      QK_SHIFT ranks, and that with the stride cap QK_STRIDE_CAP, at
-     QK_OPTION_LENGTHS; phase 8's artifact at SCALE_LENGTHS; and
+     QK_OPTION_LENGTHS; the NN engine's sampled form (rank records and a
+     sample of their keys, NN-width windows, a pred64 moved by up to
+     QK_NN_SHIFT ranks) at QK_OPTION_LENGTHS (past 32 bases the launch
+     takes the records form) at each QK_SAMPLE_SHIFTS, and on phase 8's
+     artifact at its own W; phase 8's artifact at SCALE_LENGTHS; and
      binsearch_cuda against binsearch_batch on phase 5's queries and on
      phase 8's artifact; the record builders, fancy_nodes_cuda (the
      pruned search's node records) and plquery_records_cuda (plquery's
@@ -214,6 +218,11 @@ EVALX_BINS = 16
 QK_LENGTHS = (11, 16, 21, 31, 41, 51, 101)
 QK_OPTION_LENGTHS = (21, 41)
 QK_SHIFT, QK_STRIDE_CAP = 300, 2
+# phase 3b: plquery's sampled form (the NN engine's) under windows of a
+# quarter of the genome on each side and a pred64 moved by up to
+# QK_NN_SHIFT ranks, with samples of one key every 2^shift ranks
+QK_SAMPLE_SHIFTS = (3, 6)   # W = 8 and 64
+QK_NN_SHIFT = 100_000
 # the sector numbers a lane records for the bound (a lane that touches more
 # records the first QK_TRACE: the distinct count stays a lower bound)
 QK_TRACE = 128
@@ -542,8 +551,8 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b,
     plain path's CUDA-event times, the kernel's launches a call, its bound
     (query_bound_ms over the distinct sectors of its trace) and its bound
     at the measured sector rate (query_rate_bound_ms, sectors_per_s), the
-    sectors its lanes touched in all, the rounds, and the lane utilisation
-    (lane_utilisation)."""
+    sectors its lanes touched in all, the probes the rank sample decided,
+    the rounds, and the lane utilisation (lane_utilisation)."""
     import numpy as np
     import torch
 
@@ -576,7 +585,8 @@ def _kernel_case(dev, name, kernel, plain, lane_bytes, b,
                 / ms, rate_bound_ms=rate_bound,
                 pct_of_rate_bound=100 * rate_bound / ms,
                 sectors=int(st["sectors"].sum()), distinct=distinct,
-                over=over, probes=int(st["probes"].sum()), rounds=rounds,
+                over=over, probes=int(st["probes"].sum()),
+                decided=int(st["sample_decided"].sum()), rounds=rounds,
                 util=lane_utilisation(st["probes"].cpu()),
                 max_abs_err=0)
 
@@ -700,15 +710,44 @@ def query_records_case(dev, didx) -> dict:
     return out
 
 
+def plquery_case(dev, rate, tag, idx, length: int, codes=None,
+                 **over) -> dict:
+    """One plquery case of phase 3b on `idx` (on the card): plquery_cuda
+    against plquery_batch on plquery_inputs' tensors (_kernel_case, its
+    second bound at `rate`, random_sector_rate's), the rank sample
+    deciding probes in the "sampled key" form and nowhere else. Returns
+    the case's row."""
+    from sapling_tpu_torch.ops import query, query_cuda
+
+    args, kw, form, lane_bytes, recs = plquery_inputs(idx, length, codes,
+                                                      **over)
+    tag += " records" if over.pop("ranks", False) else ""
+    tag += " fast3" if over.pop("fast3", False) else ""
+    if over.get("sample") is not None:
+        tag += f" sample W={1 << over['sample']}"
+    row = _kernel_case(
+        dev, f"{tag} L={length} {form}",
+        lambda **st: query_cuda.plquery_cuda(*args, **recs, **st, **kw),
+        lambda: query.plquery_batch(*args, **kw), lane_bytes,
+        len(args[5]), rate["sectors_per_s"])
+    if (row["decided"] > 0) != (form == "sampled key"):
+        raise AssertionError(f"the rank sample decided {row['decided']} "
+                             f"probes: {row['name']}")
+    return dict(row, kernel="plquery", length=length, form=form)
+
+
 def query_kernel_phase(dev, idx21, art: str,
                        tables) -> tuple[list[dict], dict, dict, dict]:
     """Phase 3b: the query kernels against the plain cascade on the card,
     each case on the same CUDA tensors (_kernel_case): plquery at
     QK_LENGTHS on the k=21 index as built and without prefix arrays (every
     probe form); an int64 copy of rev; adaptive bounds; a pred64 moved by
-    up to QK_SHIFT ranks, also with the stride cap QK_STRIDE_CAP; phase
-    8's artifact at SCALE_LENGTHS; the binary search on both indexes; the
-    pruned search's node records (fancy_nodes_case) and the search (with
+    up to QK_SHIFT ranks, also with the stride cap QK_STRIDE_CAP; the
+    sampled form under NN-width windows (nn_windows) on rank records made
+    for it at each QK_SAMPLE_SHIFTS and on phase 8's artifact at its own
+    W (query_cuda.sample_shift), the sample deciding probes there and
+    nowhere else; phase 8's artifact at SCALE_LENGTHS; the binary search
+    on both indexes; the pruned search's node records (fancy_nodes_case) and the search (with
     `tables`, the host llcp / rlcp, on records built once for each index,
     outside the timed calls) at QUERY_LEN with and without prefix64 and
     with an int64 rev, and at the last SCALE_LENGTHS; the record builders
@@ -739,16 +778,8 @@ def query_kernel_phase(dev, idx21, art: str,
     rate = random_sector_rate(dev)
 
     def plquery_cases(tag, idx, length, codes=None, **over):
-        args, kw, form, lane_bytes, recs = plquery_inputs(idx, length, codes,
-                                                          **over)
-        tag += " records" if over.pop("ranks", False) else ""
-        tag += " fast3" if over.pop("fast3", False) else ""
-        row = _kernel_case(
-            dev, f"{tag} L={length} {form}",
-            lambda **st: query_cuda.plquery_cuda(*args, **recs, **st, **kw),
-            lambda: query.plquery_batch(*args, **kw), lane_bytes,
-            len(args[5]), rate["sectors_per_s"])
-        rows.append(dict(row, kernel="plquery", length=length, form=form))
+        rows.append(plquery_case(dev, rate, tag, idx, length, codes,
+                                 **over))
 
     def binsearch_case(tag, didx, codes):
         qw, kw, lane_bytes = binsearch_inputs(didx, codes)
@@ -816,6 +847,13 @@ def query_kernel_phase(dev, idx21, art: str,
                   fast3=True)
     plquery_cases("adaptive", built, QUERY_LEN, adaptive_bounds=True,
                   fast3=True)
+    # the NN engine's sampled form: the sample decides the wide bisection's
+    # probes up to 32 bases; past them the records form reads every record
+    for length in QK_OPTION_LENGTHS:
+        for w_shift in QK_SAMPLE_SHIFTS:
+            plquery_cases(f"pred64 +-{QK_NN_SHIFT} NN windows", built,
+                          length, shift=QK_NN_SHIFT, ranks=True,
+                          sample=w_shift, **nn_windows(built))
     codes, _n_in = query_codes(idx21.codes)
     binsearch_case("", idx21.to(dev), codes)
     binsearch_case("shuffled ", idx21.to(dev), shuffled(codes))
@@ -835,6 +873,10 @@ def query_kernel_phase(dev, idx21, art: str,
         plquery_cases(f"{big.n} bp", big, length, codes)
         plquery_cases(f"{big.n} bp shuffled", big, length, shuffled(codes))
     codes, _n_in = query_codes(big.codes)
+    plquery_cases(f"{big.n} bp pred64 +-{QK_NN_SHIFT} NN windows", big,
+                  QUERY_LEN, codes, shift=QK_NN_SHIFT, ranks=True,
+                  sample=query_cuda.sample_shift(
+                      big.n, query_cuda.l2_bytes(dev)), **nn_windows(big))
     binsearch_case(f"{big.n} bp ", big, codes)
     binsearch_case(f"{big.n} bp shuffled ", big, shuffled(codes))
     t0 = time.perf_counter()
@@ -1048,8 +1090,18 @@ def nn_kernel_phase(dev, idx21, sm_clock_mhz: float) -> dict:
     return out
 
 
+def nn_windows(idx) -> dict:
+    """Windows as wide as the NN engine's on a 100 Mbp index (hundreds of
+    thousands of ranks): a quarter of idx's ranks on each side ('most'),
+    half ('max')."""
+    quarter = idx.n // 4
+    return dict(most_over=quarter, most_under=quarter, max_over=2 * quarter,
+                max_under=2 * quarter)
+
+
 def plquery_inputs(idx, length: int, codes=None, shift: int = 0,
-                   ranks: bool = False, fast3: bool = False, **over):
+                   ranks: bool = False, fast3: bool = False,
+                   sample: int | None = None, **over):
     """A plquery case on `idx` (on the card): query_codes (or `codes`) as
     plquery_batch's arguments (q_words; with `fast3`, where the index has
     prefix3 and the length allows, q3 too, so that the kernel and the
@@ -1058,12 +1110,15 @@ def plquery_inputs(idx, length: int, codes=None, shift: int = 0,
     form (query_cuda.kernel_form), the coalesced bytes a lane reads and
     writes and the index's record tables as plquery_cuda's keywords (made
     here on first use; with `ranks`, rank records made for the case
-    whatever the index's size): (args, kw, form, lane_bytes, recs)."""
+    whatever the index's size; with `sample`, the rank records' sample of
+    one key every 2^sample ranks, ops.query.rank_sample, which the kernel
+    asks where the windows are wide enough: the form "sampled key"):
+    (args, kw, form, lane_bytes, recs)."""
     import numpy as np
     import torch
 
     from sapling_tpu_torch.ops import pack as packops
-    from sapling_tpu_torch.ops import query_cuda
+    from sapling_tpu_torch.ops import query, query_cuda
     from sapling_tpu_torch.ops.predict import predict_pwl
 
     if codes is None:
@@ -1097,6 +1152,12 @@ def plquery_inputs(idx, length: int, codes=None, shift: int = 0,
             d["packed"], d["rev"], n=idx.n)
     form = query_cuda.kernel_form(length, idx.k, d["prefix3"], q3,
                                   recs["rank_recs"])
+    if sample is not None:
+        recs.update(rank_sample=query.rank_sample(
+            recs["rank_recs"], n=idx.n, shift=sample), sample_shift=sample)
+        if form == "key" and query_cuda.samples_probes(
+                kw["most_over"], kw["most_under"], sample):
+            form = "sampled key"
     lane_bytes = 16 + (8 if form == "fast3" else 8 * q_words.shape[0]) \
         + (8 if shift else 0)
     return args, kw, form, lane_bytes, recs
@@ -2035,7 +2096,10 @@ def run_phases(td: str, scale, sm_clock_mhz: float):
             f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
             f"({r['distinct']} distinct sectors of 32 B of {r['sectors']} "
             f"the lanes touched, {r['over']} lanes past {QK_TRACE}; "
-            f"{r['probes']} probes; {r['pct_of_bound']:.1f}% of it), at the "
+            f"{r['probes']} probes"
+            + (f", {r['decided']} decided by the rank sample" if r["decided"]
+               else "")
+            + f"; {r['pct_of_bound']:.1f}% of it), at the "
             f"measured sector rate {r['rate_bound_ms']:.4f} ms "
             f"({r['pct_of_rate_bound']:.1f}% of it); lane "
             f"utilisation {100 * r['util']:.1f}%"

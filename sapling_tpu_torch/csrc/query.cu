@@ -45,16 +45,18 @@
 // or one of rev and one or two of the packed genome, as the binary
 // search's probes do. The least time of a call is the distinct
 // sectors its lanes touch, times 32 bytes, over HBM's 3.35 TB/s; with
-// `stats` the kernels write five counts a lane (lane_stats, int32 [5, B]):
+// `stats` the kernels write six counts a lane (lane_stats, int32 [6, B]):
 //   row 0  probes;
 //   row 1  the 32-byte sectors its reads touch (and can record their
 //          numbers, so that the caller counts the distinct ones);
 //   row 2  phase C (stride) steps;
 //   row 3  phase D (bisection) steps;
 //   row 4  the sectors of row 1 that lie in the packed genome;
+//   row 5  the probes the rank sample decided without a record read
+//          (plquery_kernel's sampled form; 0 in every other kernel);
 // a kernel without a phase writes 0 in its row. A call with lane_stats
-// launches each kernel's GENOME_ROW instance, which alone counts row 4
-// (see Lane). They also write their
+// launches each kernel's GENOME_ROW instance, which alone counts rows 4
+// and 5 (see Lane). They also write their
 // deepest phase C and phase D step counts (depth), which equal the plain
 // versions' host loop rounds. Each probe waits on the last, so what the
 // card reaches is set by the loads in flight: the resident threads an SM,
@@ -92,6 +94,33 @@
 //                    genome under the NN engine's predictions (17
 //                    bisection rounds): it answers where the caller
 //                    passes q3. The prefix64 probe was dropped.
+//   plquery_kernel's sampled form (kSampledKey)
+//                    plquery_kernel on rank records under windows of
+//                    hundreds of thousands of ranks (the NN engine's): a
+//                    query bisects ~19 steps, one dependent 16-byte record
+//                    out of HBM each, at the card's random-gather rate.
+//                    The records' keys are sorted, so a sample of them
+//                    (rank_sample: the keys of ranks 0, W, 2W, ... and
+//                    n - 1, zero past the genome's end; a quarter of the
+//                    L2 at most) decides a probe at rank r from the two
+//                    keys around it where the query's first min(L, 32)
+//                    bases lie strictly outside them: the same outcome
+//                    as the record's, so the bisection takes the same
+//                    path and returns the same bits. The sample stays in
+//                    L2 while the records stream past (load_evict_first),
+//                    so most of a wide bisection's probes wait on L2, not
+//                    HBM; once the interval is narrower than 2W, a probe
+//                    reads its record at once. At 100 Mbp (W = 64) the
+//                    sample decides 14.6 of a query's 20.6 probes under
+//                    the NN cell's windows: 3.22 -> 1.21 ms a request of
+//                    5M 21-mers on an NVIDIA H100 80GB HBM3 at 700 W
+//                    (2.7x). Up to 32 bases only (the NN engine's
+//                    k-mers): no traffic sends longer queries under such
+//                    windows. It is a PROBE value of plquery_kernel, not
+//                    a kernel of its own: moving the cascade into a
+//                    device function that two kernels share changed the
+//                    registers nvcc gives the other forms (64 -> 73 on
+//                    rev and the genome).
 //   binsearch_kernel Every lane's bisection over [0, n-1] starts with the
 //                    same midpoints, so the first kTreeLevels levels (and
 //                    the pre-probes of ranks 0 and n-1) are one table: each
@@ -175,11 +204,14 @@ constexpr int kTreeLevels = 12;
 constexpr int kTreeNodes = 1 << kTreeLevels;  // nodes 1 .. kTreeNodes - 1
 constexpr int kSearchThreads = 512;
 constexpr int kFast3 = 0, kPrefix64 = 1, kPacked = 2;
+// plquery_kernel's form on rank records that asks the rank sample first:
+// kPrefix64's probe (lane_form), the sample before each
+constexpr int kSampledKey = 3;
 constexpr int kBasesPerWord = 16;
 constexpr int kWin = 7;   // query words a probe compares from registers
 // the rows of lane_stats
 constexpr int kProbesRow = 0, kSectorsRow = 1, kStrideRow = 2,
-              kBisectRow = 3, kGenomeRow = 4;
+              kBisectRow = 3, kGenomeRow = 4, kSampleRow = 5;
 // a bucket record's yhi - ylo that says "read ylist[bucket + 1]": a bucket
 // of 2^32 - 1 ranks or more (n >= 2^32), or a falling ylist
 constexpr uint32_t kWideM = 0xFFFFFFFFu;
@@ -196,7 +228,7 @@ struct Args {
   const int64_t* x;         // [B] adjusted k-mers
   const int64_t* pred64;    // [B] the caller's predicted ranks, or null
   int64_t* out;             // [B] positions, -1 = not found
-  int32_t* lane_stats;      // [5, B] a lane's counts (the rows above); or
+  int32_t* lane_stats;      // [6, B] a lane's counts (the rows above); or
                             // null
   int32_t* depth;           // [2] deepest phase C, phase D steps; or null
   int64_t* trace;           // [B, trace_cap] sector numbers a lane touched
@@ -216,6 +248,11 @@ struct Args {
   // the record builders' genome: the packed words as 32 bits (uint32 bits
   // in int32), packed_len of them
   const int32_t* genome32 = nullptr;
+  // the sampled form's sample of the rank records' keys: entry e the
+  // key of rank min(e << sample_shift, n - 1), e = 0 .. ((n - 1) >>
+  // sample_shift) + 1, its bases past the genome's end zero
+  const int64_t* rank_sample = nullptr;
+  int sample_shift = 0;
 };
 
 struct Probe {
@@ -279,14 +316,52 @@ __device__ __forceinline__ uint64_t genome_key(const Args& a, int64_t pos) {
   return key_of(w, pos);
 }
 
+// Read-only loads with an L2 eviction priority (createpolicy): the sampled
+// form reads its rank records evict-first and the rank sample
+// evict-last, so that the records a request streams through the L2 leave
+// the sample there. On an H100 the NN cell's plquery_kernel ran 1.03x
+// faster than with the records evict-first by __ldcs and the sample by
+// __ldg, and 1.08x faster than with both by __ldg. Plain loads where no
+// device code is compiled (the CPU tests' build of this file).
+__device__ __forceinline__ longlong2 load_evict_first(const longlong2* p) {
+#ifdef __CUDA_ARCH__
+  uint64_t policy;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+      : "=l"(policy));
+  longlong2 v;
+  asm volatile("ld.global.nc.L2::cache_hint.v2.s64 {%0, %1}, [%2], %3;"
+               : "=l"(v.x), "=l"(v.y) : "l"(p), "l"(policy));
+  return v;
+#else
+  return *p;
+#endif
+}
+
+__device__ __forceinline__ int64_t load_evict_last(const int64_t* p) {
+#ifdef __CUDA_ARCH__
+  uint64_t policy;
+  int64_t v;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+      : "=l"(policy));
+  asm volatile("ld.global.nc.L2::cache_hint.b64 %0, [%1], %2;"
+               : "=l"(v) : "l"(p), "l"(policy));
+  return v;
+#else
+  return *p;
+#endif
+}
+
 // One query's state: its inputs, read once, and its counts. With RANKS a
-// probe reads rank records (plquery's), else rev and the genome. With
-// GENOME_ROW (the kernels' instances a call with lane_stats launches) it
-// also counts row 4, the genome's sectors: that count's store, where a
-// probe's genome words are live, took registers (plquery_kernel<2, int,
-// false> 64 -> 72, 1.11x its time on an H100), which the instances a call
-// without stats launches must not pay.
-template <int PROBE, typename REV, bool RANKS = false, bool GENOME_ROW = false>
+// probe reads rank records (plquery's), else rev and the genome; with
+// SAMPLE (and RANKS) a probe that asks for it is first held against the
+// rank sample. With GENOME_ROW (the kernels' instances a call with
+// lane_stats launches) it also counts rows 4 and 5, the genome's sectors
+// and the probes the sample decided: row 4's store, where a probe's genome
+// words are live, took registers (plquery_kernel<2, int, false> 64 -> 72,
+// 1.11x its time on an H100), which the instances a call without stats
+// launches must not pay.
+template <int PROBE, typename REV, bool RANKS = false, bool GENOME_ROW = false,
+          bool SAMPLE = false>
 struct Lane {
   const Args& a;
   int64_t b;
@@ -296,6 +371,7 @@ struct Lane {
   uint32_t qw[kWin];              // packed: the query's first words
   int wq;
   int probes = 0, sectors = 0;
+  int decided = 0;                // row 5 (SAMPLE and GENOME_ROW)
 
   // with stats, count (and with a trace, record) the sectors of [p, last],
   // and with GENOME_ROW, where they are the packed genome's (`genome`), add
@@ -362,9 +438,15 @@ struct Lane {
   }
 
   // the query against the suffix at rank: from prefix3 (kFast3), its rank
-  // record (RANKS), else rev[rank] and the genome (kPacked)
-  __device__ Probe probe(int64_t rank) {
+  // record (RANKS), else rev[rank] and the genome (kPacked). With SAMPLE
+  // and `sample`, the rank sample first (sampled); a caller asks for it
+  // only where it reads match and smaller alone (see sampled).
+  __device__ Probe probe(int64_t rank, bool sample = false) {
     ++probes;
+    if constexpr (SAMPLE) {
+      Probe p;
+      if (sample && sampled(rank, &p)) return p;
+    }
     if constexpr (PROBE == kFast3) {
       const int64_t* at = a.prefix3 + rank;
       touch(at);
@@ -379,7 +461,7 @@ struct Lane {
     } else if constexpr (RANKS) {
       const longlong2* at = a.rank_recs + rank;
       touch(at);
-      const longlong2 r = __ldg(at);
+      const longlong2 r = record(at);
       Probe p;
       if constexpr (PROBE == kPrefix64) {
         key_decides(r.y, (uint64_t)r.x, &p);   // always, up to 32 bases
@@ -391,6 +473,42 @@ struct Lane {
       static_assert(PROBE == kPacked, "the key form reads rank records");
       return compare_at(rev(rank));
     }
+  }
+
+  // The probe at rank from the rank sample, without its record: true, with
+  // *p the outcome, where the query's first min(L, 32) bases lie strictly
+  // below the key of the sampled rank at or before rank (entry s = rank >>
+  // sample_shift), or strictly above the key at or after it (entry s + 1).
+  // The suffixes' first L bases (fewer past the genome's end) rise with
+  // the rank, and a key, zero past the end, is a bound of them on both
+  // sides: below it, the suffix at rank sorts above the query (no match,
+  // not smaller, not off the end); above it, below the query (no match,
+  // smaller). Whether that suffix runs off the end is not known there, so
+  // p->off_end is false and only callers that read match and smaller alone
+  // ask (the prediction, bucket, phase A and bisection probes, not phases B
+  // and C). A bracket whose key equals the query's bases, or holds them,
+  // leaves the probe to the record.
+  __device__ bool sampled(int64_t rank, Probe* p) {
+    const int64_t* at = a.rank_sample + (rank >> a.sample_shift);
+    touch(at, at + 1);
+    const uint64_t below = (uint64_t)load_evict_last(at) & qmask;
+    const uint64_t above = (uint64_t)load_evict_last(at + 1) & qmask;
+    if (qword >= below && qword <= above) return false;
+    if constexpr (GENOME_ROW) ++decided;
+    p->val = -1;
+    p->match = false;
+    p->smaller = qword > above;
+    p->off_end = false;
+    p->lcp = 0;
+    return true;
+  }
+
+  // a rank record: in the sampled form evict-first (load_evict_first)
+  __device__ longlong2 record(const longlong2* at) const {
+    if constexpr (SAMPLE)
+      return load_evict_first(at);
+    else
+      return __ldg(at);
   }
 
   // The query's first min(L, 32) bases against key, the first 32 bases of
@@ -484,7 +602,7 @@ struct Lane {
       return rank;
     } else if constexpr (RANKS) {
       touch(a.rank_recs + rank);
-      return __ldg(a.rank_recs + rank).y;
+      return record(a.rank_recs + rank).y;
     } else {
       return rev(rank);
     }
@@ -493,13 +611,15 @@ struct Lane {
   // the reference's binarySearch (src/sapling_api.h:133-153) over [lo, hi]:
   // it returns the matching probe's value, rank lo+1's value at the
   // hi == lo + 2 base case (without looking at its match), or -1 when the
-  // interval runs out. *steps counts the rounds.
+  // interval runs out. *steps counts the rounds. The rank sample is asked
+  // while the interval spans at least 2W ranks: below that the query lies
+  // in mid's bracket too often to pay for the sample's read.
   __device__ int64_t bisect(int64_t lo, int64_t hi, int* steps) {
     for (;;) {
       ++*steps;
       if (hi == lo + 2) return value_at(lo + 1);
       const int64_t mid = lo + ((hi - lo) >> 1);
-      const Probe p = probe(mid);
+      const Probe p = probe(mid, (hi - lo) >> a.sample_shift >= 2);
       if (p.match) return p.val;
       if (lo + 1 >= hi) return -1;
       if (p.smaller)
@@ -522,6 +642,7 @@ struct Lane {
       a.lane_stats[kSectorsRow * a.B + b] = sectors;
       a.lane_stats[kStrideRow * a.B + b] = c_steps;
       a.lane_stats[kBisectRow * a.B + b] = d_steps;
+      if constexpr (GENOME_ROW) a.lane_stats[kSampleRow * a.B + b] = decided;
       if (c_steps) atomicMax(a.depth, c_steps);
       if (d_steps) atomicMax(a.depth + 1, d_steps);
     }
@@ -561,11 +682,20 @@ __device__ int64_t predict(L& lane, int64_t x, uint32_t* bw) {
   return lmin(lmax(pred, 0), a.n - 1);
 }
 
+// a plquery_kernel PROBE's probe form
+__host__ __device__ constexpr int lane_form(int probe) {
+  return probe == kSampledKey ? kPrefix64 : probe;
+}
+
+// plquery's cascade, one query a thread; in the sampled form (RANKS) the
+// prediction, bucket, phase A and bisection probes ask the rank sample
 template <int PROBE, typename REV, bool RANKS, bool GENOME_ROW = false>
 __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant__ Args a) {
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= a.B) return;
-  Lane<PROBE, REV, RANKS, GENOME_ROW> lane(a, b);
+  using L = Lane<lane_form(PROBE), REV, RANKS, GENOME_ROW,
+                 PROBE == kSampledKey>;
+  L lane(a, b);
   const int64_t n = a.n;
   const int64_t x = a.x[b];
   uint32_t bw = 0;   // the bucket's bounds word (adaptive)
@@ -574,7 +704,7 @@ __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant
   const int64_t e_left = lmax(pred - a.most_under, 0);
 
   // prediction probe (:161-167): suffix at pred < query -> search right
-  const Probe p0 = lane.probe(pred);
+  const Probe p0 = lane.probe(pred, true);
   if (p0.match) return lane.done(p0.val, 0, 0);
   const bool right = p0.smaller;
   int64_t lo, hi;
@@ -591,7 +721,7 @@ __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant
     }
     a_right = lmin(pred + lmin(bw >> 16, a.most_over), n - 1);
     a_left = lmax(pred - lmin(bw & 0xFFFF, a.most_under), 0);
-    const Probe p1 = lane.probe(right ? a_right : a_left);
+    const Probe p1 = lane.probe(right ? a_right : a_left, true);
     if (p1.match) return lane.done(p1.val, 0, 0);
     need_a = right ? p1.smaller : !p1.smaller;
     lo = right ? pred : a_left;
@@ -604,7 +734,7 @@ __global__ void __launch_bounds__(kThreads) plquery_kernel(const __grid_constant
   // phase A: the 'most' window edge (:171-174 right, :209-213 left)
   bool escalate = false;
   if (need_a) {
-    const Probe pa = lane.probe(right ? e_right : e_left);
+    const Probe pa = lane.probe(right ? e_right : e_left, true);
     if (pa.match) return lane.done(pa.val, 0, 0);
     // escalation (:175 right-still-smaller, :214/:221 left-still-bigger)
     escalate = right ? pa.smaller : !pa.smaller;
@@ -972,7 +1102,8 @@ PlqueryPlan plquery_plan(const void* packed, long long packed_len,
                          const void* rev, int rev64, const void* xlist,
                          const void* ylist, const void* prefix3,
                          const void* bounds, const void* bucket_recs,
-                         const void* rank_recs, long long n, int k,
+                         const void* rank_recs, const void* rank_sample,
+                         int sample_shift, long long n, int k,
                          int buckets, long long most_over,
                          long long most_under, long long max_over,
                          long long max_under, long long max_stride_steps,
@@ -989,6 +1120,8 @@ PlqueryPlan plquery_plan(const void* packed, long long packed_len,
   a.bounds = static_cast<const int32_t*>(bounds);
   a.bucket_recs = static_cast<const longlong2*>(bucket_recs);
   a.rank_recs = static_cast<const longlong2*>(rank_recs);
+  a.rank_sample = static_cast<const int64_t*>(rank_sample);
+  a.sample_shift = sample_shift;
   a.n = n;
   a.most_over = most_over;
   a.most_under = most_under;
@@ -1002,9 +1135,11 @@ PlqueryPlan plquery_plan(const void* packed, long long packed_len,
 }
 
 // A request on plan `p`: plquery_kernel's instance picked from q3, the
-// rank records and the length (kFast3 with q3, else on rank records
-// kPrefix64 up to 32 bases and kPacked past, else kPacked on rev and the
-// genome; the stats instance with lane_stats), launched on `stream`
+// rank records, the rank sample and the length (kFast3 with q3, else on
+// rank records up to 32 bases kSampledKey where the plan holds a rank
+// sample, else kPrefix64, and kPacked past 32 bases, else kPacked on rev
+// and the genome; the stats instance with lane_stats), launched on
+// `stream`
 int plquery_request(PlqueryPlan p, const void* q_words, const void* q3,
                     const void* x, const void* pred64, void* out,
                     void* lane_stats, void* depth, void* trace, long long B,
@@ -1026,8 +1161,9 @@ int plquery_request(PlqueryPlan p, const void* q_words, const void* q3,
   const PlqueryKernel kernel =
       q3 ? plquery_instance<kFast3, false>(p.rev64, stats)
       : !a.rank_recs ? plquery_instance<kPacked, false>(p.rev64, stats)
-      : length <= 32 ? plquery_instance<kPrefix64, true>(p.rev64, stats)
-                     : plquery_instance<kPacked, true>(p.rev64, stats);
+      : length > 32 ? plquery_instance<kPacked, true>(p.rev64, stats)
+      : a.rank_sample ? plquery_instance<kSampledKey, true>(p.rev64, stats)
+                      : plquery_instance<kPrefix64, true>(p.rev64, stats);
   kernel<<<blocks_for(B), kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -1073,14 +1209,17 @@ int launch_binsearch(const Args& a, cudaStream_t stream) {
 // words, xlist, ylist and prefix views; rev int32 holding uint32 bits when
 // rev64 is 0, else int64; bounds int32 holding uint32 bits); q_words is
 // int64 [ceil(L/16), B]; x, pred64 and out are int64 [B]. lane_stats
-// (int32 [5, B], every row written), depth (int32 [2], zeroed)
+// (int32 [6, B], every row written), depth (int32 [2], zeroed)
 // and trace (int64 [B, trace_cap]) may be null. plquery reads xlist,
 // ylist and bounds through its bucket records (bucket_recs, int64
 // [2^buckets, 4], 32-byte aligned; ylist also where a record says so, and
 // bounds with pred64); with q3 (int64 [B]) and prefix3 (int64 [n]) at
 // length <= 21 a probe reads prefix3 (kFast3, q_words may be null), else
 // with rank records (rank_recs, int64 [n, 2], 16-byte aligned) rev and the
-// genome's first 32 bases through them, else rev and the genome. The
+// genome's first 32 bases through them, else rev and the genome; with a
+// rank sample (rank_sample, int64 [((n - 1) >> sample_shift) + 2]: the
+// keys of rank_recs' ranks 0, 2^sample_shift, ... and n - 1, zero past the
+// genome's end) on rank records up to 32 bases the sampled instance. The
 // pruned search reads rev, llcp and rlcp only through its node records
 // (nodes, int64 [n, 4], 32-byte aligned), and the genome on a 32-base tie
 // past 32 bases; with stats it records the sectors of both.
@@ -1088,6 +1227,7 @@ extern "C" int plquery_launch(
     const void* packed, long long packed_len, const void* rev, int rev64,
     const void* xlist, const void* ylist, const void* prefix3,
     const void* bounds, const void* bucket_recs, const void* rank_recs,
+    const void* rank_sample, int sample_shift,
     const void* q_words, const void* q3, const void* x, const void* pred64,
     void* out, void* lane_stats,
     void* depth, void* trace, long long B, long long n, int length, int k,
@@ -1096,9 +1236,9 @@ extern "C" int plquery_launch(
     int adaptive, int trace_cap, void* stream) {
   return plquery_request(
       plquery_plan(packed, packed_len, rev, rev64, xlist, ylist, prefix3,
-                   bounds, bucket_recs, rank_recs, n, k, buckets, most_over,
-                   most_under, max_over, max_under, max_stride_steps,
-                   adaptive),
+                   bounds, bucket_recs, rank_recs, rank_sample, sample_shift,
+                   n, k, buckets, most_over, most_under, max_over, max_under,
+                   max_stride_steps, adaptive),
       q_words, q3, x, pred64, out, lane_stats, depth, trace, B, length,
       trace_cap, static_cast<cudaStream_t>(stream));
 }
@@ -1117,13 +1257,15 @@ extern "C" int plquery_plan_make(
     void* plan, const void* packed, long long packed_len, const void* rev,
     int rev64, const void* xlist, const void* ylist, const void* prefix3,
     const void* bounds, const void* bucket_recs, const void* rank_recs,
+    const void* rank_sample, int sample_shift,
     long long n, int k, int buckets, long long most_over,
     long long most_under, long long max_over, long long max_under,
     long long max_stride_steps, int adaptive) {
   const PlqueryPlan p = plquery_plan(
       packed, packed_len, rev, rev64, xlist, ylist, prefix3, bounds,
-      bucket_recs, rank_recs, n, k, buckets, most_over, most_under,
-      max_over, max_under, max_stride_steps, adaptive);
+      bucket_recs, rank_recs, rank_sample, sample_shift, n, k, buckets,
+      most_over, most_under, max_over, max_under, max_stride_steps,
+      adaptive);
   std::memcpy(plan, &p, sizeof p);
   return 0;
 }

@@ -25,11 +25,13 @@ from ..config import IndexConfig, QueryConfig
 from ..io import artifacts
 from ..io.fasta import Genome, read_fasta
 from ..ops import pack as packops
+from ..ops.query import rank_sample as make_rank_sample
 from ..ops.query_cuda import (PlqueryPlan, binsearch_cuda,
                               bucket_records_cuda, copies_rank_records,
                               fancy_binsearch_cuda, fancy_nodes_cuda,
-                              plquery_cuda, plquery_records_cuda,
-                              reads_rank_records)
+                              l2_bytes, plquery_cuda, plquery_records_cuda,
+                              reads_rank_records, sample_shift,
+                              samples_probes)
 from .pwl import PwlTable, build_pwl
 from .suffix_array import SuffixData, build_suffix_data, lcp_ge_k_runs
 
@@ -82,8 +84,9 @@ class SaplingIndex:
     # the pruned search's node records of the last llcp/rlcp pair
     # (fancy_nodes)
     _fancy: tuple = field(default=(), repr=False)
-    # plquery's record tables on the card, the device arrays they were
-    # made of and the launch plans made of both (query_records)
+    # plquery's record tables on the card, the rank records' sample
+    # (rank_sample), the device arrays they were made of and the launch
+    # plans made of both (query_records)
     _records: dict = field(default_factory=dict, repr=False)
 
     # --- construction -------------------------------------------------------
@@ -311,10 +314,13 @@ class SaplingIndex:
 
     def device_bytes(self) -> int:
         """Bytes of the arrays device_arrays() keeps on self.device and,
-        on the card, of plquery's record tables (query_records)."""
+        on the card, of plquery's record tables (query_records) and the
+        rank records' sample where a plan made it (rank_sample)."""
         return sum(t.numel() * t.element_size()
                    for t in (*self.device_arrays().values(),
-                             *self.query_records()) if t is not None)
+                             *self.query_records(),
+                             self._records.get("sample"))
+                   if t is not None)
 
     def query_records(self):
         """plquery's record tables on the card: (bucket records, int64
@@ -324,10 +330,11 @@ class SaplingIndex:
         the device arrays with one launch each (ops.query_cuda.
         bucket_records_cuda, plquery_records_cuda) on the first call and
         kept while those arrays stay (swap_table makes the bucket records
-        anew). Making either anew drops the launch plans kept beside them
-        (query_device's, the NN engine's), so that a plan is never
-        launched on arrays it was not made of. (None,
-        None) on the CPU, where the plain cascade reads the arrays."""
+        anew); making the rank records anew drops their sample
+        (rank_sample). Making either table anew drops the launch plans kept
+        beside them (query_device's, the NN engine's), so that a plan is
+        never launched on arrays it was not made of. (None, None) on the
+        CPU, where the plain cascade reads the arrays."""
         if self.device.type == "cpu":
             return None, None
         dev = self.device_arrays()
@@ -336,13 +343,34 @@ class SaplingIndex:
         if self._stale_records("rank_of", made_of):
             r.update(rank=plquery_records_cuda(*made_of, n=self.n)
                      if reads_rank_records(dev["rev"], dev["packed"])
-                     else None, rank_of=made_of, plans={})
+                     else None, sample=None, rank_of=made_of, plans={})
         made_of = (dev["xlist"], dev["ylist"], dev["bounds"])
         if self._stale_records("bucket_of", made_of):
             r.update(bucket=bucket_records_cuda(*made_of,
                                                 buckets=self.buckets),
                      bucket_of=made_of, plans={})
         return r["bucket"], r["rank"]
+
+    def rank_sample(self, most_over: int, most_under: int):
+        """(the rank records' sample, int64 [((n - 1) >> shift) + 2]:
+        ops.query.rank_sample, one key every 2^shift ranks, the smallest
+        power of two whose sample takes at most a quarter of the card's L2
+        (ops.query_cuda.sample_shift); shift) for a plan on the rank
+        records whose 'most' window (most_over + most_under ranks) is wide
+        enough to ask it (ops.query_cuda.samples_probes): made on the first
+        such call, kept beside the rank records and dropped with them
+        (query_records). (None, 0) where there are no rank records or the
+        window is narrower."""
+        rank = self.query_records()[1]
+        if rank is None:
+            return None, 0
+        shift = sample_shift(self.n, l2_bytes(rank.device))
+        if not samples_probes(most_over, most_under, shift):
+            return None, 0
+        if self._records["sample"] is None:
+            self._records["sample"] = make_rank_sample(rank, n=self.n,
+                                                       shift=shift)
+        return self._records["sample"], shift
 
     def _stale_records(self, name: str, made_of) -> bool:
         """Whether the record table made of `made_of` (query_records' entry
@@ -443,12 +471,14 @@ class SaplingIndex:
         """plquery_cuda's (and PlqueryPlan's) keywords of this index, its
         table and `qcfg`, but the length and stats."""
         t = self.table
+        sample, shift = self.rank_sample(t.most_over, t.most_under)
         return dict(n=self.n, k=self.k, buckets=self.buckets,
                     most_over=t.most_over, most_under=t.most_under,
                     max_over=t.max_over, max_under=t.max_under,
                     max_stride_steps=qcfg.max_stride_steps,
                     adaptive_bounds=qcfg.adaptive_bounds,
-                    bucket_recs=bucket_recs, rank_recs=rank_recs)
+                    bucket_recs=bucket_recs, rank_recs=rank_recs,
+                    rank_sample=sample, sample_shift=shift)
 
     def query_positions(self, codes2d: np.ndarray,
                         qcfg: QueryConfig | None = None) -> np.ndarray:

@@ -304,15 +304,18 @@ class NNQueryEngine:
         """plquery_cuda's (and PlqueryPlan's) keywords of the index and the
         NN's windows, but the length and stats."""
         idx, srv = self.idx, self.srv
+        sample, shift = idx.rank_sample(srv.most_over, srv.most_under)
         return dict(n=idx.n, k=idx.k, buckets=idx.buckets,
                     most_over=srv.most_over, most_under=srv.most_under,
                     max_over=srv.max_over, max_under=srv.max_under,
-                    rank_recs=idx.query_records()[1])
+                    rank_recs=idx.query_records()[1], rank_sample=sample,
+                    sample_shift=shift)
 
     def plan(self) -> PlqueryPlan:
-        """The engine's launch plan on the card: the index's arrays and
-        rank records, no bucket records (the NN predicts), the NN's
-        windows. It is kept with the index's own plans, under ("nn", the
+        """The engine's launch plan on the card: the index's arrays, rank
+        records and their sample, no bucket records (the NN predicts), the
+        NN's windows (wide enough, the sampled instance: the plan's
+        `sampled`). It is kept with the index's own plans, under ("nn", the
         windows), so that it is made on the first call and dropped, as
         theirs are, where the index makes its records anew
         (SaplingIndex.query_records)."""

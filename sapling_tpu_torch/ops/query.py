@@ -537,6 +537,20 @@ def plquery_records(packed, rev, *, n: int) -> torch.Tensor:
     return torch.stack([key, pos], dim=1)
 
 
+def rank_sample(rank_recs, *, n: int, shift: int) -> torch.Tensor:
+    """The sample of the rank records' keys that plquery_kernel's sampled
+    forms (csrc/query.cu) read: int64 [((n - 1) >> shift) + 2], entry e
+    the key (rank_recs[r, 0]) of rank r = min(e << shift, n - 1), its
+    bases past the genome's end (at and past n - rank_recs[r, 1]) zero,
+    so that the entries rise with e as the suffixes do."""
+    ranks = torch.clamp(torch.arange(((n - 1) >> shift) + 2,
+                                     device=rank_recs.device) << shift,
+                        max=n - 1)
+    rec = rank_recs[ranks]
+    bases = torch.clamp(n - rec[:, 1], max=32)
+    return rec[:, 0] & (torch.full_like(bases, -1) << (64 - 2 * bases))
+
+
 # a bucket record's m that says "read ylist[bucket + 1]" (csrc/query.cu's
 # kWideM)
 WIDE_M = _MASK32

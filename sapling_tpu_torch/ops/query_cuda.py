@@ -6,7 +6,12 @@ bucket record of `bucket_records_kernel`, a probe one 8-byte prefix3 word
 where the caller passes q3 (fast3), else one 16-byte rank record of
 `records_kernel` where rev and the genome outgrow the card's L2
 (reads_rank_records), else rev and the genome; tables made once for an
-index, as `ops.query.bucket_records` and `plquery_records` make them),
+index, as `ops.query.bucket_records` and `plquery_records` make them; on
+rank records under windows of 16 W ranks or more and up to 32 bases, its
+sampled form (kSampledKey) first asks a sample of the records' keys,
+one every W ranks (`ops.query.rank_sample`, W from the card's L2:
+sample_shift), and read a record only where the sample cannot decide
+the probe: the same path),
 `binsearch_kernel` runs
 `ops.query.binsearch_batch` (the bisection's first levels from a table in
 shared memory) and `fancy_binsearch_kernel` runs
@@ -35,24 +40,27 @@ that checks only its own tensors and launches with a few arguments; a plan
 made without bucket records takes each request's predicted ranks (pred64).
 `PLANS` counts the plans made and the requests launched from one.
 
-`stats=True` also has the kernel write five counts a lane (`LAST_STATS`,
+`stats=True` also has the kernel write six counts a lane (`LAST_STATS`,
 each int32 [B]; a kernel without the phase writes 0):
 
   * `probes`;
-  * `sectors`, the 32-byte sectors its reads touched;
+  * `sectors`, the 32-byte sectors its reads touched (the rank sample's
+    among them);
   * `c_steps`, its phase C (stride) steps;
   * `d_steps`, its phase D (bisection) steps;
   * `genome_sectors`, those of its sectors that lie in the packed genome;
+  * `sample_decided`, its probes the rank sample decided without a record
+    read (0 but in plquery_kernel's sampled form);
 
 and its deepest phase C and phase D step counts (`C`, `D`), which it adds
 to `ops.query.ROUNDS` as the plain versions' host loops do; that syncs.
-The kernel's lane_stats rows 0-4 hold them in this order; a stats call
-launches the kernel's instance that counts the genome's sectors, so that
-the one a call without stats launches pays no register for them. With
-`trace=K` it also records the numbers of the first K sectors each lane
-touched (int64 [B, K], -1 past a lane's last), from which a caller counts
-the distinct sectors of a call: the bytes its bound is made of. The default call writes nothing
-extra. The library is built with nvcc at first use (ops.sw_cuda.
+The kernel's lane_stats rows 0-5 hold them in this order; a stats call
+launches the kernel's instance that counts the genome's sectors and the
+sample's decisions, so that the one a call without stats launches pays
+no register for them. With `trace=K` it also records the numbers of the
+first K sectors each lane touched (int64 [B, K], -1 past a lane's last),
+from which a caller counts the distinct sectors of a call: the bytes its
+bound is made of. The default call writes nothing extra. The library is built with nvcc at first use (ops.sw_cuda.
 build_kernel, into the gitignored `_build/`); `LAUNCHES` counts kernel
 launches.
 """
@@ -82,21 +90,25 @@ LAUNCHES = {"plquery": 0, "binsearch": 0, "fancy": 0, "fancy_nodes": 0,
 LAST_STATS: dict = {}
 # launch plans made (PlqueryPlan) and requests launched from one
 PLANS = {"made": 0, "served": 0}
-STAT_ROWS = ("probes", "sectors", "c_steps", "d_steps", "genome_sectors")
+STAT_ROWS = ("probes", "sectors", "c_steps", "d_steps", "genome_sectors",
+             "sample_decided")
+# the 'most' window, in W's, from which a plan on rank records asks the
+# rank sample (samples_probes)
+SAMPLE_WINDOWS = 16
 _LOCK = threading.Lock()
 _LIB = None
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
-    "plquery_launch": [_P, _LL, _P, _I] + [_P] * 14 + [_LL, _LL, _I, _I, _I]
-    + [_LL] * 5 + [_I, _I, _P],
+    "plquery_launch": [_P, _LL, _P, _I] + [_P] * 7 + [_I] + [_P] * 8
+    + [_LL, _LL, _I, _I, _I] + [_LL] * 5 + [_I, _I, _P],
     "binsearch_launch": [_P, _LL, _P, _I] + [_P] * 5 + [_LL, _LL, _I, _I,
                                                          _P],
     "fancy_binsearch_launch": [_P, _LL] + [_P] * 6
     + [_LL, _LL, _I, _I, _I, _P],
     "records_launch": [_P, _LL, _P, _I, _P, _P, _P, _P, _LL, _P],
     "bucket_records_launch": [_P, _P, _P, _P, _I, _P],
-    "plquery_plan_make": [_P, _P, _LL, _P, _I] + [_P] * 6
+    "plquery_plan_make": [_P, _P, _LL, _P, _I] + [_P] * 7 + [_I]
     + [_LL, _I, _I] + [_LL] * 5 + [_I],
     "plquery_plan_launch": [_P] * 6 + [_LL, _I, _P],
     "plquery_plan_size": [],
@@ -139,15 +151,42 @@ def kernel_form(length: int, k: int, prefix3, q3, rank_recs) -> str:
     return "key" if length <= 32 else "records"
 
 
+def l2_bytes(device) -> int:
+    """The L2 cache of the card `device`, in bytes."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
 def reads_rank_records(rev, packed) -> bool:
     """Whether plquery on the card reads rank records for these arrays:
     where rev and the packed genome outgrow the card's L2, so that a probe
     reading them would wait on device memory twice (46 Mbp on an H100:
     1.05-1.26x faster on the records); where they fit (4.6 Mbp: 0.83-1.00x)
     a probe finds both in L2."""
-    l2 = torch.cuda.get_device_properties(rev.device).L2_cache_size
     return (rev.numel() * rev.element_size()
-            + packed.numel() * packed.element_size()) > l2
+            + packed.numel() * packed.element_size()) > l2_bytes(rev.device)
+
+
+def sample_shift(n: int, l2: int) -> int:
+    """log2 of W, the ranks between two entries of the rank sample
+    (ops.query.rank_sample) of an index of n ranks on a card of `l2` bytes
+    of L2: the smallest power of two whose sample, 8 bytes an entry, takes
+    at most a quarter of the L2, so that it stays there beside the records
+    a request streams through (100 Mbp on an H100: W = 64, 12.5 MB)."""
+    shift = 0
+    while 8 * (((n - 1) >> shift) + 2) > l2 // 4:
+        shift += 1
+    return shift
+
+
+def samples_probes(most_over: int, most_under: int, shift: int) -> bool:
+    """Whether plquery on rank records with a rank sample of 2^shift ranks
+    an entry takes plquery_kernel's sampled form (up to 32 bases; past
+    them the records form): where the 'most' window spans SAMPLE_WINDOWS
+    W or more, so that most of a lane's probes bisect intervals many
+    brackets wide, which the sample decides (the NN engine's windows);
+    under narrower windows (the PWL table's: a few dozen ranks) a probe
+    would read the sample and then its record."""
+    return most_over + most_under >= SAMPLE_WINDOWS << shift
 
 
 def copies_rank_records(packed) -> bool:
@@ -157,8 +196,7 @@ def copies_rank_records(packed) -> bool:
     `packed`) outgrows the card's L2, so that its gathers miss (230 Mbp on
     an H100: the copy 1.90x faster); where it fits (46 Mbp) the gather ran
     1.02-1.03x faster than the copy."""
-    l2 = torch.cuda.get_device_properties(packed.device).L2_cache_size
-    return 4 * packed.shape[0] > l2
+    return 4 * packed.shape[0] > l2_bytes(packed.device)
 
 
 def _check(name, t, dtypes, shape, device, at_least=False):
@@ -231,9 +269,12 @@ def _check_request(x, q_words, q3, dev, *, length: int, k: int,
 
 
 def _check_index(dev, xlist, ylist, rev, packed, prefix3, bounds,
-                 bucket_recs, rank_recs, *, n: int, buckets: int) -> None:
+                 bucket_recs, rank_recs, *, n: int, buckets: int,
+                 rank_sample=None, shift: int = 0) -> None:
     """plquery_cuda's checks of an index's arrays, each of packed,
-    prefix3, bounds and the record tables where it is given (not None)."""
+    prefix3, bounds, the record tables and the rank sample (of 2^shift
+    ranks an entry, read with rank records) where it is given (not
+    None)."""
     nb = 1 << buckets
     _check("xlist", xlist, _I64, (nb + 1,), dev, at_least=True)
     _check("ylist", ylist, _I64, (nb + 1,), dev, at_least=True)
@@ -246,6 +287,9 @@ def _check_index(dev, xlist, ylist, rev, packed, prefix3, bounds,
     if rank_recs is not None:
         _check("rank_recs", rank_recs, _I64, (n, 2), dev)
         _aligned("rank_recs", rank_recs, 16)
+    if rank_sample is not None:
+        _check("rank_sample", rank_sample, _I64, (((n - 1) >> shift) + 2,),
+               dev)
     if bounds is not None:
         _check("bounds", bounds, (torch.int32,), (nb,), dev, at_least=True)
     if bucket_recs is not None:
@@ -359,8 +403,8 @@ def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
                  max_over: int, max_under: int,
                  max_stride_steps: int = 1 << 20,
                  adaptive_bounds: bool = False, pred64=None,
-                 bucket_recs=None, rank_recs=None,
-                 stats: bool = False, trace: int = 0):
+                 bucket_recs=None, rank_recs=None, rank_sample=None,
+                 sample_shift: int = 0, stats: bool = False, trace: int = 0):
     """ops.query.plquery_batch with the same arguments (but `take`) and
     results, on plquery_kernel for tensors on the card (stats, trace: see
     the module's docstring).
@@ -379,9 +423,11 @@ def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
     without rank records makes them where reads_rank_records says the
     kernel reads them (one more), so a caller that queries more than once
     passes them (SaplingIndex.query_records). Rank records passed are read
-    whatever the arrays' size. On the CPU neither is read: the plain
-    version reads the arrays. Returns int64 [B] positions, -1 = not
-    found."""
+    whatever the arrays' size. `rank_sample` is ops.query.rank_sample of
+    those rank records at `sample_shift` (SaplingIndex.rank_sample), read
+    where samples_probes says so for these windows. On the CPU none is
+    read: the plain version reads the arrays. Returns int64 [B] positions,
+    -1 = not found."""
     if x.device.type == "cpu":
         return query.plquery_batch(
             packed, rev, xlist, ylist, q_words, x, prefix, prefix3, q3,
@@ -405,11 +451,15 @@ def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
     elif bucket_recs is None:
         bucket_recs = bucket_records_cuda(xlist, ylist, bounds,
                                           buckets=buckets)
+    if (fast3 or rank_recs is None
+            or not samples_probes(most_over, most_under, sample_shift)):
+        rank_sample = None
     _check_index(dev, xlist, ylist, rev, None if fast3 else packed,
                  prefix3 if fast3 else None,
                  bounds if adaptive_bounds else None,
                  None if pred64 is not None else bucket_recs, rank_recs,
-                 n=n, buckets=buckets)
+                 n=n, buckets=buckets, rank_sample=rank_sample,
+                 shift=sample_shift)
     if not fast3 and rank_recs is None and reads_rank_records(rev, packed):
         rank_recs = plquery_records_cuda(packed, rev, n=n)
     out = torch.empty(b, dtype=torch.int64, device=dev)
@@ -425,7 +475,8 @@ def plquery_cuda(packed, rev, xlist, ylist, q_words, x, prefix=None,
                 max_over=max_over, max_under=max_under,
                 max_stride_steps=max_stride_steps,
                 adaptive_bounds=adaptive_bounds, bucket_recs=bucket_recs,
-                rank_recs=rank_recs)
+                rank_recs=rank_recs, rank_sample=rank_sample,
+                sample_shift=sample_shift)
         _launched("plquery", rc)
     if stats:
         _read_stats(lane, depth, tr)
@@ -437,17 +488,20 @@ def launch_plquery(lib, stream, packed, rev, xlist, ylist, q_words, x,
                    n: int, length: int, k: int, buckets: int, most_over: int,
                    most_under: int, max_over: int, max_under: int,
                    max_stride_steps: int, adaptive_bounds: bool,
-                   bucket_recs=None, rank_recs=None) -> int:
+                   bucket_recs=None, rank_recs=None, rank_sample=None,
+                   sample_shift: int = 0) -> int:
     """plquery_launch of `lib` on checked tensors (None for an unused
     one; q3 only where the fast3 probe answers), on `stream`; returns its
     cudaError_t. The kernel takes its probe from q3, rank_recs and the
-    length (kernel_form)."""
+    length (kernel_form), and on rank records asks rank_sample, of
+    2^sample_shift ranks an entry, where it is given."""
     return lib.plquery_launch(
         _ptr(packed), 0 if packed is None else packed.shape[0],
         rev.data_ptr(), int(rev.dtype == torch.int64), xlist.data_ptr(),
         ylist.data_ptr(), _ptr(prefix3),
         _ptr(bounds) if adaptive_bounds else None, _ptr(bucket_recs),
-        _ptr(rank_recs), _ptr(q_words), _ptr(q3), x.data_ptr(),
+        _ptr(rank_recs), _ptr(rank_sample), sample_shift, _ptr(q_words),
+        _ptr(q3), x.data_ptr(),
         _ptr(pred64), out.data_ptr(), _ptr(lane), _ptr(depth), _ptr(trace),
         x.shape[0], n,
         length, k, buckets, most_over, most_under, max_over, max_under,
@@ -469,7 +523,10 @@ class PlqueryPlan:
     (SaplingIndex.query_device); without them every request passes its
     predicted ranks as pred64, as plquery_cuda's pred64 call takes them
     (NNQueryEngine). Without stats or trace: those calls take
-    plquery_cuda. The plan keeps the arrays it was made of alive and reads
+    plquery_cuda. On rank records with a rank sample (rank_sample, of
+    2^sample_shift ranks an entry) a plan whose 'most' window is wide
+    enough (samples_probes) launches plquery_kernel's sampled form up to
+    32 bases (`sampled`). The plan keeps the arrays it was made of alive and reads
     them as they are: a caller whose arrays change makes a new plan
     (SaplingIndex.query_records). `lib`: the query library (default: this
     module's, built on first use)."""
@@ -479,26 +536,34 @@ class PlqueryPlan:
                  most_under: int, max_over: int, max_under: int,
                  max_stride_steps: int = 1 << 20,
                  adaptive_bounds: bool = False, bucket_recs, rank_recs,
-                 lib=None):
+                 rank_sample=None, sample_shift: int = 0, lib=None):
         dev = rev.device
         if adaptive_bounds and bounds is None:
             raise ValueError("adaptive_bounds=True needs the bounds array")
         bounds = bounds if adaptive_bounds else None
+        if rank_recs is None or not samples_probes(most_over, most_under,
+                                                   sample_shift):
+            rank_sample = None
         _check_index(dev, xlist, ylist, rev, packed, prefix3, bounds,
-                     bucket_recs, rank_recs, n=n, buckets=buckets)
+                     bucket_recs, rank_recs, n=n, buckets=buckets,
+                     rank_sample=rank_sample, shift=sample_shift)
         lib = lib or _lib()
         self._plan = ctypes.create_string_buffer(lib.plquery_plan_size())
         lib.plquery_plan_make(
             self._plan, packed.data_ptr(), packed.shape[0], rev.data_ptr(),
             int(rev.dtype == torch.int64), xlist.data_ptr(),
             ylist.data_ptr(), _ptr(prefix3), _ptr(bounds),
-            _ptr(bucket_recs), _ptr(rank_recs), n, k, buckets,
-            most_over, most_under, max_over, max_under, max_stride_steps,
-            int(adaptive_bounds))
+            _ptr(bucket_recs), _ptr(rank_recs), _ptr(rank_sample),
+            sample_shift, n, k, buckets, most_over, most_under, max_over,
+            max_under, max_stride_steps, int(adaptive_bounds))
         self._launch = lib.plquery_plan_launch
         # what the kernel reads through the plan
         self._arrays = (packed, rev, xlist, ylist, prefix3, bounds,
                         bucket_recs, rank_recs)
+        # the rank sample, where the plan's requests on rank records take
+        # the sampled instance (fast3 requests read prefix3)
+        self._sample = rank_sample
+        self.sampled = rank_sample is not None
         self.device, self.k, self.prefix3 = dev, k, prefix3
         # the form: each request's predicted ranks in place of the table's
         self.takes_pred64 = bucket_recs is None

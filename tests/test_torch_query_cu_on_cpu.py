@@ -179,17 +179,21 @@ def _stats_buffers(b, cap, stats=True):
             torch.full((b, cap), -5, dtype=torch.int64))
 
 
-def _kernel_plquery(lib, args, kw, form="records", cap=TRACE, stats=True):
+def _kernel_plquery(lib, args, kw, form="records", cap=TRACE, stats=True,
+                    shift=None):
     """The kernel on plquery_batch's arguments (host tensors; q_words
     given) and on the record tables of the mocked record kernels
     (_mock_records), with the probe `form`: "fast3" (prefix3, with args'
-    q3), "records" (rank records) or "arrays" (rev and the genome):
-    (positions, int32 [5, B] stats rows a lane (query_cuda.STAT_ROWS),
+    q3), "records" (rank records; with `shift` and the rank records'
+    sample of 2^shift ranks an entry, ops.query.rank_sample, the sampled
+    instance) or "arrays" (rev and the genome):
+    (positions, int32 [6, B] stats rows a lane (query_cuda.STAT_ROWS),
     [C, D] deepest steps, the int64 [B, cap] sector trace), every row
     checked written and the trace checked to hold only sectors of the
     arrays the kernel reads: the records, prefix3 and rev on fast3, rev
-    without rank records, the packed genome, ylist for a wide bucket and
-    bounds with pred64. Without `stats`: (positions, None, None, None)."""
+    without rank records, the packed genome, ylist for a wide bucket,
+    bounds with pred64 and the sample. Without `stats`: (positions, None,
+    None, None)."""
     (packed, rev, xlist, ylist, q_words, x, _prefix, prefix3, q3,
      bounds) = args
     kw = dict(kw)
@@ -205,10 +209,14 @@ def _kernel_plquery(lib, args, kw, form="records", cap=TRACE, stats=True):
     bucket = None if pred64 is not None else bucket
     fast3 = form == "fast3"
     assert not fast3 or q3 is not None
+    sample = None if shift is None else _made(
+        f"sample{shift}", (rank,),
+        lambda: query.rank_sample(rank, n=kw["n"], shift=shift))
     rc = query_cuda.launch_plquery(
         lib, None, packed, rev, xlist, ylist, None if fast3 else q_words, x,
         prefix3, q3 if fast3 else None, bounds, pred64, out, lane, depth,
-        trace, bucket_recs=bucket, rank_recs=rank, **kw)
+        trace, bucket_recs=bucket, rank_recs=rank, rank_sample=sample,
+        sample_shift=shift or 0, **kw)
     assert rc == 0
     if not stats:
         return out, None, None, None
@@ -216,7 +224,7 @@ def _kernel_plquery(lib, args, kw, form="records", cap=TRACE, stats=True):
     _check_trace(trace, lane[1], (
         bucket, ylist, bounds if pred64 is not None else None, rank,
         rev if rank is None else None, None if fast3 else packed,
-        prefix3 if fast3 else None))
+        prefix3 if fast3 else None, sample))
     return out, lane, depth.tolist(), trace
 
 
@@ -1262,11 +1270,11 @@ STATS_TRACE = 256   # every sector of a lane at these sizes
 
 def _stats_case(lib, k21, kernel, length, shift):
     """One call of `kernel` ("records", "arrays", "fast3": plquery's
-    probe forms; "binsearch"; "fancy") on k21 at `length` (plquery with
-    predictions shifted by `shift` ranks where it is not 0, so that lanes
-    scan): (positions with stats, positions without, int32 [5, B] stats
-    rows, [C, D] deepest steps, the whole sector trace, the packed
-    genome)."""
+    probe forms; "sampled": the records form with a rank sample of W = 8;
+    "binsearch"; "fancy") on k21 at `length` (plquery with predictions
+    shifted by `shift` ranks where it is not 0, so that lanes scan):
+    (positions with stats, positions without, int32 [6, B] stats rows, [C,
+    D] deepest steps, the whole sector trace, the packed genome)."""
     dev = k21.device_arrays()
     packed = dev["packed"]
     codes = _mixed_codes(k21.codes, 600, length, seed=length + shift)
@@ -1289,27 +1297,36 @@ def _stats_case(lib, k21, kernel, length, shift):
         over = ({"pred64": _shifted_pred(k21, codes, shift, seed=length)}
                 if shift else {})
         kw = _kw(k21, length, **over)
-        got, lane, depth, trace = _kernel_plquery(lib, args, kw, kernel,
-                                                  cap=STATS_TRACE)
-        plain = _kernel_plquery(lib, args, kw, kernel, stats=False)[0]
+        form, sample = (("records", 3) if kernel == "sampled"
+                        else (kernel, None))
+        got, lane, depth, trace = _kernel_plquery(lib, args, kw, form,
+                                                  cap=STATS_TRACE,
+                                                  shift=sample)
+        plain = _kernel_plquery(lib, args, kw, form, stats=False,
+                                shift=sample)[0]
     assert (lane[1] <= trace.shape[1]).all(), "a lane's trace was cut"
     return got, plain, lane, depth, trace, packed
 
 
 @pytest.mark.parametrize("kernel", ["records", "arrays", "fast3",
-                                    "binsearch", "fancy"])
+                                    "binsearch", "fancy", "sampled"])
 def test_stats_rows(lib, k21, kernel):
-    """The five stats rows (query_cuda.STAT_ROWS) of each query kernel and
+    """The six stats rows (query_cuda.STAT_ROWS) of each query kernel and
     plquery probe form: every row written (the helpers plant -1); the
     deepest phase C and phase D steps over the lanes (rows 2 and 3) are
     the kernel's `depth`, 0 where the kernel has no such phase (the binary
     searches no phase C, the pruned search neither); row 4 is the number
     of the lane's traced sectors inside the packed genome and at most row
     1; on rank records it is 0 up to 32 bases and positive on some lane at
-    33; and the positions equal those of a call without stats."""
+    33; row 5 (sample_decided) is 0 but in the sampled instance (a rank
+    sample given, up to 32 bases), where it is at most row 0; with a
+    sample the probes (row 0) and phase D steps (row 3) equal the records
+    form's lane for lane; and the positions equal those of a call without
+    stats."""
     lengths = (11, 21) if kernel == "fast3" else (21, 32, 33, 45)
     for length in lengths:
-        for shift in ((0, 300) if kernel in ("records", "arrays", "fast3")
+        for shift in ((0, 300) if kernel in ("records", "arrays", "fast3",
+                                             "sampled")
                       else (0,)):
             got, plain, lane, (c, d), trace, packed = _stats_case(
                 lib, k21, kernel, length, shift)
@@ -1325,20 +1342,27 @@ def test_stats_rows(lib, k21, kernel):
             assert (genome <= lane[1]).all(), where
             if kernel == "fast3":
                 assert int(genome.sum()) == 0, where
-            if kernel == "records" and length <= 32:
+            if kernel in ("records", "sampled") and length <= 32:
                 assert int(genome.sum()) == 0, where
-            if kernel == "records" and length == 33:
+            if kernel in ("records", "sampled") and length == 33:
                 assert (genome > 0).any(), where
             if kernel in ("arrays", "binsearch"):
                 assert (genome > 0).all(), where
-    if kernel in ("records", "arrays"):
+            if kernel == "sampled":
+                records = _stats_case(lib, k21, "records", length, shift)[2]
+                for row in (0, 3):
+                    assert lane[row].equal(records[row]), where
+                assert (lane[5] <= lane[0]).all(), where
+            if kernel != "sampled" or length > 32:
+                assert int(lane[5].abs().sum()) == 0, where
+    if kernel in ("records", "arrays", "sampled"):
         assert c > 0   # the shifted predictions scanned
 
 
 def test_read_stats_names_the_rows():
     """_read_stats keeps the kernel's rows under STAT_ROWS' names, in
     order, beside the deepest steps, which it adds to ROUNDS."""
-    lane = torch.arange(5 * 3, dtype=torch.int32).reshape(5, 3)
+    lane = torch.arange(6 * 3, dtype=torch.int32).reshape(6, 3)
     query.ROUNDS.update(C=1, D=2)
     query_cuda._read_stats(lane, torch.tensor([4, 7], dtype=torch.int32),
                            None)
@@ -1348,7 +1372,8 @@ def test_read_stats_names_the_rows():
         assert st[name].equal(lane[i])
     assert (st["C"], st["D"], st["trace"]) == (4, 7, None)
     assert (query.ROUNDS["C"], query.ROUNDS["D"]) == (5, 9)
-    assert query_cuda.stats_buffers(3, "cpu", True)[0].shape == (5, 3)
+    assert query_cuda.STAT_ROWS[4:] == ("genome_sectors", "sample_decided")
+    assert query_cuda.stats_buffers(3, "cpu", True)[0].shape == (6, 3)
     st.clear()
 
 
@@ -1577,3 +1602,290 @@ def test_plan_forms_refuse_the_other_forms_request(lib, k21):
         with pytest.raises(ValueError, match=message):
             plan(x, q_words, None, 33, pred64=p)
     assert (dict(query_cuda.LAUNCHES), dict(query_cuda.PLANS)) == before
+
+
+# --- the rank sample (plquery_kernel's sampled forms) --------------------
+
+SHIFTS = [0, 1, 3, 6]   # W = 1, 2, 8 and 64 ranks an entry
+SHIFT_IDS = ["W1", "W2", "W8", "W64"]
+
+
+def _zero_padded_keys(codes, sa):
+    """uint64 [n]: each rank's suffix's first 32 bases, big-endian 2 bits a
+    base, zero past the genome's end."""
+    n = len(codes)
+    windows = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([codes, np.zeros(32, np.uint8)]), 32)[:n]
+    return (windows.astype(np.uint64) << (np.uint64(62) - np.uint64(2)
+                                          * np.arange(32, dtype=np.uint64))
+            ).sum(1, dtype=np.uint64)[sa]
+
+
+@pytest.mark.parametrize("pad", [16, 1, 0])
+def test_rank_sample_source(lib, dup_genome, pad):
+    """ops.query.rank_sample of the mocked records kernel's rank records:
+    entry e holds the first 32 bases of rank min(eW, n - 1)'s suffix, zero
+    past the genome's end, also where the packed array has too few pad
+    words and the record's key holds clamped words there; the entries
+    rise (as unsigned keys) with e, at every W; ((n - 1) >> shift) + 2 of
+    them, the last rank n - 1's."""
+    seq = np.concatenate([dup_genome[:2500], repeat_genome(300, period=3,
+                                                          seed=4)])
+    n = len(seq)
+    codes = packops.encode_bases(seq)
+    sa = build_suffix_data(seq, np.int32).sa
+    rev = torch.from_numpy(sa.astype(np.int32))
+    packed = torch.from_numpy(
+        packops.pack_codes(codes, pad_words=pad).astype(np.int64))
+    rank = _mock_built(lib, packed, rev, None, None, n)
+    keys = _zero_padded_keys(codes, sa)
+    raw = rank[:, 0].numpy().view(np.uint64)
+    # off-end suffixes whose record key differs from the zero-padded one
+    assert (raw != keys).any() == (pad == 0)
+    for shift in range(8):
+        got = query.rank_sample(rank, n=n, shift=shift).numpy().view(
+            np.uint64)
+        ranks = np.minimum(np.arange(((n - 1) >> shift) + 2) << shift, n - 1)
+        np.testing.assert_array_equal(got, keys[ranks])
+        assert ranks[-1] == n - 1 and ranks[-2] < n - 1 or shift == 0
+        assert (np.diff(got.astype(np.float64)) >= 0).all()
+        assert (got[1:] >= got[:-1]).all()
+
+
+def test_sample_shift_follows_the_l2():
+    """W is the smallest power of two whose sample (8 bytes an entry)
+    takes at most a quarter of the L2: 64 at 100 Mbp on an H100's 50 MB,
+    12.5 MB; a genome whose every rank fits takes W = 1; and a plan on
+    rank records asks the sample where the 'most' window spans 16 W."""
+    l2 = 50 * 1024 * 1024
+    n = 100_286_401
+    shift = query_cuda.sample_shift(n, l2)
+    assert shift == 6
+    assert 8 * (((n - 1) >> shift) + 2) <= l2 // 4
+    assert 8 * (((n - 1) >> (shift - 1)) + 2) > l2 // 4
+    assert 12.4e6 < 8 * (((n - 1) >> shift) + 2) < 12.6e6
+    assert query_cuda.sample_shift(30_000, l2) == 0
+    assert query_cuda.sample_shift(30_000, 8 * 4 * 1000) == 5
+    assert query_cuda.samples_probes(512, 512, 6)
+    assert not query_cuda.samples_probes(512, 511, 6)
+    assert query_cuda.samples_probes(1_310_795, 12_261_932, 6)
+    assert not query_cuda.samples_probes(30, 40, 6)
+
+
+def _sampled_key_codes(idx, length, num, shift, seed):
+    """num queries from the suffixes at sampled ranks (multiples of 2^shift
+    and n - 1): their first `length` bases, zero (A) past the genome's end,
+    so that their first min(length, 32) bases equal a sampled key."""
+    n = idx.n
+    rng = np.random.default_rng(seed)
+    ranks = np.minimum(rng.integers(0, ((n - 1) >> shift) + 2, num) << shift,
+                       n - 1)
+    ranks[:8] = n - 1
+    pos = np.asarray(idx.rev, np.int64)[ranks]
+    padded = np.concatenate([idx.codes, np.zeros(length, np.uint8)])
+    return padded[pos[:, None] + np.arange(length)]
+
+
+def _check_sampled(lib, args, kw, shift):
+    """The sampled instance (rank records and their sample of 2^shift
+    ranks an entry) against today's instance on the same rank records and
+    the plain plquery_batch, bit for bit, with and without stats; per lane
+    the same probes and phase C and D steps; row 5 (sample_decided) at
+    most the probes and 0 in today's instance; and the record sectors a
+    lane reads fewer by exactly the probes the sample decided. Returns the
+    int64 [B] decided probes."""
+    query.ROUNDS.update(C=0, D=0)
+    want = query.plquery_batch(*args, **kw)
+    rounds = dict(query.ROUNDS)
+    got0, lane0, depth0, trace0 = _kernel_plquery(lib, args, kw, "records",
+                                                  cap=STATS_TRACE)
+    got1, lane1, depth1, trace1 = _kernel_plquery(lib, args, kw, "records",
+                                                  cap=STATS_TRACE,
+                                                  shift=shift)
+    plain1 = _kernel_plquery(lib, args, kw, "records", stats=False,
+                             shift=shift)[0]
+    for got in (got0, got1, plain1):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert depth0 == depth1 == [rounds["C"], rounds["D"]]
+    for row in (0, 2, 3):
+        assert lane1[row].equal(lane0[row]), query_cuda.STAT_ROWS[row]
+    decided = lane1[5].long()
+    assert int(lane0[5].abs().sum()) == 0
+    assert (decided <= lane1[0]).all()
+    assert (lane0[1] <= STATS_TRACE).all() and (lane1[1] <= STATS_TRACE).all()
+    rank = _made("rank", (args[0], args[1]), None)
+    sample = _made(f"sample{shift}", (rank,), None)
+    assert _span_hits(trace1, rank).equal(_span_hits(trace0, rank) - decided)
+    assert (_span_hits(trace1, sample) >= decided).all()
+    assert lane1[4].equal(lane0[4])
+    return decided
+
+
+@pytest.fixture(scope="module")
+def tail_index():
+    """An index (no prefix arrays) of a genome that ends in a period-3
+    run, so that the suffixes running off its end share their first bases
+    with many others and fall inside sample brackets."""
+    seq = np.concatenate([benchmark_genome(9000, seed=31),
+                          repeat_genome(400, period=3, seed=32)])
+    return _bare(_index(seq, 21, 8))
+
+
+def _unpadded(args):
+    """args with the packed genome cut to its last word (no pad): the rank
+    records' keys of the suffixes near the end then hold clamped words,
+    which the sample zeroes."""
+    packed = args[0]
+    words = -(-(int(args[1].shape[0])) // 16)
+    return (packed[:words].clone(),) + args[1:]
+
+
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+@pytest.mark.parametrize("genome", ["k21", "dup", "tail", "unpadded"])
+def test_sampled_kernel_source_matches_unsampled(lib, k21, dup_genome,
+                                                 tail_index, genome, shift):
+    """plquery_kernel's sampled forms under wide PWL windows (the 'most'
+    window widened to thousands of ranks, predictions shifted by up to
+    2,500 and the table's own, adaptive bounds on one) at lengths 21, 32,
+    41 and 101, on genomes with duplicate runs (k21's, dup_genome), on one
+    whose off-end suffixes tie with a periodic run, and with no pad words
+    (clamped keys): absent, poly-A / poly-T, genome-tail and off-end
+    queries and queries equal to sampled keys; every lane as today's
+    instance and the plain cascade (_check_sampled), and the sample
+    decides probes up to 32 bases; past 32 the launch takes the records
+    form, sample or not, and the sample decides none."""
+    idx = {"tail": tail_index,
+           "dup": _bare(_index(dup_genome, 21, 8))}.get(genome)
+    idx = _bare(k21) if idx is None else idx
+    t = idx.table
+    wide = dict(most_over=t.most_over + 3000, most_under=t.most_under + 3000,
+                max_over=t.max_over + 6000, max_under=t.max_under + 6000)
+    decided = 0
+    for length in (21, 32, 41, 101):
+        codes = np.concatenate([
+            _fancy_queries(idx.codes, length, 500, seed=length + shift),
+            _boundary_queries(idx, length, 300, seed=length),
+            _sampled_key_codes(idx, length, 300, shift, seed=length)])
+        args = _args(idx, codes, with_bounds=True)
+        if genome == "unpadded":
+            args = _unpadded(args)
+        pred = _shifted_pred(idx, codes, 2500, seed=length)
+        for over in (dict(pred64=pred), {},
+                     dict(adaptive_bounds=True) if length == 41 else None):
+            if over is not None:
+                kw = _kw(idx, length, **dict(wide, **over))
+                got = int(_check_sampled(lib, args, kw, shift).sum())
+                assert length <= 32 or got == 0, (length, over)
+                decided += got
+    assert decided > 0
+
+
+@pytest.mark.parametrize("shift", SHIFTS, ids=SHIFT_IDS)
+@pytest.mark.parametrize("epochs", [0, 30], ids=["random", "trained"])
+def test_sampled_kernel_source_nn_windows(lib, k21, nn_k21, epochs, shift):
+    """plquery_kernel's sampled form on the NN engine's pred64 and windows
+    (test_nn_engine_plan_matches_pred64_call's models and batch, with
+    boundary queries and queries equal to sampled keys): every lane as
+    today's instance and the plain cascade, and the sample decides most
+    of the bisection's probes where the windows span many brackets."""
+    idx = _bare(k21)
+    srv = nn_k21[epochs]
+    codes = np.concatenate([
+        _mixed_codes(k21.codes, 2000, 21, seed=40 + epochs),
+        _boundary_queries(idx, 21, 300, seed=epochs),
+        _sampled_key_codes(idx, 21, 300, shift, seed=epochs)])
+    args = _args(idx, codes)
+    x = args[5]
+    kw = _kw(idx, 21, most_over=srv.most_over, most_under=srv.most_under,
+             max_over=srv.max_over, max_under=srv.max_under,
+             pred64=srv.predict_ranks(x))
+    decided = _check_sampled(lib, args, kw, shift)
+    assert int(decided.sum()) > 0
+    if query_cuda.samples_probes(srv.most_over, srv.most_under, shift):
+        query.ROUNDS.update(C=0, D=0)
+        _, lane, _, _ = _kernel_plquery(lib, args, kw, "records",
+                                        cap=STATS_TRACE, shift=shift)
+        assert int(decided.sum()) > int(lane[0].sum()) // 4
+
+
+def _card_index(idx, monkeypatch, l2):
+    """A copy of idx that stands as if on the card (its device arrays host
+    tensors, so that the record builders take their plain versions; rank
+    records made whatever the size, the L2 `l2` bytes), and the mocked
+    library as the query library."""
+    from sapling_tpu_torch.index import sapling
+
+    out = SaplingIndex.from_arrays(idx, device="cpu")
+    out.prefix64 = out.prefix3 = None
+    monkeypatch.setattr(out, "device", torch.device("cuda"))
+    monkeypatch.setattr(SaplingIndex, "_put",
+                        lambda self, a: torch.from_numpy(np.array(a)))
+    monkeypatch.setattr(sapling, "reads_rank_records", lambda rev, pk: True)
+    monkeypatch.setattr(sapling, "l2_bytes", lambda device: l2)
+    return out
+
+
+def test_index_makes_the_sample_with_its_rank_records(lib, k21, nn_k21,
+                                                      monkeypatch):
+    """The rank records' sample is made on the first call of a plan whose
+    'most' window spans 16 W (rank_sample; W by the L2 rule,
+    sample_shift), not for narrower windows, kept while the rank records
+    are and counted in device_bytes from then on, and dropped with them
+    when the device arrays change (the plans with them); the NN engine's
+    plan on a wide-window model takes the sampled instance, a PWL plan
+    with windows of a few dozen ranks does not (given the sample or not),
+    and both answer as the plain cascade."""
+    from sapling_tpu_torch.models.serve import NNQueryEngine
+
+    l2 = 8 * 4 * 1000
+    srv = nn_k21[0]
+    engine = NNQueryEngine(_bare(k21), srv)
+    idx = engine.idx = _card_index(k21, monkeypatch, l2)
+    monkeypatch.setattr(query_cuda, "_LIB", lib)
+    t = idx.table
+    shift = query_cuda.sample_shift(idx.n, l2)
+    assert shift == 5
+    assert srv.most_over + srv.most_under >= 16 << shift
+    assert t.most_over + t.most_under < 16 << shift
+    kw = idx._query_kw(QueryConfig(), *idx.query_records())
+    assert kw["rank_sample"] is None and kw["sample_shift"] == 0
+    assert idx.rank_sample(t.most_over, t.most_under) == (None, 0)
+    assert idx._records["sample"] is None
+    before = idx.device_bytes()
+    rank = idx.query_records()[1]
+    nn_plan = engine.plan()
+    sample = idx._records["sample"]
+    assert nn_plan.sampled
+    assert sample.equal(query.rank_sample(rank, n=idx.n, shift=shift))
+    assert idx.rank_sample(srv.most_over, srv.most_under) == (sample, shift)
+    assert idx.device_bytes() == before + 8 * sample.numel()
+    dev = idx.device_arrays()
+    pwl_plan = query_cuda.PlqueryPlan(dev["packed"], dev["rev"],
+                                      dev["xlist"], dev["ylist"], None,
+                                      dev["bounds"], lib=lib, **kw)
+    assert not pwl_plan.sampled
+    given = query_cuda.PlqueryPlan(
+        dev["packed"], dev["rev"], dev["xlist"], dev["ylist"], None,
+        dev["bounds"], lib=lib, **dict(kw, rank_sample=sample,
+                                       sample_shift=shift))
+    assert not given.sampled
+    codes = _mixed_codes(k21.codes, 1500, 21, seed=12)
+    args = _args(_bare(k21), codes)   # the same arrays, on the CPU
+    x, q_words = args[5], args[4]
+    pred = srv.predict_ranks(x)
+    for plan, over in ((nn_plan, dict(
+            pred64=pred, most_over=srv.most_over, most_under=srv.most_under,
+            max_over=srv.max_over, max_under=srv.max_under)),
+            (pwl_plan, {})):
+        out = torch.full((x.shape[0],), -777, dtype=torch.int64)
+        assert plan.launch(None, x, q_words, None, out, 21,
+                           over.get("pred64")) == 0
+        assert out.equal(query.plquery_batch(*args, **_kw(idx, 21, **over)))
+    # new device arrays: the rank records, their sample and the plans anew
+    idx._device["rev"] = idx._device["rev"].clone()
+    assert idx.query_records()[1] is not rank
+    assert idx._records["plans"] == {} and idx._records["sample"] is None
+    assert idx.device_bytes() == before
+    sample2, shift2 = idx.rank_sample(srv.most_over, srv.most_under)
+    assert sample2 is not sample and sample2.equal(sample) and shift2 == shift
+    assert engine.plan() is not nn_plan and engine.plan().sampled

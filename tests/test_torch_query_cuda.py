@@ -206,6 +206,97 @@ def test_rank_records_past_the_l2(dev, seq, monkeypatch):
         "plquery_records"] + 1
 
 
+def _registers(lib_path):
+    """{kernel's mangled name: (registers, spill store bytes, spill load
+    bytes)} of the plquery instances in nvcc's -Xptxas -v log beside a
+    library of ops.sw_cuda.build_kernel."""
+    import re
+
+    with open(lib_path[:-3] + ".log") as f:
+        log = f.read()
+    return {m.group(1): (int(m.group(5)), int(m.group(3)), int(m.group(4)))
+            for m in re.finditer(
+                r"Function properties for (\S*plquery_kernel\S*)\s+(\d+) "
+                r"bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                r"spill loads\s+ptxas info\s+: Used (\d+) registers", log)}
+
+
+@pytest.mark.cuda
+def test_sampled_instance_past_the_l2(dev, seq, monkeypatch):
+    """On test_rank_records_past_the_l2's index (rank records forced), the
+    sampled instance (the index's rank sample, and samples of W = 8 and
+    64) gives the unsampled instance's positions on NN-width windows (the
+    'most' window a quarter of the genome, predictions up to 100,000
+    ranks off), with the same probes and bisection steps a lane and most
+    of its bisection probes decided by the sample up to 32 bases (past
+    them the launch takes the records form and the sample decides none);
+    and the plquery instances' ptxas registers, printed: the sampled key
+    form at most 48 registers (five blocks of 256 an SM, as the key form's
+    44), none spilling."""
+    import re
+
+    from sapling_tpu_torch.index import sapling
+    from sapling_tpu_torch.ops.sw_cuda import build_kernel
+
+    monkeypatch.setattr(query_cuda, "reads_rank_records", lambda rev, p: True)
+    monkeypatch.setattr(sapling, "reads_rank_records", lambda rev, p: True)
+    idx = _index(seq, dev, prefix=False)
+    quarter = idx.n // 4
+    sample, shift = idx.rank_sample(quarter, quarter)
+    rank = idx.query_records()[1]
+    assert shift == query_cuda.sample_shift(idx.n, query_cuda.l2_bytes(dev))
+    assert torch.equal(sample, query.rank_sample(rank, n=idx.n, shift=shift))
+    for length in (21, 41):
+        codes = np.concatenate([_queries(seq, 40_000, length, seed=length),
+                                _off_end(seq, length, 500, seed=length)])
+        x = torch.from_numpy(idx.kmerize_batch(codes)).to(dev)
+        d = idx.device_arrays()
+        pred = predict_pwl(x, d["xlist"], d["ylist"], 2 * idx.k,
+                           idx.buckets, idx.n)
+        rng = np.random.default_rng(length)
+        pred = torch.clamp(pred + torch.from_numpy(rng.integers(
+            -100_000, 100_001, len(codes))).to(dev), 0, idx.n - 1)
+        kw = dict(most_over=quarter, most_under=quarter,
+                  max_over=2 * quarter, max_under=2 * quarter, pred64=pred,
+                  rank_recs=rank, stats=True)
+        want = _call(query_cuda.plquery_cuda, idx, codes, **kw)
+        before = {r: query_cuda.LAST_STATS[r].clone() for r in (
+            "probes", "d_steps", "sample_decided")}
+        assert int(before["sample_decided"].sum()) == 0
+        for w_shift, w_sample in ((shift, sample), (3, None), (6, None)):
+            if w_sample is None:
+                w_sample = query.rank_sample(rank, n=idx.n, shift=w_shift)
+            assert query_cuda.samples_probes(quarter, quarter, w_shift)
+            got = _call(query_cuda.plquery_cuda, idx, codes,
+                        rank_sample=w_sample, sample_shift=w_shift, **kw)
+            assert torch.equal(got, want), (length, w_shift)
+            st = query_cuda.LAST_STATS
+            for r in ("probes", "d_steps"):
+                assert torch.equal(st[r], before[r]), (length, w_shift, r)
+            decided = st["sample_decided"]
+            assert (decided <= st["probes"]).all()
+            if length <= 32:
+                assert int(decided.sum()) > int(st["d_steps"].sum()) // 3
+            else:
+                assert int(decided.abs().sum()) == 0
+            plain = _call(query_cuda.plquery_cuda, idx, codes,
+                          rank_sample=w_sample, sample_shift=w_shift,
+                          **dict(kw, stats=False))
+            assert torch.equal(plain, want)
+    regs = _registers(build_kernel(query_cuda.SOURCE))
+    for name, (used, spill_st, spill_ld) in sorted(regs.items()):
+        print(f"ptxas {name}: {used} registers, spills {spill_st} / "
+              f"{spill_ld} bytes")
+    # the sampled form, kSampledKey (3)
+    sampled = {k: v for k, v in regs.items()
+               if re.search(r"plquery_kernelILi3E", k)}
+    assert len(sampled) == 4 and len(regs) == 20
+    assert all(st == ld == 0 for _, st, ld in regs.values())
+    # the sampled key form up to 32 bases, int32 rev, without stats
+    key = [v for k, v in sampled.items() if "ILi3EiLb1ELb0EE" in k]
+    assert len(key) == 1 and key[0][0] <= 48, key
+
+
 @pytest.mark.cuda
 def test_swap_table_rebuilds_the_bucket_records(dev, seq):
     """swap_table on an index whose record tables exist: the bucket records
